@@ -1,0 +1,132 @@
+"""Analytic input buffers for driving the effect chain without a
+rasterizer: a 20 x 20 ground plane at y = 0 with a unit box on it,
+ray-cast per pixel on the given device (the scene of the JAX package's
+``tests/test_external_ingestion.py``), with the camera orbiting as the
+animated configurations of ``bench.py`` do. ``chip_smoke.py`` and
+``profile_slice.py`` drive the HBAO + TRAA slice with it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .composer import EffectComposer
+from .core.camera import PerspectiveCamera
+from .core.framebuffers import GBuffer, VelocityBuffer
+from .core.math3d import uv_grid
+from .effects.ao import HBAOEffect
+from .effects.traa import TRAAEffect
+
+
+def orbit(cam, f: int):
+    """Camera of frame ``f``: radius 4 at height 2.5, 0.02 rad a frame."""
+    ang = 0.6 + 0.02 * f
+    cam.set_position(4 * math.sin(ang), 2.5, 4 * math.cos(ang))
+    cam.look_at((0, 0.5, 0))
+
+
+def _project(m, p):
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    r = [float(m[i, 0]) * x + float(m[i, 1]) * y + float(m[i, 2]) * z
+         + float(m[i, 3]) for i in range(4)]
+    return r[0] / r[3], r[1] / r[3], r[2] / r[3]
+
+
+def ray_cast(mats, prev_mats, h: int, w: int, device):
+    """(GBuffer, VelocityBuffer, scene colour (H, W, 3)) of the scene
+    seen through camera ``mats``: depth, world normals (0 on the
+    background), velocity = current uv - uv under ``prev_mats``, and a
+    Lambert-lit colour."""
+    uv = uv_grid(h, w, device)
+    ndc = torch.stack([(uv[..., 0] - 0.5) * 2.0, (uv[..., 1] - 0.5) * 2.0,
+                       torch.ones_like(uv[..., 0])], -1)
+    inv_pv = np.linalg.inv(mats.projection_view_matrix.astype(np.float64))
+    far = torch.stack(_project(inv_pv, ndc), -1)
+    org = torch.tensor(mats.position, dtype=torch.float32, device=device)
+    d = far - org
+    d = d / d.norm(dim=-1, keepdim=True)
+    inf = torch.full_like(d[..., 0], float("inf"))
+
+    # ground plane y = 0, |x|, |z| <= 10
+    t_pl = torch.where(d[..., 1] < 0, -org[1] / d[..., 1], inf)
+    hit = org + t_pl[..., None] * d
+    t_pl = torch.where((hit[..., 0].abs() <= 10) & (hit[..., 2].abs() <= 10),
+                       t_pl, inf)
+    # box [-0.5, 0.5] x [0, 1] x [-0.5, 0.5] (slabs)
+    lo = torch.tensor([-0.5, 0.0, -0.5], device=device)
+    hi = torch.tensor([0.5, 1.0, 0.5], device=device)
+    t0 = (lo - org) / d
+    t1 = (hi - org) / d
+    t_near, axis = torch.minimum(t0, t1).max(dim=-1)
+    t_far = torch.maximum(t0, t1).min(dim=-1).values
+    t_box = torch.where((t_near <= t_far) & (t_near > 0), t_near, inf)
+
+    box = t_box < t_pl
+    t = torch.minimum(t_box, t_pl)
+    bg = torch.isinf(t)
+    p = org + torch.where(bg, 0.0, t)[..., None] * d
+    n_box = torch.zeros_like(d).scatter_(
+        -1, axis[..., None], -torch.sign(d).gather(-1, axis[..., None]))
+    n_pl = torch.zeros_like(d)
+    n_pl[..., 1] = 1.0
+    normal = torch.where(box[..., None], n_box, n_pl)
+    normal = torch.where(bg[..., None], 0.0, normal).contiguous()
+
+    _, _, z = _project(mats.projection_view_matrix, p)
+    depth = torch.where(bg, 1.0, z * 0.5 + 0.5).contiguous()
+    px, py, _ = _project(prev_mats.projection_view_matrix, p)
+    prev_uv = torch.stack([px * 0.5 + 0.5, py * 0.5 + 0.5], -1)
+    velocity = torch.where(bg[..., None], 0.0, uv - prev_uv).contiguous()
+
+    albedo = torch.where(box[..., None],
+                         torch.tensor([0.9, 0.3, 0.2], device=device),
+                         torch.tensor([0.6, 0.6, 0.65], device=device))
+    sun = torch.tensor([0.4, 0.8, 0.45], device=device)
+    sun = sun / sun.norm()
+    lambert = (normal * sun).sum(-1).clamp(min=0.0)[..., None]
+    color = albedo * (0.2 + 1.1 * lambert)
+    color = torch.where(bg[..., None],
+                        torch.tensor([0.5, 0.7, 0.9], device=device), color)
+    gb = GBuffer(
+        diffuse=torch.cat([albedo, torch.ones_like(depth)[..., None]], -1),
+        normal=normal, roughness=torch.where(box, 0.4, 0.8),
+        metalness=torch.zeros_like(depth), emissive=torch.zeros_like(d),
+        depth=depth)
+    vel = VelocityBuffer(velocity=velocity, normal=normal, depth=depth)
+    return gb, vel, color.contiguous()
+
+
+def frames_for(cam, n: int, h: int, w: int, device, first: int = 0):
+    """Buffers of frames ``first .. first + n - 1`` of the orbit."""
+    out = []
+    orbit(cam, first - 1)
+    prev = cam.matrices()
+    for f in range(first, first + n):
+        orbit(cam, f)
+        mats = cam.matrices()
+        out.append(ray_cast(mats, prev, h, w, device))
+        prev = mats
+    return out
+
+
+def hbao_traa_composer(h: int, w: int, device):
+    """``EffectComposer`` with ``HBAOEffect()`` + ``TRAAEffect()`` and its
+    camera."""
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    comp = EffectComposer(None, cam, w, h, device=device)
+    comp.add_effect(HBAOEffect())
+    comp.add_effect(TRAAEffect())
+    return comp, cam
+
+
+def run_frames(comp, cam, frames, first: int = 0):
+    """Render ``frames`` (from :func:`frames_for` with the same ``first``)
+    with the camera on the orbit; returns the images."""
+    images = []
+    for i, (gb, vel, color) in enumerate(frames):
+        orbit(cam, first + i)
+        images.append(comp.render_external(gb, vel, color, dt=1 / 60))
+    return images

@@ -1,0 +1,140 @@
+"""Core 3D math: view/screen/world transforms on torch tensors.
+
+Conventions (the same as the JAX package's ``core/math3d.py``):
+
+- Matrices are host ``(4, 4)`` float32 numpy arrays applied as
+  ``M @ [x, y, z, 1]``. Each entry enters the tensor arithmetic as a
+  scalar, so a transform needs no host-to-device copy.
+- ``view_matrix`` maps world -> view (camera looks down -Z);
+  ``camera_matrix_world`` is its inverse.
+- Screen ``uv`` is in [0, 1]^2 with ``u`` along width; storage is
+  ``(H, W, ...)`` with row 0 at ``v = 0``.
+- ``depth`` is the [0, 1] depth-buffer value (NDC z * 0.5 + 0.5).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _apply_rows(m, p, rows, translate_col):
+    """sum_j m[row, j] * p[..., j] (+ m[row, tcol]) for each row.
+
+    Explicit per-row arithmetic, not a matmul: every product and sum is
+    one float32 rounding in a fixed order, on the CPU and on the card
+    alike (a matmul could reorder the sum or run in TF32)."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    outs = []
+    for r in rows:
+        v = float(m[r, 0]) * x + float(m[r, 1]) * y + float(m[r, 2]) * z
+        if translate_col is not None:
+            v = v + float(m[r, translate_col])
+        outs.append(v)
+    return outs
+
+
+def transform_point(m, p):
+    """Apply a 4x4 matrix to points ``(..., 3)`` with w-divide."""
+    rx, ry, rz, w = _apply_rows(m, p, (0, 1, 2, 3), 3)
+    return torch.stack([rx, ry, rz], dim=-1) / w[..., None]
+
+
+def transform_point_nodiv(m, p):
+    """Apply a 4x4 matrix to points ``(..., 3)``; returns xyz and w."""
+    rx, ry, rz, w = _apply_rows(m, p, (0, 1, 2, 3), 3)
+    return torch.stack([rx, ry, rz], dim=-1), w
+
+
+def length(v):
+    """Euclidean norm over the last axis, summed in index order."""
+    acc = v[..., 0] * v[..., 0]
+    for i in range(1, v.shape[-1]):
+        acc = acc + v[..., i] * v[..., i]
+    return torch.sqrt(acc)
+
+
+def normalize(v, eps: float = 1e-20):
+    return v * torch.reciprocal(torch.clamp(length(v), min=eps))[..., None]
+
+
+def dot(a, b):
+    prod = a * b
+    acc = prod[..., 0]
+    for i in range(1, prod.shape[-1]):
+        acc = acc + prod[..., i]
+    return acc
+
+
+def perspective_depth_to_view_z(depth, near, far):
+    """[0,1] depth-buffer value -> (negative) view-space z (three.js
+    ``perspectiveDepthToViewZ``). ``near``/``far`` are float32 values;
+    the scalar products round in float32 as on the device."""
+    nf = float(np.float32(near) * np.float32(far))
+    fmn = float(np.float32(far) - np.float32(near))
+    return rdiv(nf, fmn * depth - float(far))
+
+
+def orthographic_depth_to_view_z(depth, near, far):
+    return depth * float(np.float32(near) - np.float32(far)) - float(near)
+
+
+def depth_to_view_z(depth, cam):
+    """Depth-buffer value -> view-space z; the projection type is read off
+    the projection matrix (``P[3, 2] == -1`` for a perspective camera)."""
+    if float(cam.projection_matrix[3, 2]) != 0.0:
+        return perspective_depth_to_view_z(depth, cam.near, cam.far)
+    return orthographic_depth_to_view_z(depth, cam.near, cam.far)
+
+
+def screen_to_world(uv, depth, camera_matrix_world, projection_matrix_inverse):
+    """(uv, depth) -> world position (`reproject.frag:21-28`)."""
+    ndc = torch.stack(
+        [(uv[..., 0] - 0.5) * 2.0, (uv[..., 1] - 0.5) * 2.0,
+         (depth - 0.5) * 2.0],
+        dim=-1,
+    )
+    clip = transform_point(projection_matrix_inverse, ndc)
+    return transform_point(camera_matrix_world, clip)
+
+
+def fwidth(v):
+    """Per-pixel |ddx| + |ddy| over an ``(H, W, ...)`` tensor: forward
+    differences, zero at the last column and row (edge replication)."""
+    dx = torch.zeros_like(v)
+    dy = torch.zeros_like(v)
+    dx[:, :-1] = v[:, 1:] - v[:, :-1]
+    dy[:-1] = v[1:] - v[:-1]
+    return dx.abs() + dy.abs()
+
+
+def uv_grid(height: int, width: int, device=None):
+    """Pixel-center uv coordinates, shape ``(H, W, 2)``; row 0 is v=0."""
+    u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
+    v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    return torch.stack([uu, vv], dim=-1)
+
+
+def smoothstep(e0, e1, x):
+    t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def mix(a, b, t):
+    return a + (b - a) * t
+
+
+def rdiv(num: float, t):
+    """``num / t`` as one float32 division. (``float / tensor`` in torch
+    is ``t.reciprocal() * num``: two roundings.)"""
+    return torch.full_like(t, num) / t
+
+
+def floor_int32(x):
+    """``floor(x)`` as int32 with XLA's conversion law: NaN -> 0 and
+    out-of-range values saturate. Bounded here to +-2^30, which every
+    caller clips further (to the frame or to +-2^20)."""
+    lim = float(1 << 30)
+    x = torch.nan_to_num(torch.floor(x), nan=0.0, posinf=lim, neginf=-lim)
+    return torch.clamp(x, -lim, lim).to(torch.int32)

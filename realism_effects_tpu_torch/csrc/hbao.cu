@@ -1,0 +1,185 @@
+// Fused HBAO (`hbao.frag:80-115`, `hbao_utils.glsl:21-62`): per pixel,
+// reconstruct the world position, draw spp cosine-weighted directions
+// from the blue-noise tile, project each sample, fetch its depth
+// (nearest, window-clamped), and integrate the horizon occlusion.
+//
+// Replaces ops/pallas/hbao.py::_hbao_kernel (hbao_fused). Semantics
+// kept: the two-step screen->world transform_point; the basis
+// b = normalize(cross(n, (0,1,1))), t = cross(b, n) with rsqrt; the
+// sample distance distance * u2^(power+1) as exp(log(u2) * (power+1));
+// non-finite sample uvs set to 0 before the integer cast; the sample
+// target clamped to +-ky rows / +-kx columns around the pixel (this
+// bounds the sampling radius in screen space) after the frame clamp.
+// Noise of sample s is tile[(y + sy_s) % 128, (x + sx_s) % 128],
+// channels 0..2, with the shifts computed on the host.
+//
+// On the H100 this kernel is bound by operations, not bytes: 20 bytes a
+// pixel against, per sample, sin, cos, exp, log, three sqrt, two rsqrt
+// and two divisions. Design: one thread per pixel, everything in
+// registers, the spp sample depths fetched straight from global memory
+// (neighbouring threads fetch neighbouring texels; L1/L2 serve them).
+// No window limit: the TPU's ky <= 64, kx <= 32 came from VMEM blocks
+// and lane groups.
+#include "common.cuh"
+
+namespace {
+
+using re::clampi;
+
+constexpr int kMaxSpp = 32;
+constexpr float kPi2 = 6.2831855f;  // float32(2 * pi)
+
+struct HbaoParams {
+  float pmi[16];   // projection_matrix_inverse, row-major
+  float cmw[16];   // camera_matrix_world
+  float pv[16];    // projection_view_matrix
+  float cpos[3];   // camera position
+  float dist;      // distance
+  float pow1;      // distance_power + 1
+  float bias;      // bias (scaled by 1000 in the kernel)
+  float th;        // thickness * 0.01
+  float inv_w;     // float32(1 / W)
+  float inv_h;     // float32(1 / H)
+  int spp;
+  int sy[kMaxSpp];
+  int sx[kMaxSpp];
+};
+
+__device__ __forceinline__ void tpoint(const float* m, float x, float y,
+                                       float z, float& ox, float& oy,
+                                       float& oz) {
+  const float r0 = m[0] * x + m[1] * y + m[2] * z + m[3];
+  const float r1 = m[4] * x + m[5] * y + m[6] * z + m[7];
+  const float r2 = m[8] * x + m[9] * y + m[10] * z + m[11];
+  const float r3 = m[12] * x + m[13] * y + m[14] * z + m[15];
+  ox = r0 / r3;
+  oy = r1 / r3;
+  oz = r2 / r3;
+}
+
+__global__ void hbao_kernel(const float* __restrict__ depth,
+                            const float* __restrict__ normal,
+                            const float* __restrict__ tile,
+                            float* __restrict__ ao_out, int h, int w, int ky,
+                            int kx, const HbaoParams p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y;
+  if (x >= w) return;
+  const int pix = y * w + x;
+  const float d = depth[pix];
+  const float uvx = (static_cast<float>(x) + 0.5f) * p.inv_w;
+  const float uvy = (static_cast<float>(y) + 0.5f) * p.inv_h;
+  float cx, cy, cz, wpx, wpy, wpz;
+  tpoint(p.pmi, (uvx - 0.5f) * 2.0f, (uvy - 0.5f) * 2.0f, (d - 0.5f) * 2.0f,
+         cx, cy, cz);
+  tpoint(p.cmw, cx, cy, cz, wpx, wpy, wpz);
+
+  const float nx = normal[3 * pix];
+  const float ny = normal[3 * pix + 1];
+  const float nz = normal[3 * pix + 2];
+  const float bias_k = p.bias * 1000.0f;
+  // b = normalize(cross(n, (0, 1, 1))), t = cross(b, n)
+  float bx = ny - nz;
+  float by = -nx;
+  float bz = nx;
+  const float binv = rsqrtf(bx * bx + by * by + bz * bz);
+  bx = bx * binv;
+  by = by * binv;
+  bz = bz * binv;
+  const float tx_ = by * nz - bz * ny;
+  const float ty_ = bz * nx - bx * nz;
+  const float tz_ = bx * ny - by * nx;
+
+  float ao = 0.0f;
+  float tw = 0.0f;
+  for (int s = 0; s < p.spp; ++s) {
+    const float* u = tile + (((y + p.sy[s]) & 127) * 128 + ((x + p.sx[s]) & 127)) * 4;
+    const float u0 = u[0];
+    const float u1 = u[1];
+    const float u2 = u[2];
+    const float r_ = sqrtf(u0);
+    const float theta = u1 * kPi2;
+    const float sth = sinf(theta);
+    const float cth = cosf(theta);
+    const float k1 = r_ * sth;
+    const float k2 = sqrtf(fmaxf(1.0f - u0, 0.0f));
+    const float k3 = r_ * cth;
+    float dx_ = k1 * bx + k2 * nx + k3 * tx_;
+    float dy_ = k1 * by + k2 * ny + k3 * ty_;
+    float dz_ = k1 * bz + k2 * nz + k3 * tz_;
+    const float dinv = rsqrtf(dx_ * dx_ + dy_ * dy_ + dz_ * dz_);
+    dx_ = dx_ * dinv;
+    dy_ = dy_ * dinv;
+    dz_ = dz_ * dinv;
+
+    const float dist = p.dist * re::pow_el(u2, p.pow1);
+    const float spx = wpx + dist * dx_;
+    const float spy = wpy + dist * dy_;
+    const float spz = wpz + dist * dz_;
+    const float cxv = p.pv[0] * spx + p.pv[1] * spy + p.pv[2] * spz + p.pv[3];
+    const float cyv = p.pv[4] * spx + p.pv[5] * spy + p.pv[6] * spz + p.pv[7];
+    const float cwv = p.pv[12] * spx + p.pv[13] * spy + p.pv[14] * spz + p.pv[15];
+    const float safe_w = fabsf(cwv) > 1e-8f ? cwv : 1e-8f;
+    float sux = cxv / safe_w * 0.5f + 0.5f;
+    float suy = cyv / safe_w * 0.5f + 0.5f;
+    // background pixels have zero normals -> NaN directions; their AO is
+    // replaced below, but their fetch index must stay in range
+    sux = (sux == sux) ? fminf(fmaxf(sux, -2.0f), 3.0f) : 0.0f;
+    suy = (suy == suy) ? fminf(fmaxf(suy, -2.0f), 3.0f) : 0.0f;
+    const int ixt = static_cast<int>(floorf(sux * static_cast<float>(w)));
+    const int iyt = static_cast<int>(floorf(suy * static_cast<float>(h)));
+    const int dyv = clampi(clampi(clampi(iyt - y, -ky, ky), -y, h - 1 - y), -ky, ky);
+    const int dxk = clampi(clampi(ixt, 0, w - 1) - x, -kx, kx);
+    const float sd = depth[(y + dyv) * w + x + dxk];
+
+    const float theta_n = nx * dx_ + ny * dy_ + nz * dz_;
+    const float ddx = spx - p.cpos[0];
+    const float ddy = spy - p.cpos[1];
+    const float ddz = spz - p.cpos[2];
+    const float dd = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+    const float delta = (d - sd) * 0.001f * dd * dd;
+    tw = tw + theta_n;
+    const float horizon = sd + delta * bias_k;
+    float occl = fmaxf(0.0f, horizon - d) * theta_n;
+    const float m = fmaxf(0.0f, 1.0f - delta / p.th);
+    occl = sqrtf(fmaxf(10.0f * occl * m / fmaxf(dd, 1e-6f), 0.0f));
+    ao = ao + (delta < p.th ? occl : 0.0f);
+  }
+  ao = tw > 0.0f ? ao / tw : ao;
+  ao = fminf(fmaxf(1.0f - ao, 0.0f), 1.0f);
+  ao_out[pix] = d >= 1.0f ? 1.0f : ao;
+}
+
+}  // namespace
+
+// ---- host entry points ----
+// fparams (host): pmi[16] cmw[16] pv[16] cpos[3] dist pow1 bias th inv_w
+// inv_h; shifts (host): sy[spp] then sx[spp].
+extern "C" int re_hbao(const float* depth, const float* normal,
+                       const float* tile, float* ao, int h, int w, int ky,
+                       int kx, int spp, const float* fparams,
+                       const int* shifts, void* stream) {
+  if (spp < 1 || spp > kMaxSpp) return cudaErrorInvalidValue;
+  HbaoParams p;
+  const float* f = fparams;
+  for (int i = 0; i < 16; ++i) p.pmi[i] = *f++;
+  for (int i = 0; i < 16; ++i) p.cmw[i] = *f++;
+  for (int i = 0; i < 16; ++i) p.pv[i] = *f++;
+  for (int i = 0; i < 3; ++i) p.cpos[i] = *f++;
+  p.dist = *f++;
+  p.pow1 = *f++;
+  p.bias = *f++;
+  p.th = *f++;
+  p.inv_w = *f++;
+  p.inv_h = *f++;
+  p.spp = spp;
+  for (int s = 0; s < kMaxSpp; ++s) {
+    p.sy[s] = s < spp ? shifts[s] : 0;
+    p.sx[s] = s < spp ? shifts[spp + s] : 0;
+  }
+  const dim3 block(128);
+  const dim3 grid((w + 127) / 128, h);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hbao_kernel<<<grid, block, 0, s>>>(depth, normal, tile, ao, h, w, ky, kx, p);
+  return cudaGetLastError();
+}

@@ -1,0 +1,162 @@
+// Bounded-window per-pixel warp: fetch tex at the per-pixel target
+// (ty, tx) (+ fraction fy, fx), nearest / bilinear / Catmull-Rom 4x4 /
+// the reference's 5-tap Catmull-Rom (`reproject.frag:212-255`).
+//
+// Replaces ops/pallas/warp.py::_warp_kernel (window_warp). Semantics:
+// targets clipped to +-2^20; each filter tap is clamped to the frame,
+// then to the window (+-ky rows around the pixel widened by the filter
+// reach, +-kx_tap columns); the flag marks displacements inside
+// +-ky / +-kx_flag. catrom5 drops the four corner texels.
+//
+// On the H100 the kernel is bound by bytes: per pixel it reads the two
+// int32 targets, two float32 fractions and writes C floats + a flag;
+// the up to 12 texel reads of a pixel fall inside a few cache lines that
+// its neighbours share, so L1/L2 serve them. Design: one thread per
+// output pixel, direct global loads, all channels of a tap from one
+// contiguous (H, W, C) texel. The TPU's lane-split gathers and dense
+// vertical selects have no counterpart here.
+#include "common.cuh"
+
+namespace {
+
+using re::clampi;
+
+enum Mode { kNearest = 0, kBilinear = 1, kCatrom = 2, kCatrom5 = 3 };
+
+__device__ __forceinline__ void catrom_weights(float f, float* w) {
+  const float f2 = f * f;
+  const float f3 = f2 * f;
+  w[0] = f2 - 0.5f * (f3 + f);
+  w[1] = 1.5f * f3 - 2.5f * f2 + 1.0f;
+  w[3] = 0.5f * (f3 - f2);
+  w[2] = 1.0f - w[0] - w[1] - w[3];
+}
+
+template <int MODE, int C>
+__global__ void warp_kernel(const float* __restrict__ tex,
+                            const int* __restrict__ ty,
+                            const int* __restrict__ tx,
+                            const float* __restrict__ fy,
+                            const float* __restrict__ fx,
+                            float* __restrict__ out,
+                            uint8_t* __restrict__ flag, int h, int w, int ky,
+                            int kx_flag, int kx_tap) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y;
+  if (x >= w) return;
+  const int p = y * w + x;
+  constexpr int NB = MODE == kNearest ? 1 : (MODE == kBilinear ? 2 : 4);
+  constexpr int B0 = (MODE == kCatrom || MODE == kCatrom5) ? -1 : 0;
+  const int lim = 1 << 20;
+  const int tyc = clampi(ty[p], -lim, lim);
+  const int txc = clampi(tx[p], -lim, lim);
+  const int dy = tyc - y;
+  const int dx = txc - x;
+  flag[p] = (abs(dy) <= ky && abs(dx) <= kx_flag) ? 1 : 0;
+
+  const int dyc = clampi(dy, -ky, ky);
+  const int v_lo = -ky + B0;
+  const int v_hi = ky + B0 + NB - 1;
+  int rows[NB];
+  int cols[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    rows[b] = y + clampi(clampi(dyc + B0 + b, -y, h - 1 - y), v_lo, v_hi);
+    cols[b] = x + clampi(clampi(txc + B0 + b, 0, w - 1) - x, -kx_tap, kx_tap);
+  }
+  float wx[NB];
+  float wy[NB];
+  if constexpr (MODE == kNearest) {
+    wx[0] = 1.0f;
+    wy[0] = 1.0f;
+  } else if constexpr (MODE == kBilinear) {
+    const float fxv = fx[p];
+    const float fyv = fy[p];
+    wx[0] = 1.0f - fxv;
+    wx[NB - 1] = fxv;
+    wy[0] = 1.0f - fyv;
+    wy[NB - 1] = fyv;
+  } else {
+    catrom_weights(fx[p], wx);
+    catrom_weights(fy[p], wy);
+  }
+
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    float row[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) row[c] = 0.0f;
+    const float* trow = tex + static_cast<size_t>(rows[b]) * w * C;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      if (MODE == kCatrom5 && (b == 0 || b == 3) && (k == 0 || k == 3)) {
+        continue;  // the 5-tap filter's zero-weight corners
+      }
+      const float* t = trow + static_cast<size_t>(cols[k]) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) row[c] = row[c] + t[c] * wx[k];
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = acc[c] + row[c] * wy[b];
+  }
+  float* o = out + static_cast<size_t>(p) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) o[c] = acc[c];
+}
+
+template <int MODE>
+cudaError_t launch_mode(const float* tex, const int* ty, const int* tx,
+                        const float* fy, const float* fx, float* out,
+                        uint8_t* flag, int h, int w, int c, int ky,
+                        int kx_flag, int kx_tap, cudaStream_t stream) {
+  const dim3 block(256);
+  const dim3 grid((w + 255) / 256, h);
+#define RE_WARP_CASE(CC)                                                   \
+  case CC:                                                                 \
+    warp_kernel<MODE, CC><<<grid, block, 0, stream>>>(                     \
+        tex, ty, tx, fy, fx, out, flag, h, w, ky, kx_flag, kx_tap);        \
+    break;
+  switch (c) {
+    RE_WARP_CASE(1)
+    RE_WARP_CASE(2)
+    RE_WARP_CASE(3)
+    RE_WARP_CASE(4)
+    RE_WARP_CASE(5)
+    RE_WARP_CASE(6)
+    RE_WARP_CASE(7)
+    RE_WARP_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RE_WARP_CASE
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---- host entry points ----
+extern "C" int re_warp(const float* tex, const int* ty, const int* tx,
+                       const float* fy, const float* fx, float* out,
+                       uint8_t* flag, int h, int w, int c, int mode, int ky,
+                       int kx_flag, int kx_tap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kNearest:
+      return launch_mode<kNearest>(tex, ty, tx, fy, fx, out, flag, h, w, c,
+                                   ky, kx_flag, kx_tap, s);
+    case kBilinear:
+      return launch_mode<kBilinear>(tex, ty, tx, fy, fx, out, flag, h, w, c,
+                                    ky, kx_flag, kx_tap, s);
+    case kCatrom:
+      return launch_mode<kCatrom>(tex, ty, tx, fy, fx, out, flag, h, w, c,
+                                  ky, kx_flag, kx_tap, s);
+    case kCatrom5:
+      return launch_mode<kCatrom5>(tex, ty, tx, fy, fx, out, flag, h, w, c,
+                                   ky, kx_flag, kx_tap, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,187 @@
+"""Fused HBAO: the whole per-pixel AO loop in one kernel.
+
+Kernel: ``csrc/hbao.cu``. It replaces the JAX package's
+``ops/pallas/hbao.py::_hbao_kernel`` (``hbao_fused``), whose semantics
+are those of ``ops/ao.py::hbao`` with the window-clamped sampling radius
+(`hbao.frag:80-115`): per pixel the world position, spp cosine-weighted
+directions from the blue-noise tile, the projected sample, its depth
+fetched nearest within +-ky rows / +-kx columns, and the horizon
+occlusion integral. The port's kernel takes any window (the TPU's
+ky <= 64, kx <= 32 were VMEM and lane limits).
+
+On the H100 the kernel is bound by operations (per sample: sin, cos,
+exp, log, three sqrt, two rsqrt, two divisions) against 20 bytes a pixel.
+One thread per pixel, all in registers; the sample depths are direct
+loads served by L1/L2.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core.rng import blue_noise_tile_tensor, noise_shift
+from . import cuda_build
+
+MAX_SPP = 32
+_PI2 = float(np.float32(2.0 * math.pi))
+
+
+def sample_indices(spp: int, frame: int, animated: bool) -> list[int]:
+    """Noise index of each sample: ``frame * spp + s`` (the reference
+    advances its frame counter by spp a frame, `AOPass.js:86-88`)."""
+    base = frame * spp if animated else 0
+    return [base + s for s in range(spp)]
+
+
+def rolled_noise_tiles(spp: int, frame: int, animated: bool,
+                       device=None) -> torch.Tensor:
+    """(3*spp, 128, 128): channel triple ``3s .. 3s+2`` is blue-noise
+    image ``frame*spp + s`` (channels 0..2) at ``[y % 128, x % 128]``."""
+    tile = blue_noise_tile_tensor(device or "cpu")[..., :3]
+    outs = []
+    for index in sample_indices(spp, frame, animated):
+        sy, sx = noise_shift(index)
+        rolled = torch.roll(tile, shifts=(-sy, -sx), dims=(0, 1))
+        outs.append(rolled.permute(2, 0, 1))
+    return torch.cat(outs, dim=0)
+
+
+def _host_params(cam, cfg, h: int, w: int) -> np.ndarray:
+    f32 = lambda v: np.float32(v)
+    return np.concatenate([
+        np.asarray(cam.projection_matrix_inverse, np.float32).reshape(-1),
+        np.asarray(cam.camera_matrix_world, np.float32).reshape(-1),
+        np.asarray(cam.projection_view_matrix, np.float32).reshape(-1),
+        np.asarray(cam.position, np.float32).reshape(-1),
+        np.array([f32(cfg.distance), f32(cfg.distance_power + 1.0),
+                  f32(cfg.bias), f32(cfg.thickness * 0.01),
+                  f32(1.0 / w), f32(1.0 / h)], np.float32),
+    ]).astype(np.float32)
+
+
+def _row(m, i, x, y, z):
+    return (float(m[i, 0]) * x + float(m[i, 1]) * y + float(m[i, 2]) * z
+            + float(m[i, 3]))
+
+
+def _tpoint(m, x, y, z):
+    r = [_row(m, i, x, y, z) for i in range(4)]
+    return r[0] / r[3], r[1] / r[3], r[2] / r[3]
+
+
+def hbao_fused_plain(depth, normal, cam, frame: int, cfg) -> torch.Tensor:
+    """The kernel's function in PyTorch, op for op."""
+    h, w = depth.shape
+    dev = depth.device
+    ky, kx = int(cfg.window_ky), int(cfg.window_kx)
+    prm = _host_params(cam, cfg, h, w)
+    dist_k, pow1, bias, th, inv_w, inv_h = (float(v) for v in prm[51:57])
+    pv = np.asarray(cam.projection_view_matrix, np.float32)
+    cpos = [float(v) for v in prm[48:51]]
+    rr = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    cc = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    uvx = (cc.to(torch.float32) + 0.5) * inv_w
+    uvy = (rr.to(torch.float32) + 0.5) * inv_h
+    wpx, wpy, wpz = _tpoint(
+        cam.camera_matrix_world,
+        *_tpoint(cam.projection_matrix_inverse, (uvx - 0.5) * 2.0,
+                 (uvy - 0.5) * 2.0, (depth - 0.5) * 2.0))
+    nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
+    bias_k = float(np.float32(bias) * np.float32(1000.0))
+    bx, by, bz = ny - nz, -nx, nx
+    binv = torch.rsqrt(bx * bx + by * by + bz * bz)
+    bx, by, bz = bx * binv, by * binv, bz * binv
+    tx_ = by * nz - bz * ny
+    ty_ = bz * nx - bx * nz
+    tz_ = bx * ny - by * nx
+    tile = blue_noise_tile_tensor(dev)
+    flat = depth.reshape(-1)
+    ao = torch.zeros_like(depth)
+    tw = torch.zeros_like(depth)
+    for index in sample_indices(cfg.spp, frame, cfg.animated_noise):
+        sy, sx = noise_shift(index)
+        u = tile[((rr + sy) % 128).long(), ((cc + sx) % 128).long()]
+        u0, u1, u2 = u[..., 0], u[..., 1], u[..., 2]
+        r_ = torch.sqrt(u0)
+        theta = u1 * _PI2
+        k1 = r_ * torch.sin(theta)
+        k2 = torch.sqrt(torch.clamp(1.0 - u0, min=0.0))
+        k3 = r_ * torch.cos(theta)
+        dx_ = k1 * bx + k2 * nx + k3 * tx_
+        dy_ = k1 * by + k2 * ny + k3 * ty_
+        dz_ = k1 * bz + k2 * nz + k3 * tz_
+        dinv = torch.rsqrt(dx_ * dx_ + dy_ * dy_ + dz_ * dz_)
+        dx_, dy_, dz_ = dx_ * dinv, dy_ * dinv, dz_ * dinv
+        dist = dist_k * torch.exp(torch.log(u2) * pow1)
+        spx = wpx + dist * dx_
+        spy = wpy + dist * dy_
+        spz = wpz + dist * dz_
+        cxv, cyv, cwv = (_row(pv, i, spx, spy, spz) for i in (0, 1, 3))
+        safe_w = torch.where(cwv.abs() > 1e-8, cwv, 1e-8)
+        sux = cxv / safe_w * 0.5 + 0.5
+        suy = cyv / safe_w * 0.5 + 0.5
+        sux = torch.where(sux == sux, torch.clamp(sux, -2.0, 3.0), 0.0)
+        suy = torch.where(suy == suy, torch.clamp(suy, -2.0, 3.0), 0.0)
+        ixt = torch.floor(sux * float(w)).to(torch.int32)
+        iyt = torch.floor(suy * float(h)).to(torch.int32)
+        dyv = torch.clamp(iyt - rr, -ky, ky)
+        dyv = torch.minimum(torch.maximum(dyv, -rr), (h - 1) - rr)
+        dyv = torch.clamp(dyv, -ky, ky)
+        dxk = torch.clamp(torch.clamp(ixt, 0, w - 1) - cc, -kx, kx)
+        sd = flat[((rr + dyv) * w + cc + dxk).long()]
+
+        theta_n = nx * dx_ + ny * dy_ + nz * dz_
+        ddx, ddy, ddz = spx - cpos[0], spy - cpos[1], spz - cpos[2]
+        dd = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+        delta = (depth - sd) * 0.001 * dd * dd
+        tw = tw + theta_n
+        horizon = sd + delta * bias_k
+        occl = torch.clamp(horizon - depth, min=0.0) * theta_n
+        m = torch.clamp(1.0 - delta / th, min=0.0)
+        occl = torch.sqrt(torch.clamp(
+            10.0 * occl * m / torch.clamp(dd, min=1e-6), min=0.0))
+        ao = ao + torch.where(delta < th, occl, 0.0)
+    ao = torch.where(tw > 0.0, ao / tw, ao)
+    ao = torch.clamp(1.0 - ao, 0.0, 1.0)
+    return torch.where(depth >= 1.0, 1.0, ao)
+
+
+def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
+               cfg) -> torch.Tensor:
+    """Fused HBAO: the AO plane (H, W) of ``depth`` (H, W) and world
+    normals ``normal`` (H, W, 3). CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if depth.device.type == "cpu":
+        return hbao_fused_plain(depth, normal, cam, frame, cfg)
+    ao = _launch(depth, normal, cam, frame, cfg)
+    hbao_fused.launches += 1
+    return ao
+
+
+hbao_fused.launches = 0
+
+
+def _launch(depth, normal, cam, frame, cfg):
+    h, w = depth.shape
+    if not 1 <= cfg.spp <= MAX_SPP:
+        raise ValueError(f"spp must be in [1, {MAX_SPP}], not {cfg.spp}")
+    depth = depth.contiguous()
+    normal = normal.contiguous()
+    tile = blue_noise_tile_tensor(depth.device)
+    cuda_build.require_cuda(depth, normal, tile)
+    ao = torch.empty_like(depth)
+    fparams = _host_params(cam, cfg, h, w)
+    shifts = [noise_shift(i) for i in
+              sample_indices(cfg.spp, frame, cfg.animated_noise)]
+    ishifts = np.array([s[0] for s in shifts] + [s[1] for s in shifts],
+                       np.int32)
+    fn = cuda_build.bind("hbao", "re_hbao", 4, 5, 2)
+    err = fn(depth.data_ptr(), normal.data_ptr(), tile.data_ptr(),
+             ao.data_ptr(), h, w, int(cfg.window_ky), int(cfg.window_kx),
+             int(cfg.spp), fparams.ctypes.data, ishifts.ctypes.data,
+             cuda_build.stream_ptr(depth))
+    cuda_build.check(err, "hbao kernel")
+    return ao

@@ -1,0 +1,191 @@
+"""The CUDA kernels' sources, compiled for the host, vs the plain versions.
+
+There is no CUDA compiler or card on the CPU test machines, but the
+kernels in ``realism_effects_tpu_torch/csrc`` use only a small part of
+CUDA. A shim header defines those builtins for g++ and each launch
+``kernel<<<grid, block, 0, stream>>>(...)`` becomes a loop over the grid,
+so each kernel's own arithmetic runs here through its real C entry point
+and wrapper launch code, and is held against the plain PyTorch version.
+Tolerances: warp and minmax are bit-identical (same operations in the
+same order, no contraction: ``-ffp-contract=off`` as ``-fmad=false`` on
+the card); HBAO and Poisson agree to 2e-5, the gap between glibc's and
+PyTorch's sin/cos/exp/log. The card itself is checked by chip_smoke.py.
+"""
+
+import ctypes
+import dataclasses
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from realism_effects_tpu_torch.core.camera import PerspectiveCamera
+from realism_effects_tpu_torch.core.framebuffers import GBuffer
+from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
+                                           poisson_kernel, stencil, warp)
+from realism_effects_tpu_torch.ops.ao import AOConfig
+from realism_effects_tpu_torch.ops.poisson_denoise import PoissonDenoiseConfig
+
+SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 blockIdx, threadIdx, blockDim, gridDim;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+struct __half { unsigned short b; };
+inline __half __ushort_as_half(unsigned short s) { __half h; h.b = s; return h; }
+inline float __half2float(__half h) { _Float16 v; memcpy(&v, &h.b, 2); return (float)v; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+struct GridLoop {
+  dim3 g, b; unsigned long long i = 0, n;
+  GridLoop(dim3 g_, dim3 b_) : g(g_), b(b_) {
+    n = (unsigned long long)g.x * g.y * g.z * b.x * b.y * b.z;
+    gridDim = g; blockDim = b;
+  }
+  bool next() {
+    if (i >= n) return false;
+    unsigned long long k = i++;
+    threadIdx.x = k % b.x; k /= b.x; threadIdx.y = k % b.y; k /= b.y;
+    threadIdx.z = k % b.z; k /= b.z; blockIdx.x = k % g.x; k /= g.x;
+    blockIdx.y = k % g.y; blockIdx.z = k / g.y;
+    return true;
+  }
+};
+#define GRID_LOOP(g, b) for (GridLoop grid_loop_(g, b); grid_loop_.next();)
+"""
+LAUNCH = re.compile(
+    r"(\w+(?:<[^<>]*>)?)<<<\s*([^,]+?)\s*,\s*([^,]+?)\s*,[^>]*>>>\(")
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    """The four sources built for the host, one g++ each, in parallel."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel sources for the host")
+    d = tmp_path_factory.mktemp("cuda_host")
+    (d / "shim.h").write_text(SHIM)
+    for name in ("cuda_runtime.h", "cuda_fp16.h"):
+        (d / name).write_text('#pragma once\n#include "shim.h"\n')
+    procs = {}
+    for name in cuda_build.SOURCES:
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        (d / f"{name}.cpp").write_text(LAUNCH.sub(r"GRID_LOOP(\2, \3) \1(", src))
+        cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+               "-fPIC", "-w", "-I", str(d), "-I", str(cuda_build.CSRC),
+               "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cpp")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{name}.cu:\n{log}"
+    return {n: ctypes.CDLL(str(d / f"lib{n}.so")) for n in cuda_build.SOURCES}
+
+
+@pytest.fixture
+def host_kernels(host_libs, monkeypatch):
+    """Route the wrappers' launch code to the host builds."""
+    monkeypatch.setattr(cuda_build, "library", lambda name: host_libs[name])
+    monkeypatch.setattr(cuda_build, "require_cuda", lambda *t: None)
+    monkeypatch.setattr(cuda_build, "stream_ptr", lambda t: None)
+
+
+def _warp_inputs(c, seed=0):
+    rng = np.random.default_rng(seed)
+    h, w = 37, 61
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt)
+    tex = t(rng.normal(size=(h, w, c)))
+    ty = t(rng.integers(-20, h + 20, (h, w)), torch.int32)
+    tx = t(rng.integers(-200, w + 200, (h, w)), torch.int32)
+    return (tex[..., 0] if c == 1 else tex), ty, tx, t(rng.random((h, w))), \
+        t(rng.random((h, w)))
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "catrom", "catrom5"])
+@pytest.mark.parametrize("kx", [None, 5])
+@pytest.mark.parametrize("c", [1, 4])
+def test_warp_source(host_kernels, mode, kx, c):
+    args = _warp_inputs(c)
+    got, got_ok = warp._launch(*args, 8, mode, kx)
+    want, want_ok = warp.window_warp_plain(*args, 8, mode, kx)
+    assert torch.equal(got_ok, want_ok)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+def test_minmax_source(host_kernels, radius):
+    tex = _warp_inputs(4, seed=radius)[0].clone()
+    tex[..., 0][torch.rand(tex.shape[:2], generator=torch.Generator().manual_seed(0)) < 0.3] = -1.0
+    tex[5:12, 10:20, 0] = -1.0
+    got = stencil._launch(tex, radius)
+    want = stencil.neighborhood_minmax_plain(tex, radius)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _surface(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    depth = 0.85 + 0.1 * (xx > w // 2) + 0.002 * np.sin(yy * 0.2)
+    depth[: h // 8] = 1.0
+    nrm = np.array([0.1, 0.2, 0.97]) + rng.uniform(-0.1, 0.1, (h, w, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[: h // 8] = 0.0
+    return (torch.tensor(depth, dtype=torch.float32),
+            torch.tensor(nrm, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("cfg", [
+    AOConfig(distance=0.3),
+    AOConfig(spp=3, window_ky=4, window_kx=3, animated_noise=False)])
+def test_hbao_source(host_kernels, cfg):
+    h, w = 48, 80
+    depth, nrm = _surface(h, w, 1)
+    cam = PerspectiveCamera(50, w / h, 0.1, 80)
+    cam.set_position(0.3, 1.5, 5.0)
+    cam.look_at((0, 0.5, 0))
+    m = cam.matrices()
+    got = hbao_kernel._launch(depth, nrm, m, 3, cfg)
+    want = hbao_kernel.hbao_fused_plain(depth, nrm, m, 3, cfg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("slots", [(False, False), (True,)])
+def test_poisson_source(host_kernels, slots):
+    h, w = 48, 80
+    rng = np.random.default_rng(2)
+    depth, nrm = _surface(h, w, 3)
+    z = torch.zeros
+    gb = GBuffer(diffuse=z(h, w, 4), normal=nrm,
+                 roughness=torch.tensor(rng.random((h, w)), dtype=torch.float32),
+                 metalness=z(h, w), emissive=z(h, w, 3), depth=depth)
+    texs = [torch.tensor(np.concatenate(
+        [rng.random((h, w, 3)) * 2, rng.integers(0, 40, (h, w, 1))], -1),
+        dtype=torch.float32) for _ in slots]
+    if slots == (True,):
+        texs = [texs[0][..., [0, 0, 0, 3]]]
+    cfg = dataclasses.replace(PoissonDenoiseConfig(),
+                              is_specular=(False, True)[:len(slots)])
+    bundle, ch = poisson_kernel.pack_bundle(texs, gb, slots)
+    got = poisson_kernel._launch(bundle, ch, slots, 11, cfg)
+    want = poisson_kernel.poisson_pass_plain(bundle, ch, slots, 11, cfg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
