@@ -8,17 +8,23 @@ Phases (any failure raises and the script exits non-zero):
 1. Print the card's name and power limit, turn TF32 off, and build the
    CUDA kernels from ``realism_effects_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Hold each kernel against its plain PyTorch version on the card at the
-   1920x1080 shapes of the HBAO + TRAA path, with the stated tolerance,
-   and time both with CUDA events (median of 25 launches, L2 flushed
-   before each, the card kept busy while the host prepares a launch). Where one PyTorch call computes the same function, time
-   it too (``library_ms``; the port never calls it).
-3. Run the path: ``EffectComposer(None, cam, 1920, 1080)`` with
-   ``HBAOEffect()`` + ``TRAAEffect()``, ``render_external`` over 24
-   frames of analytic buffers (a ground plane and a box, ray-cast per
-   pixel on the card with the camera orbiting). The launch counters are
-   set to 0 just before those frames and read just after: every kernel
-   must have run. Then a 3-frame run at 270x480 must agree with the same
-   composer on the CPU.
+   1920x1080 shapes of the paths, with the stated tolerance, and time
+   both with CUDA events (median of 25 launches, L2 flushed before each,
+   the card kept busy while the host prepares a launch). Where one
+   PyTorch call computes the same function, time it too (``library_ms``;
+   the port never calls it). The SSGI kernels (sweep march, bilinear
+   prewarp, two-texture Poisson pass) take the inputs they get in frame 5
+   of the SSGI path.
+3. Run the paths at 1920x1080 through ``EffectComposer.render_external``
+   on analytic buffers (a ground plane and a box, plus the flagship's
+   metallic sphere on the SSGI path, ray-cast per pixel on the card with
+   the camera orbiting): ``HBAOEffect()`` + ``TRAAEffect()`` over 12
+   frames, then ``SSGIEffect()`` + ``HBAOEffect()`` + ``TRAAEffect()``
+   under the flagship's environment over 24 frames. The launch counters
+   are set to 0 just before each path and read just after: each path
+   must have launched each of its kernels, and every kernel in the
+   ``kernels`` line launches on the SSGI path. Then a 3-frame run of
+   each path at 270x480 must agree with the same composer on the CPU.
 4. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
@@ -37,18 +43,31 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 WIDTH, HEIGHT = 1920, 1080
-FRAMES = 24
+FRAMES = 24           # SSGI + HBAO + TRAA path
+HBAO_TRAA_FRAMES = 12
 WARMUP = 4            # frames before the timed ones: allocator and clocks
+SWEEP_FRAME = 5       # the frame whose SSGI trace feeds the kernel checks
 MEM_BW = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_RATE = 67e12      # H100 SXM float32 outside the tensor cores, op/s
 
-# Slice tolerance against the CPU composer (tests/test_torch_slice.py):
-# max 1e-3 (a few pixels on a nearest-texel snap or the Poisson weight
+# HBAO + TRAA against the CPU composer (tests/test_torch_slice.py): max
+# 1e-3 (a few pixels on a nearest-texel snap or the Poisson weight
 # cut-off flip with one ulp), mean 1e-5.
 SLICE_TOL = 1e-3
 SLICE_MEAN_TOL = 1e-5
+# SSGI + HBAO + TRAA against the CPU composer. The card's atan2, sin,
+# exp, log and pow differ from the CPU's by ulps; that moves a few rays
+# into the next direction bin or across a hit test, and such a pixel
+# takes another GI sample, which the denoiser and TRAA spread to its
+# neighbours. So: the largest error, the mean error, and the share of
+# pixels off by more than 1e-2 (measured on an H100 at 700 W: max 1.03e-2,
+# mean 1.1e-6, one pixel of 129600 off by more than 1e-2).
+SSGI_SLICE_MAX_TOL = 5e-2
+SSGI_SLICE_MEAN_TOL = 1e-5
+SSGI_SLICE_PIX_TOL = 1e-2
+SSGI_SLICE_PIX_FRAC = 1e-3
 
-# Operations per pixel of the two kernels whose arithmetic rivals their
+# Operations per pixel of the kernels whose arithmetic rivals their
 # bytes, counted from the kernels' source: every add, multiply, compare,
 # min/max, division, square root and transcendental is one operation
 # (a lower bound: libm's sinf/expf/logf take tens of instructions).
@@ -57,6 +76,9 @@ HBAO_OPS_SAMPLE = 135     # direction, projection, fetch index, integral
 POISSON_OPS_SETUP = 90    # 3 normal decodes, flatness, noise angle
 POISSON_OPS_TAP = 45      # offsets, snap, normal decode, edge weights
 POISSON_OPS_TAP_SLOT = 45  # per slot: unpack, logs, luma, age blend
+SWEEP_OPS_RAY = 10        # plane loads, bin checks, stores
+SWEEP_OPS_STEP = 25       # texel index, bounds, t(s), validity, hit test
+BILINEAR_OPS = 12 + 3 * 9  # index and window math, 3 lerps a channel
 
 
 def _smi() -> str:
@@ -101,12 +123,37 @@ class Timer:
         return float(np.median(times))
 
 
+class Entries(list):
+    """The ``kernels`` line, one dict per kernel check."""
+
+    def add(self, name, source, replaces, err, tol, ms, plain_ms, nbytes,
+            ops, library_ms=None):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel vs plain max abs error "
+                                 f"{err} > {tol}")
+        self.append(dict(
+            name=name, route="cuda",
+            source=f"realism_effects_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=None, max_abs_err=err, tol=tol,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
+        print(f"[kernel] {name}: max_abs_err={err} (tol {tol}) ms={ms} "
+              f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
+              f"library_ms={library_ms}", flush=True)
+
+
+def _maxerr(torch, a, b):
+    torch.cuda.synchronize()
+    return float((a.float() - b.float()).abs().max())
+
+
 # ---------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------
 
-def check_kernels(torch, analytic, timer, frames):
-    """Each kernel against its plain version at the path's 1080p shapes."""
+def check_kernels(torch, analytic, timer, frames, results):
+    """The HBAO + TRAA kernels against their plain versions at 1080p."""
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
     from realism_effects_tpu_torch.core.math3d import floor_int32, uv_grid
     from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
@@ -120,27 +167,7 @@ def check_kernels(torch, analytic, timer, frames):
     _, last_vel, _ = frames[0]
     uv = uv_grid(h, w, "cuda")
     reproj = uv - vel.velocity
-    results = []
-
-    def entry(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops,
-              library_ms=None):
-        bound_ms, bound_by = _bound(nbytes, ops)
-        if not err <= tol:
-            raise AssertionError(f"{name}: kernel vs plain max abs error "
-                                 f"{err} > {tol}")
-        results.append(dict(
-            name=name, route="cuda",
-            source=f"realism_effects_tpu_torch/csrc/{source}",
-            replaces=replaces, launches=None, max_abs_err=err, tol=tol,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms))
-        print(f"[kernel] {name}: max_abs_err={err} (tol {tol}) ms={ms} "
-              f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
-              f"library_ms={library_ms}", flush=True)
-
-    def maxerr(a, b):
-        torch.cuda.synchronize()
-        return float((a.float() - b.float()).abs().max())
+    maxerr = lambda a, b: _maxerr(torch, a, b)
 
     # warp catrom5: the TRAA history fetch (ky=8, kx=30, f16 history)
     hist = torch.cat([color, torch.full_like(color[..., :1], 5.0)], -1)
@@ -153,11 +180,11 @@ def check_kernels(torch, analytic, timer, frames):
     p = warp.window_warp_plain(*args, ky=8, mode="catrom5", kx=30)
     err = max(maxerr(k[0], p[0]), maxerr(k[1], p[1]))
     nbytes = sum(a.nbytes for a in args) + k[0].nbytes + k[1].nbytes
-    entry("warp_catrom5", "warp.cu", "realism_effects_tpu/ops/pallas/warp.py:91",
-          err, 1e-6,
-          timer(lambda: warp._launch(*args, 8, "catrom5", 30)),
-          timer(lambda: warp.window_warp_plain(*args, ky=8, mode="catrom5", kx=30)),
-          nbytes, h * w * (4 * 32 + 30))
+    results.add("warp_catrom5", "warp.cu",
+                "realism_effects_tpu/ops/pallas/warp.py:91", err, 1e-6,
+                timer(lambda: warp._launch(*args, 8, "catrom5", 30)),
+                timer(lambda: warp.window_warp_plain(*args, ky=8, mode="catrom5", kx=30)),
+                nbytes, h * w * (4 * 32 + 30))
 
     # warp nearest: the disocclusion probe of (normal, depth)
     nd = torch.cat([last_vel.normal, last_vel.depth[..., None]], -1).contiguous()
@@ -175,11 +202,11 @@ def check_kernels(torch, analytic, timer, frames):
     if maxerr(nd[li, lj], k[0]) != 0.0:
         raise AssertionError("nearest warp disagrees with tex[iy, ix]")
     nbytes = nd.nbytes + iy.nbytes + ix.nbytes + k[0].nbytes + k[1].nbytes
-    entry("warp_nearest", "warp.cu", "realism_effects_tpu/ops/pallas/warp.py:91",
-          err, 1e-6,
-          timer(lambda: warp._launch(nd, iy, ix, None, None, 8, "nearest", 30)),
-          timer(lambda: warp.window_warp_plain(nd, iy, ix, ky=8, mode="nearest", kx=30)),
-          nbytes, h * w * 4 * 2, library_ms=timer(lambda: nd[li, lj]))
+    results.add("warp_nearest", "warp.cu",
+                "realism_effects_tpu/ops/pallas/warp.py:91", err, 1e-6,
+                timer(lambda: warp._launch(nd, iy, ix, None, None, 8, "nearest", 30)),
+                timer(lambda: warp.window_warp_plain(nd, iy, ix, ky=8, mode="nearest", kx=30)),
+                nbytes, h * w * 4 * 2, library_ms=timer(lambda: nd[li, lj]))
 
     # minmax r=2 over the TRAA input (1% of texels masked by channel 0)
     inp = torch.cat([color, torch.ones_like(color[..., :1])], -1)
@@ -196,10 +223,11 @@ def check_kernels(torch, analytic, timer, frames):
     lib = lambda: (pool(for_max, 5, 1, 2), pool(for_min, 5, 1, 2))
     if maxerr(lib()[0][0].permute(1, 2, 0), k[1]) != 0.0:
         raise AssertionError("minmax disagrees with max_pool2d")
-    entry("minmax", "stencil.cu", "realism_effects_tpu/ops/pallas/stencil.py:180",
-          err, 0.0, timer(lambda: stencil._launch(inp, 2)),
-          timer(lambda: stencil.neighborhood_minmax_plain(inp, 2)),
-          inp.nbytes * 3, h * w * 4 * 25 * 2, library_ms=timer(lib))
+    results.add("minmax", "stencil.cu",
+                "realism_effects_tpu/ops/pallas/stencil.py:180", err, 0.0,
+                timer(lambda: stencil._launch(inp, 2)),
+                timer(lambda: stencil.neighborhood_minmax_plain(inp, 2)),
+                inp.nbytes * 3, h * w * 4 * 25 * 2, library_ms=timer(lib))
 
     # HBAO, spp 8, 32 x 32 window, on the frame's depth and normals
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
@@ -210,12 +238,12 @@ def check_kernels(torch, analytic, timer, frames):
     p = hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg)
     err = maxerr(k, p)
     tile = 128 * 128 * 4 * 4
-    entry("hbao", "hbao.cu", "realism_effects_tpu/ops/pallas/hbao.py:58",
-          err, 2e-4,
-          timer(lambda: hbao_kernel._launch(gb.depth, gb.normal, mats, 1, cfg)),
-          timer(lambda: hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg)),
-          gb.depth.nbytes + gb.normal.nbytes + tile + k.nbytes,
-          h * w * (HBAO_OPS_SETUP + cfg.spp * HBAO_OPS_SAMPLE))
+    results.add("hbao", "hbao.cu", "realism_effects_tpu/ops/pallas/hbao.py:58",
+                err, 2e-4,
+                timer(lambda: hbao_kernel._launch(gb.depth, gb.normal, mats, 1, cfg)),
+                timer(lambda: hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg)),
+                gb.depth.nbytes + gb.normal.nbytes + tile + k.nbytes,
+                h * w * (HBAO_OPS_SETUP + cfg.spp * HBAO_OPS_SAMPLE))
 
     # Poisson AO pass: one scalar slot, radius 3
     ao_tex = torch.cat([k[..., None].expand(h, w, 3), torch.zeros_like(k)[..., None]], -1)
@@ -224,36 +252,223 @@ def check_kernels(torch, analytic, timer, frames):
     kk = poisson_kernel.poisson_pass_fused([ao_tex], gb, 2, pcfg, scalar_slots=(True,))[0]
     p = poisson_kernel.poisson_pass_plain(bundle, ch, (True,), 2, pcfg)
     err = maxerr(kk, p)
-    entry("poisson", "poisson.cu", "realism_effects_tpu/ops/pallas/poisson.py:126",
-          err, 5e-4,
-          timer(lambda: poisson_kernel._launch(bundle, ch, (True,), 2, pcfg)),
-          timer(lambda: poisson_kernel.poisson_pass_plain(bundle, ch, (True,), 2, pcfg)),
-          bundle.nbytes + tile + p.nbytes,
-          h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + POISSON_OPS_TAP_SLOT)))
-    return results
+    results.add("poisson", "poisson.cu",
+                "realism_effects_tpu/ops/pallas/poisson.py:126", err, 5e-4,
+                timer(lambda: poisson_kernel._launch(bundle, ch, (True,), 2, pcfg)),
+                timer(lambda: poisson_kernel.poisson_pass_plain(bundle, ch, (True,), 2, pcfg)),
+                bundle.nbytes + tile + p.nbytes,
+                h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + POISSON_OPS_TAP_SLOT)))
+
+
+def check_ssgi_kernels(torch, analytic, timer, frames, results):
+    """The SSGI path's kernels on the inputs they take in frame
+    ``SWEEP_FRAME`` of the SSGI + HBAO + TRAA composer at 1080p (after
+    that many frames of feedback): the sweep march, the bilinear prewarp
+    of last frame's composed output, and the two-texture Poisson pass."""
+    from realism_effects_tpu_torch.core.math3d import floor_int32, uv_grid
+    from realism_effects_tpu_torch.ops import (poisson_denoise, poisson_kernel,
+                                               ssgi_sweep, sweep_kernel, warp)
+
+    h, w = HEIGHT, WIDTH
+    maxerr = lambda a, b: _maxerr(torch, a, b)
+    comp, cam = analytic.ssgi_hbao_traa_composer(h, w, "cuda")
+    analytic.run_frames(comp, cam, frames[:SWEEP_FRAME])
+    accumulated = comp.state("ssgi")["composed"]
+    cfg = comp.effects[0].denoise_cfg
+
+    # frame SWEEP_FRAME through the composer, the arguments of its march
+    # and of its two-texture Poisson passes recorded on the way
+    captured = {"sweep": [], "poisson": []}
+    march, ppass = ssgi_sweep.sweep_march, poisson_denoise.poisson_pass_fused
+
+    def record_march(*args, **kw):
+        captured["sweep"].append((args, kw))
+        return march(*args, **kw)
+
+    def record_pass(textures, gbuffer, noise_index, cfg_, scalar_slots=None):
+        if len(textures) == 2:
+            captured["poisson"].append((list(textures), noise_index))
+        return ppass(textures, gbuffer, noise_index, cfg_, scalar_slots)
+
+    ssgi_sweep.sweep_march = record_march
+    poisson_denoise.poisson_pass_fused = record_pass
+    try:
+        analytic.run_frames(comp, cam, frames[SWEEP_FRAME:SWEEP_FRAME + 1],
+                            first=SWEEP_FRAME)
+    finally:
+        ssgi_sweep.sweep_march = march
+        poisson_denoise.poisson_pass_fused = ppass
+    del comp
+    gb, vel, _ = frames[SWEEP_FRAME]
+    (z_tex, rad, planes, table, radii_prev, thickness, ray_distance, n_rays,
+     dirs, steps), kw = captured["sweep"][0]
+    args = (z_tex, rad, planes, table, radii_prev, thickness, ray_distance,
+            n_rays, dirs, steps, kw.get("miss_gi", False))
+
+    # sweep: every output of both rays, bit for bit
+    k = sweep_kernel.sweep_march(*args)
+    p = sweep_kernel.sweep_march_plain(*args)
+    err = max(maxerr(a, b) for kr, pr in zip(k, p) for a, b in zip(kr, pr))
+    # bytes: each input once, each output once; operations: the steps this
+    # frame's rays walk (to their hit, all steps on a miss, none for a
+    # ray whose bin is not one of the dirs)
+    prev_t = torch.tensor(np.asarray(radii_prev), device="cuda")
+    walked = 0
+    for r, (hit, _, s_lo, _, _) in enumerate(p):
+        bin_ = planes[1 + 6 * r + 4]
+        ok_bin = (bin_ >= 0) & (bin_ < dirs) & (bin_ == torch.floor(bin_))
+        k_hit = torch.searchsorted(prev_t, s_lo.contiguous()) + 1
+        walked += int(torch.where(hit, k_hit, torch.where(ok_bin, steps, 0)).sum())
+    outs = sum(t.nbytes for kr in k for t in kr)
+    nbytes = z_tex.nbytes + rad.nbytes + planes.nbytes + \
+        np.asarray(table).nbytes + np.asarray(radii_prev).nbytes + outs
+    print(f"[kernel] sweep: {walked / (h * w * n_rays):.2f} steps a ray of "
+          f"{steps}; hits {[int(r[0].sum()) for r in p]} of {h * w}", flush=True)
+    results.add("sweep", "sweep.cu", "realism_effects_tpu/ops/pallas/sweep.py:84",
+                err, 0.0, timer(lambda: sweep_kernel._launch(*args)),
+                timer(lambda: sweep_kernel.sweep_march_plain(*args)),
+                nbytes, h * w * n_rays * SWEEP_OPS_RAY + walked * SWEEP_OPS_STEP)
+
+    # warp bilinear: the prewarp of last frame's output (f16-rounded rgb)
+    # to uv - velocity, ky=8, kx=30 (ops/ssgi.py)
+    acc16 = accumulated[..., :3].to(torch.float16).to(torch.float32).contiguous()
+    pre_uv = uv_grid(h, w, "cuda") - vel.velocity
+    x = pre_uv[..., 0] * w - 0.5
+    y = pre_uv[..., 1] * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx = torch.where(x0 < 0.0, 0.0, x - x0)
+    fy = torch.where(y0 < 0.0, 0.0, y - y0)
+    wargs = (acc16, floor_int32(y0), floor_int32(x0), fy, fx)
+    k = warp.window_warp(*wargs, ky=8, mode="bilinear", kx=30)
+    p = warp.window_warp_plain(*wargs, ky=8, mode="bilinear", kx=30)
+    err = max(maxerr(k[0], p[0]), maxerr(k[1], p[1]))
+    # library yardstick: grid_sample, bilinear with clamp-to-edge (no
+    # window flag)
+    nchw = acc16.permute(2, 0, 1)[None].contiguous()
+    grid = (pre_uv * 2.0 - 1.0)[None].contiguous()
+    lib = lambda: torch.nn.functional.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="border", align_corners=False)
+    lib_err = maxerr(lib()[0].permute(1, 2, 0)[k[1]], k[0][k[1]])
+    print(f"[kernel] warp_bilinear vs grid_sample where in window: {lib_err}",
+          flush=True)
+    nbytes = sum(a.nbytes for a in wargs) + k[0].nbytes + k[1].nbytes
+    results.add("warp_bilinear", "warp.cu",
+                "realism_effects_tpu/ops/pallas/warp.py:91", err, 1e-6,
+                timer(lambda: warp._launch(*wargs, 8, "bilinear", 30)),
+                timer(lambda: warp.window_warp_plain(*wargs, ky=8, mode="bilinear", kx=30)),
+                nbytes, h * w * BILINEAR_OPS, library_ms=timer(lib))
+
+    # Poisson, two RGBA slots (diffuse, specular): the frame's first pass
+    texs, noise_index = captured["poisson"][0]
+    bundle, ch = poisson_kernel.pack_bundle(texs, gb, (False, False))
+    k = poisson_kernel.poisson_pass_fused(texs, gb, noise_index, cfg)
+    p = poisson_kernel.poisson_pass_plain(bundle, ch, (False, False), noise_index, cfg)
+    err = max(maxerr(k[s], p[..., 4 * s: 4 * s + 4]) for s in range(2))
+    tile = 128 * 128 * 4 * 4
+    scale = float(p.abs().max())
+    print(f"[kernel] poisson_2tex: largest value {scale}", flush=True)
+    results.add("poisson_2tex", "poisson.cu",
+                "realism_effects_tpu/ops/pallas/poisson.py:126", err,
+                1e-5 * max(scale, 1.0),
+                timer(lambda: poisson_kernel._launch(bundle, ch, (False, False),
+                                                     noise_index, cfg)),
+                timer(lambda: poisson_kernel.poisson_pass_plain(
+                    bundle, ch, (False, False), noise_index, cfg)),
+                bundle.nbytes + tile + p.nbytes,
+                h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP
+                                                  + 2 * POISSON_OPS_TAP_SLOT)))
 
 
 def counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                               stencil, warp)
+                                               stencil, sweep_kernel, warp)
     return {
         "warp_catrom5": warp.window_warp.mode_launches["catrom5"],
         "warp_nearest": warp.window_warp.mode_launches["nearest"],
+        "warp_bilinear": warp.window_warp.mode_launches["bilinear"],
         "minmax": stencil.neighborhood_minmax.launches,
         "hbao": hbao_kernel.hbao_fused.launches,
-        "poisson": poisson_kernel.poisson_pass_fused.launches,
+        "poisson": poisson_kernel.poisson_pass_fused.tex_launches[1],
+        "poisson_2tex": poisson_kernel.poisson_pass_fused.tex_launches[2],
+        "sweep": sweep_kernel.sweep_march.launches,
     }
 
 
 def reset_counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                               stencil, warp)
+                                               stencil, sweep_kernel, warp)
     warp.window_warp.launches = 0
     for m in warp.window_warp.mode_launches:
         warp.window_warp.mode_launches[m] = 0
     stencil.neighborhood_minmax.launches = 0
     hbao_kernel.hbao_fused.launches = 0
     poisson_kernel.poisson_pass_fused.launches = 0
+    for n in poisson_kernel.poisson_pass_fused.tex_launches:
+        poisson_kernel.poisson_pass_fused.tex_launches[n] = 0
+    sweep_kernel.sweep_march.launches = 0
+
+
+def run_path(torch, analytic, name, comp, cam, frames, n, kernels, smi):
+    """``n`` frames after WARMUP warm-up frames, the counters set to 0
+    just before and read just after; checks the images and that each of
+    ``kernels`` launched; then stage times from ``collect_timings``.
+    Returns the launch counts."""
+    analytic.run_frames(comp, cam, frames[:WARMUP])
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    images = analytic.run_frames(comp, cam, frames[WARMUP:WARMUP + n], first=WARMUP)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / n
+    launches = counters()
+    print(f"[path] {name}: launches over {n} frames: {launches}", flush=True)
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched on the {name} path")
+    for img in images:
+        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{name}: non-finite or misshapen frame")
+    if not float(images[-1].std()) > 0.01:
+        raise AssertionError(f"{name}: flat output image")
+
+    comp.collect_timings = True
+    stages = {}
+    for f in range(2, 8):
+        analytic.orbit(cam, f)
+        comp.render_external(*frames[f], dt=1 / 60)
+        for k_, v_ in comp.last_timings.items():
+            stages.setdefault(k_, []).append(v_)
+    comp.collect_timings = False
+    stage_ms = {k_: float(np.median(v_)) for k_, v_ in stages.items()}
+    print(f"[path] {WIDTH}x{HEIGHT} {name}: {frame_ms:.4f} ms/frame (host "
+          f"clock over {n} frames, synchronised); stages (CUDA events, "
+          f"median of 6): {json.dumps(stage_ms)}; card: {smi}", flush=True)
+    return launches
+
+
+def card_vs_cpu(torch, analytic, make, sphere):
+    """3 frames at 270x480 on the card and on the CPU through the same
+    composer; returns per frame (max, mean, share of pixels > 1e-2)."""
+    from realism_effects_tpu_torch.core.camera import PerspectiveCamera
+
+    small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
+    small = analytic.frames_for(small_cam, 3, 270, 480, "cuda", sphere=sphere)
+    gpu_comp, gpu_cam = make(270, 480, "cuda")
+    cpu_comp, cpu_cam = make(270, 480, "cpu")
+    gpu_imgs = analytic.run_frames(gpu_comp, gpu_cam, small)
+    cpu_frames = [(gb_.replace(**{f: getattr(gb_, f).cpu() for f in
+                                  ("diffuse", "normal", "roughness", "metalness",
+                                   "emissive", "depth")}),
+                   type(vel_)(velocity=vel_.velocity.cpu(), normal=vel_.normal.cpu(),
+                              depth=vel_.depth.cpu()),
+                   col_.cpu()) for gb_, vel_, col_ in small]
+    cpu_imgs = analytic.run_frames(cpu_comp, cpu_cam, cpu_frames)
+    out = []
+    for a, b in zip(gpu_imgs, cpu_imgs):
+        d = (a.cpu() - b).abs()
+        out.append((float(d.max()), float(d.mean()),
+                    float((d.amax(-1) > SSGI_SLICE_PIX_TOL).float().mean())))
+    return out
 
 
 def main() -> int:
@@ -264,7 +479,7 @@ def main() -> int:
               "runs the port on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from realism_effects_tpu_torch import analytic
+    from realism_effects_tpu_torch import analytic, native
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
     from realism_effects_tpu_torch.ops import cuda_build
 
@@ -285,68 +500,54 @@ def main() -> int:
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
         print(f"[build] {src}.cu: {'; '.join(sorted(set(regs)))}", flush=True)
+    t0 = time.perf_counter()
+    route = ("the C++ library (native/envcdf.cpp)" if native.available()
+             else "numpy (the C++ library did not build)")
+    print(f"[build] environment CDF tables by {route}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 2: kernels vs plain at the 1080p shapes
     cam = PerspectiveCamera(50, WIDTH / HEIGHT, 0.1, 100)
-    frames = analytic.frames_for(cam, WARMUP + FRAMES, HEIGHT, WIDTH, "cuda")
+    frames = analytic.frames_for(cam, WARMUP + HBAO_TRAA_FRAMES, HEIGHT, WIDTH, "cuda")
+    sph_frames = analytic.frames_for(cam, WARMUP + FRAMES, HEIGHT, WIDTH, "cuda",
+                                     sphere=True)
     torch.cuda.synchronize()
     timer = Timer(torch)
-    kernels = check_kernels(torch, analytic, timer, frames)
+    kernels = Entries()
+    check_kernels(torch, analytic, timer, frames, kernels)
+    check_ssgi_kernels(torch, analytic, timer, sph_frames, kernels)
 
-    # phase 3: the path at 1920 x 1080
+    # phase 3: the paths at 1920 x 1080
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
-    analytic.run_frames(comp, cam, frames[:WARMUP])
-    torch.cuda.synchronize()
-    reset_counters()
-    t0 = time.perf_counter()
-    images = analytic.run_frames(comp, cam, frames[WARMUP:], first=WARMUP)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    launches = counters()
-    print(f"[path] launches over {FRAMES} frames: {launches}", flush=True)
+    hbao_traa = run_path(torch, analytic, "HBAO+TRAA", comp, cam, frames,
+                         HBAO_TRAA_FRAMES, ("warp_catrom5", "warp_nearest",
+                                            "minmax", "hbao", "poisson"), smi)
+    del comp
+    comp, cam = analytic.ssgi_hbao_traa_composer(HEIGHT, WIDTH, "cuda")
+    ssgi_path = run_path(torch, analytic, "SSGI+HBAO+TRAA", comp, cam,
+                         sph_frames, FRAMES, [k["name"] for k in kernels], smi)
+    del comp
     for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
-        if kern["launches"] <= 0:
-            raise AssertionError(f"{kern['name']} never launched on the path")
-    for img in images:
-        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
-            raise AssertionError("non-finite or misshapen frame")
-    last = images[-1]
-    if not float(last.std()) > 0.01:
-        raise AssertionError("flat output image")
+        kern["launches"] = ssgi_path[kern["name"]]
+        kern["launches_by_path"] = {"hbao_traa": hbao_traa[kern["name"]],
+                                    "ssgi_hbao_traa": ssgi_path[kern["name"]]}
 
-    comp.collect_timings = True
-    stages = {}
-    for f in range(2, 8):
-        analytic.orbit(cam, f)
-        comp.render_external(*frames[f], dt=1 / 60)
-        for k_, v_ in comp.last_timings.items():
-            stages.setdefault(k_, []).append(v_)
-    stage_ms = {k_: float(np.median(v_)) for k_, v_ in stages.items()}
-    print(f"[path] {WIDTH}x{HEIGHT} HBAO+TRAA: {frame_ms:.4f} ms/frame "
-          f"(host clock over {FRAMES} frames, synchronised); stages "
-          f"(CUDA events, median of 6): {json.dumps(stage_ms)}; card: {smi}",
-          flush=True)
-
-    # the path at 270 x 480 on the card against the CPU composer
-    small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
-    small = analytic.frames_for(small_cam, 3, 270, 480, "cuda")
-    gpu_comp, gpu_cam = analytic.hbao_traa_composer(270, 480, "cuda")
-    cpu_comp, cpu_cam = analytic.hbao_traa_composer(270, 480, "cpu")
-    gpu_imgs = analytic.run_frames(gpu_comp, gpu_cam, small)
-    cpu_frames = [(gb_.replace(**{f: getattr(gb_, f).cpu() for f in
-                                  ("diffuse", "normal", "roughness", "metalness",
-                                   "emissive", "depth")}),
-                   type(vel_)(velocity=vel_.velocity.cpu(), normal=vel_.normal.cpu(),
-                              depth=vel_.depth.cpu()),
-                   col_.cpu()) for gb_, vel_, col_ in small]
-    cpu_imgs = analytic.run_frames(cpu_comp, cpu_cam, cpu_frames)
-    for i, (a, b) in enumerate(zip(gpu_imgs, cpu_imgs)):
-        d = (a.cpu() - b).abs()
-        print(f"[path] 270x480 frame {i}: card vs CPU max {float(d.max())} "
-              f"mean {float(d.mean())}", flush=True)
-        if not (float(d.max()) <= SLICE_TOL and float(d.mean()) <= SLICE_MEAN_TOL):
-            raise AssertionError(f"card and CPU composers disagree at frame {i}")
+    # the paths at 270 x 480 on the card against the CPU composer
+    for i, (mx, mean, _) in enumerate(card_vs_cpu(
+            torch, analytic, analytic.hbao_traa_composer, False)):
+        print(f"[path] HBAO+TRAA 270x480 frame {i}: card vs CPU max {mx} "
+              f"mean {mean}", flush=True)
+        if not (mx <= SLICE_TOL and mean <= SLICE_MEAN_TOL):
+            raise AssertionError(f"HBAO+TRAA: card and CPU disagree at frame {i}")
+    for i, (mx, mean, frac) in enumerate(card_vs_cpu(
+            torch, analytic, analytic.ssgi_hbao_traa_composer, True)):
+        print(f"[path] SSGI+HBAO+TRAA 270x480 frame {i}: card vs CPU max {mx} "
+              f"mean {mean} share of pixels > {SSGI_SLICE_PIX_TOL}: {frac}",
+              flush=True)
+        if not (mx <= SSGI_SLICE_MAX_TOL and mean <= SSGI_SLICE_MEAN_TOL
+                and frac <= SSGI_SLICE_PIX_FRAC):
+            raise AssertionError(f"SSGI+HBAO+TRAA: card and CPU disagree at "
+                                 f"frame {i}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

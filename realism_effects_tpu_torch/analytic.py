@@ -1,13 +1,16 @@
 """Analytic input buffers for driving the effect chain without a
-rasterizer: a 20 x 20 ground plane at y = 0 with a unit box on it,
-ray-cast per pixel on the given device (the scene of the JAX package's
-``tests/test_external_ingestion.py``), with the camera orbiting as the
-animated configurations of ``bench.py`` do. ``chip_smoke.py`` and
-``profile_slice.py`` drive the HBAO + TRAA slice with it.
+rasterizer: a 20 x 20 ground plane at y = 0 with a unit box on it (the
+scene of the JAX package's ``tests/test_external_ingestion.py``) and,
+with ``sphere=True``, the flagship's third mesh, a metallic sphere
+(``bench.py:193-197``); ray-cast per pixel on the given device, with the
+camera orbiting as the animated configurations of ``bench.py`` do.
+``chip_smoke.py`` and ``profile_slice.py`` drive the HBAO + TRAA and
+SSGI + HBAO + TRAA slices with it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -15,10 +18,16 @@ import torch
 
 from .composer import EffectComposer
 from .core.camera import PerspectiveCamera
+from .core.envmap import build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.math3d import uv_grid
 from .effects.ao import HBAOEffect
+from .effects.ssgi import SSGIEffect
 from .effects.traa import TRAAEffect
+
+#: the flagship's sphere (``bench.py:193-197``): centre, radius, albedo,
+#: roughness, metalness
+SPHERE = ((1.5, 0.6, 0.5), 0.6, (0.2, 0.5, 0.9), 0.2, 0.8)
 
 
 def orbit(cam, f: int):
@@ -35,11 +44,11 @@ def _project(m, p):
     return r[0] / r[3], r[1] / r[3], r[2] / r[3]
 
 
-def ray_cast(mats, prev_mats, h: int, w: int, device):
+def ray_cast(mats, prev_mats, h: int, w: int, device, sphere: bool = False):
     """(GBuffer, VelocityBuffer, scene colour (H, W, 3)) of the scene
     seen through camera ``mats``: depth, world normals (0 on the
     background), velocity = current uv - uv under ``prev_mats``, and a
-    Lambert-lit colour."""
+    Lambert-lit colour. ``sphere`` adds :data:`SPHERE`."""
     uv = uv_grid(h, w, device)
     ndc = torch.stack([(uv[..., 0] - 0.5) * 2.0, (uv[..., 1] - 0.5) * 2.0,
                        torch.ones_like(uv[..., 0])], -1)
@@ -66,6 +75,18 @@ def ray_cast(mats, prev_mats, h: int, w: int, device):
 
     box = t_box < t_pl
     t = torch.minimum(t_box, t_pl)
+    if sphere:
+        (cx, cy, cz), rad = SPHERE[0], SPHERE[1]
+        oc = org - torch.tensor([cx, cy, cz], device=device)
+        b = (oc * d).sum(-1)
+        disc = b * b - (float((oc * oc).sum()) - rad * rad)
+        t_sph = -b - torch.sqrt(torch.clamp(disc, min=0.0))
+        t_sph = torch.where((disc >= 0) & (t_sph > 0), t_sph, inf)
+        sph = t_sph < t
+        box = box & ~sph
+        t = torch.minimum(t, t_sph)
+    else:
+        sph = torch.zeros_like(box)
     bg = torch.isinf(t)
     p = org + torch.where(bg, 0.0, t)[..., None] * d
     n_box = torch.zeros_like(d).scatter_(
@@ -73,6 +94,9 @@ def ray_cast(mats, prev_mats, h: int, w: int, device):
     n_pl = torch.zeros_like(d)
     n_pl[..., 1] = 1.0
     normal = torch.where(box[..., None], n_box, n_pl)
+    if sphere:
+        n_sph = (p - torch.tensor(SPHERE[0], device=device)) / SPHERE[1]
+        normal = torch.where(sph[..., None], n_sph, normal)
     normal = torch.where(bg[..., None], 0.0, normal).contiguous()
 
     _, _, z = _project(mats.projection_view_matrix, p)
@@ -84,6 +108,8 @@ def ray_cast(mats, prev_mats, h: int, w: int, device):
     albedo = torch.where(box[..., None],
                          torch.tensor([0.9, 0.3, 0.2], device=device),
                          torch.tensor([0.6, 0.6, 0.65], device=device))
+    albedo = torch.where(sph[..., None], torch.tensor(SPHERE[2], device=device),
+                         albedo)
     sun = torch.tensor([0.4, 0.8, 0.45], device=device)
     sun = sun / sun.norm()
     lambert = (normal * sun).sum(-1).clamp(min=0.0)[..., None]
@@ -92,14 +118,17 @@ def ray_cast(mats, prev_mats, h: int, w: int, device):
                         torch.tensor([0.5, 0.7, 0.9], device=device), color)
     gb = GBuffer(
         diffuse=torch.cat([albedo, torch.ones_like(depth)[..., None]], -1),
-        normal=normal, roughness=torch.where(box, 0.4, 0.8),
-        metalness=torch.zeros_like(depth), emissive=torch.zeros_like(d),
+        normal=normal,
+        roughness=torch.where(sph, SPHERE[3], torch.where(box, 0.4, 0.8)),
+        metalness=torch.where(sph, SPHERE[4], 0.0),
+        emissive=torch.zeros_like(d),
         depth=depth)
     vel = VelocityBuffer(velocity=velocity, normal=normal, depth=depth)
     return gb, vel, color.contiguous()
 
 
-def frames_for(cam, n: int, h: int, w: int, device, first: int = 0):
+def frames_for(cam, n: int, h: int, w: int, device, first: int = 0,
+               sphere: bool = False):
     """Buffers of frames ``first .. first + n - 1`` of the orbit."""
     out = []
     orbit(cam, first - 1)
@@ -107,7 +136,7 @@ def frames_for(cam, n: int, h: int, w: int, device, first: int = 0):
     for f in range(first, first + n):
         orbit(cam, f)
         mats = cam.matrices()
-        out.append(ray_cast(mats, prev, h, w, device))
+        out.append(ray_cast(mats, prev, h, w, device, sphere=sphere))
         prev = mats
     return out
 
@@ -117,6 +146,30 @@ def hbao_traa_composer(h: int, w: int, device):
     camera."""
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
     comp = EffectComposer(None, cam, w, h, device=device)
+    comp.add_effect(HBAOEffect())
+    comp.add_effect(TRAAEffect())
+    return comp, cam
+
+
+@dataclasses.dataclass
+class EnvironmentHolder:
+    """What ``render_external`` reads of a scene: its ``environment``
+    (an ``EquirectEnv`` or a raw (H, W, 3) map), until ``Scene`` is
+    ported with the raster slice."""
+
+    environment: object = None
+
+
+def ssgi_hbao_traa_composer(h: int, w: int, device):
+    """``EffectComposer`` with ``SSGIEffect()`` + ``HBAOEffect()`` +
+    ``TRAAEffect()`` under the flagship's environment,
+    ``build_equirect_env(procedural_sky(64, 128))`` (``bench.py:189``),
+    and its camera."""
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    holder = EnvironmentHolder(
+        build_equirect_env(procedural_sky(64, 128), device=device))
+    comp = EffectComposer(holder, cam, w, h, device=device)
+    comp.add_effect(SSGIEffect())
     comp.add_effect(HBAOEffect())
     comp.add_effect(TRAAEffect())
     return comp, cam

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .core.camera import Camera, CameraMatrices
+from .core.envmap import EquirectEnv, build_equirect_env
 from .core.framebuffers import GBuffer, VelocityBuffer
 
 
@@ -36,6 +37,7 @@ class FrameContext:
     prev_cam: CameraMatrices          # previous frame, unjittered
     frame_index: int
     params: dict                      # per-effect uniform dicts
+    env: object = None                # EquirectEnv | None
 
 
 def _rigid_inverse(m: np.ndarray) -> np.ndarray:
@@ -68,8 +70,9 @@ def resolve_device(device=None) -> torch.device:
 class EffectComposer:
     """Drives the frame loop; owns effects, state and host bookkeeping.
 
-    ``scene`` is unused by :meth:`render_external` and may be None until
-    the raster slice is ported."""
+    :meth:`render_external` reads only ``scene.environment`` (any object
+    with that attribute, until ``Scene`` is ported with the raster
+    slice); ``scene`` may be None for effects that need no environment."""
 
     def __init__(self, scene, camera: Camera, width: int, height: int,
                  device=None):
@@ -86,6 +89,9 @@ class EffectComposer:
         self._prev_proj = None
         self._last_world = None
         self._reset_pending = True
+        self._env_key = None        # id() of the raw map last built
+        self._env_built = None      # the EquirectEnv built from it
+        self._env_raw = None        # the raw map (pins its id)
         #: per-frame dt (`MotionBlurEffect.js:87-89`): wall clock between
         #: renders, clamped to >= 1 ms, overridable with ``dt=``
         self.delta_time = 1.0 / 60.0
@@ -108,6 +114,41 @@ class EffectComposer:
     def reset(self):
         """Discard temporal history next frame (keepData=0 for one frame)."""
         self._reset_pending = True
+
+    def refresh_environment(self):
+        """Rebuild the environment next frame. A new raw map assigned to
+        ``scene.environment`` is detected by identity (the reference's
+        texture-uuid check, `SSGIEffect.js:317-329`); call this after
+        changing the same array in place."""
+        self._env_key = None
+
+    def _resolve_environment(self):
+        """The frame's :class:`EquirectEnv` or None (`SSGIEffect.js:309-366`).
+        ``scene.environment`` may be a prebuilt ``EquirectEnv`` (used as it
+        is) or a raw (H, W, 3) equirect map, built on this composer's
+        device when its identity changes; a rebuild resets the temporal
+        history."""
+        env = getattr(self.scene, "environment", None)
+        if env is None:
+            self._env_key = self._env_built = self._env_raw = None
+            return None
+        if isinstance(env, EquirectEnv):
+            if env.device != self.device:
+                raise ValueError(f"environment on {env.device}, composer "
+                                 f"on {self.device}")
+            return env
+        if self._env_key != id(env) or self._env_built is None:
+            arr = np.asarray(env, np.float32)
+            if arr.ndim != 3 or arr.shape[-1] != 3:
+                raise NotImplementedError(
+                    f"an environment of shape {arr.shape}: only (H, W, 3) "
+                    "equirect maps are ported; cube maps wait for "
+                    "cube_to_equirect (ROADMAP item 10.6)")
+            self._env_built = build_equirect_env(arr, device=self.device)
+            self._env_key = id(env)
+            self._env_raw = env
+            self.reset()
+        return self._env_built
 
     def set_size(self, width: int, height: int):
         """Resize the frame; discards temporal state like the reference's
@@ -163,6 +204,7 @@ class EffectComposer:
                  or np.abs(self._last_world - world).max() > 1e-6)
         self.camera_not_moved_frames = (0 if moved
                                         else self.camera_not_moved_frames + 1)
+        env = self._resolve_environment()
         prev_world = self._prev_world if self._prev_world is not None else world
         prev_proj = self._prev_proj if self._prev_proj is not None else proj
         for e in self.effects:
@@ -185,6 +227,7 @@ class EffectComposer:
             prev_cam=_camera(self.camera, prev_world, prev_proj),
             frame_index=self.frame % 4096,
             params=params,
+            env=env,
         )
 
         timer = _StageTimer(self.device) if self.collect_timings else None

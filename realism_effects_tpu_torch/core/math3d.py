@@ -46,6 +46,53 @@ def transform_point_nodiv(m, p):
     return torch.stack([rx, ry, rz], dim=-1), w
 
 
+def transform_dir(m, d):
+    """Rotate directions ``(..., 3)`` by the upper 3x3 of ``m``."""
+    return torch.stack(_apply_rows(m, d, (0, 1, 2), None), dim=-1)
+
+
+def transform_dir_transpose(m, d):
+    """Rotate directions by the *transpose* of the upper 3x3 of ``m``
+    (GLSL ``(vec4(d, 0.) * M).xyz``, the inverse rotation of a rigid
+    matrix, `ssgi.frag:136`)."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return torch.stack(
+        [float(m[0, c]) * x + float(m[1, c]) * y + float(m[2, c]) * z
+         for c in range(3)], dim=-1)
+
+
+def luminance(rgb):
+    """Rec.709-ish luminance of the reference shaders
+    (`reproject.frag:9`, `ssgi_utils.frag:3`)."""
+    return rgb[..., 0] * 0.2125 + rgb[..., 1] * 0.7154 + rgb[..., 2] * 0.0721
+
+
+def view_to_screen(view_pos, projection_matrix):
+    """View-space position -> screen uv in [0, 1]^2
+    (`ssgi_utils.frag:26-33`)."""
+    xyz, w = transform_point_nodiv(projection_matrix, view_pos)
+    return xyz[..., :2] / w[..., None] * 0.5 + 0.5
+
+
+def get_view_position(uv, view_z, projection_matrix, projection_matrix_inverse):
+    """View-space position from (uv, viewZ) (``getViewPosition``,
+    `ssgi_utils.frag:17-24`): the clip position at the depth implied by
+    viewZ through the projection's w row; z is viewZ itself."""
+    p, m = projection_matrix, projection_matrix_inverse
+    clip_w = float(p[3, 2]) * view_z + float(p[3, 3])
+    cx = (uv[..., 0] - 0.5) * 2.0 * clip_w
+    cy = (uv[..., 1] - 0.5) * 2.0 * clip_w
+    cz = (view_z - 0.5) * 2.0 * clip_w
+    rows = [float(m[r, 0]) * cx + float(m[r, 1]) * cy + float(m[r, 2]) * cz
+            + float(m[r, 3]) * clip_w for r in (0, 1)]
+    return torch.stack([rows[0], rows[1], view_z], dim=-1)
+
+
+def reflect(i, n):
+    """GLSL reflect: i - 2 * dot(n, i) * n."""
+    return i - 2.0 * dot(n, i)[..., None] * n
+
+
 def length(v):
     """Euclidean norm over the last axis, summed in index order."""
     acc = v[..., 0] * v[..., 0]

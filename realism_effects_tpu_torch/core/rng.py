@@ -116,7 +116,20 @@ def blue_noise_image(height: int, width: int, index: int,
     """Per-pixel (H, W, C) blue-noise values for noise ``index``
     (`blue_noise.glsl:37-48`): the tile fetched toroidally at the pixel
     coordinate shifted by a PCG4D hash of the index."""
-    rolled = rolled_noise_tile(index, row_offset, col_offset, tile, device)
+    return blue_noise_transform(height, width, index, lambda t: t, tile,
+                                row_offset, col_offset, device)
+
+
+def blue_noise_transform(height: int, width: int, index: int, fn,
+                         tile: torch.Tensor | None = None, row_offset: int = 0,
+                         col_offset: int = 0, device=None) -> torch.Tensor:
+    """``fn(blue_noise_image(h, w, index))`` for a POINTWISE ``fn``
+    ((S, S, 4) tile -> (S, S, C)), evaluated on the 128x128 tile and then
+    rolled and tiled: the same values for 128^2 evaluations of ``fn``
+    instead of H * W."""
+    if tile is None:
+        tile = blue_noise_tile_tensor(device or "cpu")
+    rolled = rolled_noise_tile(index, row_offset, col_offset, fn(tile))
     size = rolled.shape[0]
     reps_y = -(-height // size)
     reps_x = -(-width // size)

@@ -54,4 +54,21 @@ __device__ __forceinline__ void unpack_normal(float packed, float& nx,
   nz = valid ? z / n : 0.0f;
 }
 
+// A block's dynamic shared-memory array. (The host build of the sources
+// in tests/test_torch_cuda_sources.py, which runs threads one after the
+// other, defines it and block_load for itself.)
+#ifndef RE_DYNAMIC_SHARED
+#define RE_DYNAMIC_SHARED(T, name) extern __shared__ T name[]
+#endif
+
+#ifndef RE_HOST_SEQUENTIAL
+// Copy n floats from device memory to shared memory with the whole
+// block, then synchronise it.
+__device__ __forceinline__ void block_load(float* dst, const float* src,
+                                           int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+}
+#endif
+
 }  // namespace re

@@ -1,0 +1,201 @@
+"""SSGI effect (`SSGIEffect.js`, `SSGIOptions.js`, `Denoiser.js`): trace ->
+temporal reprojection -> Poisson denoise -> compose, with the reference's
+feedback: the trace reads last frame's composed output
+(`SSGIPass.js:88`) and the reprojector's history is last frame's
+denoised output (`Denoiser.js:51`), both in this effect's state.
+
+``denoise_mode`` is `Denoiser.js:7`'s ("full" | "full_temporal" |
+"denoised" | "temporal"). Not ported yet: ``SSREffect`` (ROADMAP item
+10.1) and the ``Mesh.gi_exclude`` selection, which needs the
+rasterizer's ``mesh_id`` (the raster slice); with no mesh excluded the
+selection is the identity.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.framebuffers import GBuffer, VelocityBuffer
+from ..core.math3d import uv_grid
+from ..core.sampling import sample_bilinear, sample_nearest
+from ..ops.compose import ssgi_compose
+from ..ops.denoiser_compose import denoiser_compose
+from ..ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise
+from ..ops.ssgi import SSGIConfig, ssgi
+from ..ops.temporal_reproject import TemporalReprojectConfig, temporal_reproject
+from .base import Effect
+
+
+def _resize_bilinear(tex, h, w):
+    return sample_bilinear(tex, uv_grid(h, w, tex.device))
+
+
+def _resize_nearest(tex, h, w):
+    return sample_nearest(tex, uv_grid(h, w, tex.device))
+
+
+def _resize_gbuffer(gb: GBuffer, h, w) -> GBuffer:
+    r = lambda t: _resize_nearest(t, h, w)
+    return GBuffer(diffuse=r(gb.diffuse), normal=r(gb.normal),
+                   roughness=r(gb.roughness), metalness=r(gb.metalness),
+                   emissive=r(gb.emissive), depth=r(gb.depth))
+
+
+def _resize_velocity(vel: VelocityBuffer, h, w) -> VelocityBuffer:
+    r = lambda t: _resize_nearest(t, h, w)
+    return VelocityBuffer(velocity=r(vel.velocity), normal=r(vel.normal),
+                          depth=r(vel.depth))
+
+
+#: quality presets (`SSGIEffect.js:79-99`)
+SSGI_PRESETS = {
+    "low": dict(steps=10, refine_steps=2, denoise_mode="full_temporal",
+                resolution_scale=0.5),
+    "medium": dict(steps=20, refine_steps=4, denoise_mode="full"),
+}
+
+
+class SSGIEffect(Effect):
+    name = "ssgi"
+    mode = "ssgi"
+
+    def __init__(self, distance: float = 10.0, thickness: float = 10.0,
+                 env_blur: float = 0.5, importance_sampling: bool = True,
+                 steps: int = 20, refine_steps: int = 5,
+                 missed_rays: bool = False,
+                 denoise_iterations: int = 1, radius: float = 3.0,
+                 phi: float = 0.5, luma_phi: float = 5.0,
+                 depth_phi: float = 2.0, normal_phi: float = 50.0,
+                 roughness_phi: float = 50.0, specular_phi: float = 50.0,
+                 denoise_mode: str = "full",
+                 fog_color=None, fog_density: float = 0.0,
+                 resolution_scale: float = 1.0,
+                 use_direct_light: bool = True,
+                 env_box: tuple | None = None,
+                 preset: str | None = None,
+                 selection: str = "mask",
+                 output_texture: str | None = None,
+                 trace: str = "sweep", sweep_dirs: int = 16,
+                 sweep_steps: int = 32, env_fetch_stride: int = 2):
+        if preset is not None:
+            p = SSGI_PRESETS[preset]
+            steps = p.get("steps", steps)
+            refine_steps = p.get("refine_steps", refine_steps)
+            denoise_mode = p.get("denoise_mode", denoise_mode)
+            resolution_scale = p.get("resolution_scale", resolution_scale)
+        if selection == "rerender":
+            raise NotImplementedError(
+                "selection='rerender' needs the rasterizer, which is not "
+                "ported yet (the raster slice)")
+        if selection != "mask":
+            raise ValueError("selection must be 'mask' or 'rerender'")
+        if trace == "march":
+            raise NotImplementedError(
+                "trace='march' is not ported yet (ROADMAP item 10.5)")
+        if trace != "sweep":
+            raise ValueError("trace must be 'march' or 'sweep'")
+        self.distance = distance
+        self.thickness = thickness
+        self.env_blur = env_blur
+        self.denoise_mode = denoise_mode
+        self.fog_color = fog_color
+        self.fog_density = fog_density
+        self.selection = selection
+        #: debug routing (`SSGIEffect.js:228-251`): None | "diffuse" |
+        #: "specular" | "temporal_diffuse" | "temporal_specular" |
+        #: "denoised_diffuse" | "denoised_specular" | "composed"
+        self.output_texture = output_texture
+        self.resolution_scale = float(resolution_scale)
+        self.cfg = SSGIConfig(
+            mode=self.mode, steps=steps, refine_steps=refine_steps,
+            missed_rays=missed_rays, importance_sampling=importance_sampling,
+            use_direct_light=use_direct_light, env_box=env_box, trace=trace,
+            sweep_dirs=sweep_dirs, sweep_steps=sweep_steps,
+            env_fetch_stride=env_fetch_stride)
+        self.temporal_cfg = TemporalReprojectConfig(
+            texture_count=2, log_transform=True,
+            reproject_specular=(False, True), neighborhood_clamp=(True, True),
+            confidence_power=0.75, input_type="diffuse_specular")
+        self.denoise_cfg = PoissonDenoiseConfig(
+            iterations=denoise_iterations, radius=radius, phi=phi,
+            luma_phi=luma_phi, depth_phi=depth_phi, normal_phi=normal_phi,
+            roughness_phi=roughness_phi, specular_phi=specular_phi,
+            is_specular=(False, True))
+
+    def static_key(self):
+        return (self.cfg, self.temporal_cfg, self.denoise_cfg,
+                self.denoise_mode, self.output_texture, self.selection,
+                self.fog_color, self.fog_density, self.resolution_scale)
+
+    def uniforms(self):
+        return {"ray_distance": float(self.distance),
+                "thickness": float(self.thickness),
+                "env_blur": float(self.env_blur)}
+
+    def init_state(self, height, width, device):
+        return {
+            "history": [torch.zeros((height, width, 4), device=device)
+                        for _ in range(self.temporal_cfg.texture_count)],
+            "composed": torch.zeros((height, width, 3), device=device),
+        }
+
+    def apply(self, ctx, color, state):
+        u = ctx.params[self.name]
+        g = ctx.params["__global__"]
+        gbuffer = ctx.gbuffer
+
+        # 1. the trace; its radiance is last frame's composed output.
+        #    With resolution_scale < 1 it runs on a downsampled G-buffer
+        #    and is upsampled (`SSGIPass.js:52-57`).
+        trace_args = dict(env=ctx.env, cam=ctx.cam, frame=ctx.frame_index,
+                          cfg=self.cfg, ray_distance=u["ray_distance"],
+                          thickness=u["thickness"], env_blur=u["env_blur"])
+        if self.resolution_scale < 1.0:
+            h, w = gbuffer.depth.shape
+            h2 = max(int(h * self.resolution_scale), 8)
+            w2 = max(int(w * self.resolution_scale), 8)
+            g_diffuse, g_specular = ssgi(
+                _resize_gbuffer(gbuffer, h2, w2),
+                _resize_velocity(ctx.velocity, h2, w2),
+                _resize_bilinear(state["composed"], h2, w2),
+                _resize_bilinear(color, h2, w2), **trace_args)
+            # nearest for diffuse: bilinear would blend the -1 "no
+            # diffuse sample" mark into valid radiance
+            g_diffuse = _resize_nearest(g_diffuse, h, w)
+            g_specular = _resize_bilinear(g_specular, h, w)
+        else:
+            g_diffuse, g_specular = ssgi(gbuffer, ctx.velocity,
+                                         state["composed"], color, **trace_args)
+
+        # 2. temporal reprojection (`Denoiser.js:33-42`)
+        temporal = temporal_reproject(
+            [g_diffuse, g_specular], state["history"], ctx.velocity,
+            ctx.last_velocity, ctx.cam, ctx.prev_cam, self.temporal_cfg,
+            max_blend=1.0, neighborhood_clamp_intensity=0.5,
+            full_accumulate=not g["camera_moved"], keep_data=g["keep_data"],
+            roughness_tex=gbuffer.roughness)
+
+        # 3. spatial Poisson denoise (skipped by the *_temporal modes)
+        if self.denoise_mode in ("full", "denoised"):
+            denoised = poisson_denoise(temporal, gbuffer, ctx.frame_index,
+                                       self.denoise_cfg)
+        else:
+            denoised = temporal
+
+        # 4. GI composition, 5. over the scene (+ fog)
+        composed = denoiser_compose(denoised[0], denoised[1], gbuffer, ctx.cam)
+        out = ssgi_compose(composed, color, gbuffer.depth, ctx.cam,
+                           fog_color=self.fog_color,
+                           fog_density=self.fog_density)
+        new_state = {"history": list(denoised), "composed": composed}
+        if self.output_texture is not None:
+            return {
+                "diffuse": g_diffuse[..., :3],
+                "specular": g_specular[..., :3],
+                "temporal_diffuse": temporal[0][..., :3],
+                "temporal_specular": temporal[-1][..., :3],
+                "denoised_diffuse": denoised[0][..., :3],
+                "denoised_specular": denoised[-1][..., :3],
+                "composed": composed,
+            }[self.output_texture], new_state
+        return out, new_state

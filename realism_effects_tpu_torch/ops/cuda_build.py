@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("warp", "stencil", "hbao", "poisson")
+SOURCES = ("warp", "stencil", "hbao", "poisson", "sweep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -116,8 +116,8 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def require_cuda(*tensors: torch.Tensor):
-    """Validate tensors for a kernel: float32/int32, contiguous, one
-    CUDA device."""
+    """Validate tensors for a kernel: float32/int32/float16, contiguous,
+    one CUDA device."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
@@ -126,5 +126,6 @@ def require_cuda(*tensors: torch.Tensor):
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-        if t.dtype not in (torch.float32, torch.int32):
-            raise ValueError(f"kernel inputs must be float32/int32, not {t.dtype}")
+        if t.dtype not in (torch.float32, torch.int32, torch.float16):
+            raise ValueError("kernel inputs must be float32/int32/float16, "
+                             f"not {t.dtype}")

@@ -1,0 +1,318 @@
+"""SSGI: stochastic screen-space GI (`ssgi.frag`, `ssgi_utils.frag`), the
+JAX package's ``ops/ssgi.py`` with ``trace="sweep"``.
+
+Per pixel: one GGX-VNDF, cosine-hemisphere or environment-CDF sample,
+both rays (specular, diffuse) traced by the sweep march
+(``ops/ssgi_sweep.py``), radiance from last frame's composed output
+prewarped by its velocity, environment fallback with MIS.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..core import brdf, math3d
+from ..core.envmap import (EquirectEnv, sample_equirect_color,
+                           sample_equirect_probability)
+from ..core.framebuffers import GBuffer, VelocityBuffer
+from ..core.math3d import (dot, luminance, mix, normalize, smoothstep,
+                           transform_dir_transpose, uv_grid)
+from ..core.rng import blue_noise_image, blue_noise_transform
+from .ssgi_sweep import sweep_ray_march
+from .warp import bilinear_window
+
+EPS = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class SSGIConfig:
+    """Static options; the JAX package's fields and defaults
+    (``defaultSSGIOptions``, `SSGIOptions.js:26-48`)."""
+
+    mode: str = "ssgi"               # "ssgi" | "ssr"
+    steps: int = 20
+    refine_steps: int = 5
+    #: "sweep" (the direction-binned march); "march" is not ported yet
+    trace: str = "sweep"
+    sweep_dirs: int = 16
+    sweep_steps: int = 32
+    missed_rays: bool = False
+    importance_sampling: bool = True
+    env_lum_clamp: bool = True
+    #: add the direct light to both GI outputs (`ssgi.frag:267-272`)
+    use_direct_light: bool = True
+    #: box-projected env parallax correction: ((sx, sy, sz), (px, py, pz))
+    env_box: tuple | None = None
+    #: each stride x stride pixel quad shares one environment fetch a
+    #: frame, the fetched member rotating with the frame
+    env_fetch_stride: int = 2
+
+
+def _parallax_correct(reflected_ws, world_pos, cfg: SSGIConfig):
+    """Box-projected env correction (`ssgi_utils.frag:44-56`)."""
+    size = torch.tensor(cfg.env_box[0], dtype=torch.float32,
+                        device=world_pos.device)
+    pos = torch.tensor(cfg.env_box[1], dtype=torch.float32,
+                       device=world_pos.device)
+    safe = torch.where(reflected_ws.abs() > 1e-8, reflected_ws, 1e-8)
+    rbmax = (0.5 * size + pos - world_pos) / safe
+    rbmin = (-0.5 * size + pos - world_pos) / safe
+    rbminmax = torch.where(reflected_ws > 0.0, rbmax, rbmin)
+    correction = rbminmax.min(dim=-1, keepdim=True).values
+    return normalize(world_pos + reflected_ws * correction - pos)
+
+
+def _env_fetch_strided(env, dirs_ws, lod, stride: int, frame: int,
+                       quantize: bool):
+    """One environment fetch per stride x stride quad, at the member
+    (frame % stride, frame // stride % stride); quads past the frame
+    edge read the edge pixel."""
+    h, w = dirs_ws.shape[:2]
+    fy = frame % stride
+    fx = frame // stride % stride
+    hq, wq = -(-h // stride), -(-w // stride)
+    dev = dirs_ws.device
+    rows = torch.clamp(torch.arange(hq, device=dev) * stride + fy, max=h - 1)
+    cols = torch.clamp(torch.arange(wq, device=dev) * stride + fx, max=w - 1)
+    s = sample_equirect_color(env, dirs_ws[rows][:, cols], lod[rows][:, cols],
+                              quantize=quantize)
+    s = s[:, None, :, None, :].expand(hq, stride, wq, stride, 3)
+    return s.reshape(hq * stride, wq * stride, 3)[:h, :w]
+
+
+def _get_env_color(env: EquirectEnv | None, l_view, view_matrix, roughness,
+                   is_diffuse, is_env_sample, env_blur, cfg: SSGIConfig,
+                   world_pos=None, frame: int | None = None):
+    """`ssgi.frag:311-346`: equirect fetch at a roughness-scaled mip, the
+    lod rounded to a level and the fetch shared by stride x stride quads,
+    luminance-clamped."""
+    if env is None:
+        return torch.zeros(l_view.shape[:-1] + (3,), device=l_view.device)
+    reflected_ws = normalize(transform_dir_transpose(view_matrix, l_view))
+    if cfg.env_box is not None and world_pos is not None:
+        reflected_ws = _parallax_correct(reflected_ws, world_pos, cfg)
+    mip = float(env_blur) * float(env.max_mip_level)
+    mip_scale = torch.where((~is_diffuse) & (roughness < 0.15),
+                            roughness / 0.15, 1.0)
+    lod = (mip * mip_scale).expand(l_view.shape[:-1])
+    if cfg.env_fetch_stride > 1 and frame is not None:
+        sample = _env_fetch_strided(env, reflected_ws, lod,
+                                    cfg.env_fetch_stride, frame, quantize=True)
+    else:
+        sample = sample_equirect_color(env, reflected_ws, lod, quantize=True)
+    if cfg.env_lum_clamp:
+        max_env_lum = torch.where(is_env_sample, 100.0, 25.0)
+        env_lum = luminance(sample)
+        scale = torch.where(env_lum > max_env_lum,
+                            max_env_lum / torch.clamp(env_lum, min=EPS), 1.0)
+        sample = sample * scale[..., None]
+    return sample
+
+
+def _saturation(c):
+    """`ssgi.frag:348-360`."""
+    mx = c.max(dim=-1).values
+    mn = c.min(dim=-1).values
+    return torch.where(mx == mn, 0.0, (mx - mn) / torch.clamp(mx, min=EPS))
+
+
+def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
+         accumulated: torch.Tensor, direct_light: torch.Tensor,
+         env: EquirectEnv | None, cam, frame: int, cfg: SSGIConfig,
+         ray_distance: float = 10.0, thickness: float = 10.0,
+         env_blur: float = 0.5):
+    """One SSGI sample per pixel. ``accumulated`` is last frame's composed
+    output (H, W, >=3), ``direct_light`` the lit scene colour (H, W, 3).
+    Returns (g_diffuse (H, W, 4) = (diffuseGI | -1, roughness),
+    g_specular (H, W, 4) = (specularGI, rayLength)) as `ssgi.frag:274-308`
+    packs them."""
+    if cfg.trace != "sweep":
+        raise NotImplementedError(
+            f"trace={cfg.trace!r} is not ported yet (ROADMAP item 10.5); "
+            "the port traces with trace='sweep'")
+    h, w = gbuffer.depth.shape
+    dev = gbuffer.depth.device
+    uv = uv_grid(h, w, dev)
+    depth = gbuffer.depth
+    is_bg = depth >= 1.0
+
+    roughness = gbuffer.roughness
+    metalness = gbuffer.metalness
+    diffuse = gbuffer.diffuse[..., :3]
+    roughness_sq = torch.clamp(roughness * roughness, 1e-6, 1.0)
+
+    view_z = math3d.depth_to_view_z(depth, cam)
+    view_pos = math3d.get_view_position(uv, view_z, cam.projection_matrix,
+                                        cam.projection_matrix_inverse)
+    view_dir = normalize(view_pos)
+    world_normal = gbuffer.normal
+    view_normal = normalize(transform_dir_transpose(cam.camera_matrix_world,
+                                                    world_normal))
+    world_pos = math3d.transform_point(cam.camera_matrix_world, view_pos)
+
+    n = view_normal
+    v = -view_dir
+    nov = torch.clamp(dot(n, v), min=EPS)
+
+    # view direction in world space (`ssgi.frag:136`)
+    v_world = transform_dir_transpose(cam.view_matrix, v)
+    t_w, b_w = brdf.onb(world_normal)
+    v_local = brdf.to_local(t_w, b_w, world_normal, v_world)
+
+    f0 = mix(torch.full_like(diffuse, 0.04), diffuse, metalness[..., None])
+
+    random = blue_noise_image(h, w, frame, device=dev)
+    r1, r2, r3, r4 = random.unbind(-1)
+
+    # GGX-VNDF reflection direction (`ssgi.frag:156-166`)
+    h_local = brdf.sample_ggx_vndf(v_local, roughness_sq, roughness_sq, r1, r2)
+    h_local = torch.where(h_local[..., 2:3] < 0.0, -h_local, h_local)
+    l_local = normalize(math3d.reflect(-v_local, h_local))
+    l_world = brdf.to_world(t_w, b_w, world_normal, l_local)
+    l_view = normalize(transform_dir_transpose(cam.camera_matrix_world, l_world))
+
+    if cfg.mode == "ssgi":
+        _, _, _, _, voh = brdf.calculate_angles(l_view, v, n)
+        fresnel = brdf.f_schlick(f0, voh)
+        diff_w = torch.clamp((1.0 - metalness) * luminance(diffuse), min=EPS)
+        spec_w = torch.clamp(luminance(fresnel), min=EPS)
+        inv_w = 1.0 / (diff_w + spec_w)
+        is_diffuse_sample = r3 < diff_w * inv_w
+    else:
+        is_diffuse_sample = torch.zeros((h, w), dtype=torch.bool, device=dev)
+
+    # environment importance sampling (`ssgi.frag:191-215`), evaluated on
+    # the 128^2 noise tile: it depends on the blue noise alone
+    ems_pdf = torch.ones((h, w), device=dev)
+    is_env_sample = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    env_mis_dir = torch.zeros((h, w, 3), device=dev)
+    if cfg.importance_sampling and env is not None:
+        def cdf_on_tile(t):
+            pdf_t, dir_t = sample_equirect_probability(env, t[..., :2],
+                                                       fast=True)
+            return torch.cat([pdf_t[..., None], dir_t], dim=-1)
+
+        packed_env = blue_noise_transform(h, w, frame, cdf_on_tile, device=dev)
+        env_pdf, env_dir_ws = packed_env[..., 0], packed_env[..., 1:4]
+        env_mis_dir = normalize(transform_dir_transpose(
+            cam.camera_matrix_world, env_dir_ws))
+        prob = torch.clamp(dot(env_mis_dir, view_normal) * roughness,
+                           max=1.0 - EPS)
+        is_env_sample = r4 < prob
+        ems_pdf = torch.where(
+            is_env_sample, env_pdf / torch.clamp(1.0 - prob, min=EPS),
+            1.0 - prob)
+        ems_pdf = torch.clamp(ems_pdf, min=EPS)
+
+    cos_hemi = brdf.cosine_sample_hemisphere(view_normal,
+                                             torch.stack([r1, r2], dim=-1))
+    diffuse_ray = torch.where(is_env_sample[..., None], env_mis_dir, cos_hemi)
+    specular_ray = torch.where(is_env_sample[..., None], env_mis_dir, l_view)
+
+    # Prewarped accumulated radiance A'(q) = acc(q - vel(q)) through the
+    # bilinear window warp, with a validity channel; the march reads it at
+    # each ray's hit texel
+    acc16 = accumulated[..., :3].to(torch.float16).to(torch.float32)
+    pre_uv = uv - velocity.velocity
+    warped_acc, in_win = bilinear_window(acc16.contiguous(), pre_uv, ky=8, kx=30)
+    pre_ok = ((pre_uv[..., 0] >= 0.0) & (pre_uv[..., 0] <= 1.0)
+              & (pre_uv[..., 1] >= 0.0) & (pre_uv[..., 1] <= 1.0) & in_win)
+    prewarped = torch.cat([warped_acc, pre_ok.to(torch.float32)[..., None]],
+                          dim=-1).to(torch.float16)
+
+    # stochastic bin rounding: a second blue-noise image, independent of
+    # r1-r4
+    bin_noise = blue_noise_image(h, w, frame + 2048, device=dev)[..., 0]
+    rays = [specular_ray] + ([diffuse_ray] if cfg.mode == "ssgi" else [])
+    traces = sweep_ray_march(
+        view_pos, rays, depth, cam, frame, thickness, ray_distance,
+        dirs=cfg.sweep_dirs, steps=cfg.sweep_steps, bin_noise=bin_noise,
+        radiance=prewarped, miss_radiance=cfg.missed_rays)
+
+    sat_desat = (1.0 - roughness) * _saturation(diffuse) * 0.4
+
+    def do_sample(l, trace, is_diffuse_mask):
+        """`ssgi.frag:362-439` for one ray."""
+        _, s_nol, s_noh, s_loh, _ = brdf.calculate_angles(l, v, n)
+        cos_theta = torch.clamp(dot(view_normal, l), min=0.0)
+        diffuse_brdf = brdf.eval_disney_diffuse(s_nol, nov, s_loh,
+                                                roughness_sq, metalness)
+        diffuse_pdf = s_nol / math.pi
+        spec_brdf = brdf.eval_disney_specular(roughness_sq, s_noh, nov, s_nol)
+        spec_pdf = brdf.ggx_vndf_pdf(s_noh, nov, roughness_sq)
+        brdf_val = torch.where(is_diffuse_mask, diffuse_brdf, spec_brdf)
+        pdf = torch.clamp(torch.where(is_diffuse_mask, diffuse_pdf, spec_pdf),
+                          min=EPS)
+        brdf_val = brdf_val * cos_theta
+
+        coords, hit_pos, missed, trace_gi = trace
+        env_color = _get_env_color(
+            env, l, cam.view_matrix, roughness, is_diffuse_mask,
+            is_env_sample, env_blur, cfg, world_pos=world_pos, frame=frame)
+
+        # the prewarped radiance (+ validity) read at the hit texel
+        reproj_gi = trace_gi[..., :3]
+        in_bounds = trace_gi[..., 3] > 0.5
+        reproj_gi = mix(reproj_gi, luminance(reproj_gi)[..., None],
+                        sat_desat[..., None])
+
+        border = 0.15
+        bf = (smoothstep(0.0, border, coords[..., 0])
+              * smoothstep(1.0, 1.0 - border, coords[..., 0])
+              * smoothstep(0.0, border, coords[..., 1])
+              * smoothstep(1.0, 1.0 - border, coords[..., 1]))
+        bf = torch.sqrt(torch.clamp(bf, min=0.0))
+        radiance = mix(env_color, reproj_gi, bf[..., None])
+        radiance = torch.where(in_bounds[..., None], radiance, env_color)
+        if cfg.missed_rays:
+            # the brighter of env and ssgi on missed lanes (`:430-436`)
+            take_env = luminance(env_color) > luminance(radiance)
+            gi = torch.where((missed & take_env)[..., None], env_color, radiance)
+        else:
+            gi = torch.where(missed[..., None], env_color, radiance)
+        return gi, hit_pos, brdf_val, pdf
+
+    def finalize(gi, brdf_val, pdf):
+        """brdf / pdf / MIS weighting (`ssgi.frag:252-259`)."""
+        gi = gi * brdf_val[..., None]
+        mis = brdf.mis_heuristic(ems_pdf, pdf)
+        weight = torch.where(is_env_sample, mis, 1.0 / pdf)
+        return gi * (weight / ems_pdf)[..., None]
+
+    # the specular ray gets the pixel's isDiffuseSample flag too, as in
+    # the reference (`ssgi.frag:245-265`)
+    spec_gi, spec_hit_pos, spec_brdf_v, spec_pdf_v = do_sample(
+        specular_ray, traces[0], is_diffuse_sample)
+    specular_gi = finalize(spec_gi, spec_brdf_v, spec_pdf_v)
+    if cfg.mode == "ssgi":
+        diff_gi, _, diff_brdf_v, diff_pdf_v = do_sample(
+            diffuse_ray, traces[1], is_diffuse_sample)
+        diffuse_gi = finalize(diff_gi, diff_brdf_v, diff_pdf_v)
+        # pixels that did not take a diffuse sample mark -1 (`:277-278`)
+        diffuse_gi = torch.where(is_diffuse_sample[..., None], diffuse_gi, -1.0)
+    else:
+        diffuse_gi = torch.full((h, w, 3), -1.0, device=dev)
+
+    if cfg.use_direct_light:
+        specular_gi = specular_gi + direct_light
+        if cfg.mode == "ssgi":
+            diffuse_gi = torch.where(is_diffuse_sample[..., None],
+                                     diffuse_gi + direct_light, diffuse_gi)
+
+    # world-space ray length for hit-point reprojection (`:282-296`)
+    is_missed = spec_hit_pos[..., 0] > 1.0e8
+    hit_ws = math3d.transform_point(cam.camera_matrix_world, spec_hit_pos)
+    to_hit = torch.stack([hit_ws[..., i] - float(cam.position[i])
+                          for i in range(3)], dim=-1)
+    ray_length = torch.where(is_missed, 0.0, math3d.length(to_hit))
+
+    g_diffuse = torch.cat([diffuse_gi, roughness[..., None]], dim=-1)
+    g_specular = torch.cat([specular_gi, ray_length[..., None]], dim=-1)
+    # the background shows the direct light (`ssgi.frag:108-113`)
+    bg = torch.cat([direct_light, torch.zeros_like(depth)[..., None]], dim=-1)
+    g_diffuse = torch.where(is_bg[..., None], bg, g_diffuse)
+    g_specular = torch.where(is_bg[..., None], bg, g_specular)
+    return g_diffuse, g_specular

@@ -6,10 +6,11 @@ CUDA. A shim header defines those builtins for g++ and each launch
 ``kernel<<<grid, block, 0, stream>>>(...)`` becomes a loop over the grid,
 so each kernel's own arithmetic runs here through its real C entry point
 and wrapper launch code, and is held against the plain PyTorch version.
-Tolerances: warp and minmax are bit-identical (same operations in the
-same order, no contraction: ``-ffp-contract=off`` as ``-fmad=false`` on
-the card); HBAO and Poisson agree to 2e-5, the gap between glibc's and
-PyTorch's sin/cos/exp/log. The card itself is checked by chip_smoke.py.
+Tolerances: warp, minmax and the sweep march are bit-identical (same
+operations in the same order, no contraction: ``-ffp-contract=off`` as
+``-fmad=false`` on the card); HBAO and Poisson agree to 2e-5, the gap
+between glibc's and PyTorch's sin/cos/exp/log. The card itself is checked
+by chip_smoke.py.
 """
 
 import ctypes
@@ -24,8 +25,11 @@ import torch
 
 from realism_effects_tpu_torch.core.camera import PerspectiveCamera
 from realism_effects_tpu_torch.core.framebuffers import GBuffer
+from realism_effects_tpu_torch import analytic
+from realism_effects_tpu_torch.core import math3d
 from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
-                                           poisson_kernel, stencil, warp)
+                                           poisson_kernel, ssgi_sweep,
+                                           stencil, sweep_kernel, warp)
 from realism_effects_tpu_torch.ops.ao import AOConfig
 from realism_effects_tpu_torch.ops.poisson_denoise import PoissonDenoiseConfig
 
@@ -56,6 +60,15 @@ struct __half { unsigned short b; };
 inline __half __ushort_as_half(unsigned short s) { __half h; h.b = s; return h; }
 inline float __half2float(__half h) { _Float16 v; memcpy(&v, &h.b, 2); return (float)v; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+// threads run one after another: a block's shared table is filled whole
+// by its first thread
+#define RE_HOST_SEQUENTIAL
+#define RE_DYNAMIC_SHARED(T, name) static T name[1 << 14]
+namespace re {
+inline void block_load(float* d, const float* s, int n) {
+  for (int i = 0; i < n; ++i) d[i] = s[i];
+}
+}  // namespace re
 struct GridLoop {
   dim3 g, b; unsigned long long i = 0, n;
   GridLoop(dim3 g_, dim3 b_) : g(g_), b(b_) {
@@ -189,3 +202,38 @@ def test_poisson_source(host_kernels, slots):
     got = poisson_kernel._launch(bundle, ch, slots, 11, cfg)
     want = poisson_kernel.poisson_pass_plain(bundle, ch, slots, 11, cfg)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("miss_gi", [False, True])
+def test_sweep_source(host_kernels, miss_gi):
+    """The march over a real frame's rays (the analytic scene with the
+    sphere, two random ray sets, stochastic bins), with a NaN bin and an
+    out-of-range bin planted."""
+    h, w = 36, 64
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    gb = analytic.frames_for(cam, 1, h, w, "cpu", first=3, sphere=True)[0][0]
+    m = cam.matrices()
+    view_pos = math3d.get_view_position(
+        math3d.uv_grid(h, w), math3d.depth_to_view_z(gb.depth, m),
+        m.projection_matrix, m.projection_matrix_inverse)
+    rng = np.random.default_rng(4)
+    rays = []
+    for _ in range(2):
+        r = rng.normal(size=(h, w, 3))
+        r[..., 2] = -np.abs(r[..., 2]) * 0.3 - 0.05
+        rays.append(torch.tensor(r / np.linalg.norm(r, axis=-1, keepdims=True),
+                                 dtype=torch.float32))
+    noise = torch.tensor(rng.random((h, w)), dtype=torch.float32)
+    z_tex, planes, table, radii_prev, _ = ssgi_sweep.march_inputs(
+        view_pos, rays, gb.depth, m, 5, 10.0, bin_noise=noise)
+    planes[5, 3, 7] = float("nan")
+    planes[11, 4, 9] = 16.0
+    rad = torch.tensor(rng.uniform(0, 3, (h, w, 4)), dtype=torch.float16)
+    args = (z_tex, rad, planes, table, radii_prev, 10.0, 10.0, 2, 16, 32,
+            miss_gi)
+    got = sweep_kernel._launch(*args)
+    want = sweep_kernel.sweep_march_plain(*args)
+    assert any(bool(hit.any()) for hit, *_ in want)
+    for g, wnt in zip(got, want):
+        for a, b in zip(g, wnt):
+            assert torch.equal(a, b)
