@@ -14,17 +14,21 @@ Phases (any failure raises and the script exits non-zero):
    PyTorch call computes the same function, time it too (``library_ms``;
    the port never calls it). The SSGI kernels (sweep march, bilinear
    prewarp, two-texture Poisson pass) take the inputs they get in frame 5
-   of the SSGI path.
-3. Run the paths at 1920x1080 through ``EffectComposer.render_external``
+   of the SSGI path; the raster kernels (z-scan, per-face record fetch)
+   those of frame 5 of the flagship path.
+3. Run the paths at 1920x1080: through ``EffectComposer.render_external``
    on analytic buffers (a ground plane and a box, plus the flagship's
    metallic sphere on the SSGI path, ray-cast per pixel on the card with
-   the camera orbiting): ``HBAOEffect()`` + ``TRAAEffect()`` over 12
+   the camera orbiting), ``HBAOEffect()`` + ``TRAAEffect()`` over 12
    frames, then ``SSGIEffect()`` + ``HBAOEffect()`` + ``TRAAEffect()``
-   under the flagship's environment over 24 frames. The launch counters
-   are set to 0 just before each path and read just after: each path
-   must have launched each of its kernels, and every kernel in the
-   ``kernels`` line launches on the SSGI path. Then a 3-frame run of
-   each path at 270x480 must agree with the same composer on the CPU.
+   under the flagship's environment over 24 frames; then the flagship
+   frame through ``EffectComposer.render``: the plane, box and sphere
+   rasterized and shaded, then ``SSGIEffect()`` + ``HBAOEffect()`` +
+   ``MotionBlurEffect()`` + ``TRAAEffect()``, over 24 frames. The launch
+   counters are set to 0 just before each path and read just after:
+   each path must have launched each of its kernels, and every kernel in
+   the ``kernels`` line launches on the flagship path. Then a 3-frame run
+   of each path at 270x480 must agree with the same composer on the CPU.
 4. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
@@ -43,10 +47,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 WIDTH, HEIGHT = 1920, 1080
-FRAMES = 24           # SSGI + HBAO + TRAA path
+FRAMES = 24           # SSGI + HBAO + TRAA path and the flagship path
 HBAO_TRAA_FRAMES = 12
 WARMUP = 4            # frames before the timed ones: allocator and clocks
-SWEEP_FRAME = 5       # the frame whose SSGI trace feeds the kernel checks
+SWEEP_FRAME = 5       # the frame whose SSGI trace / raster feeds the checks
 MEM_BW = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_RATE = 67e12      # H100 SXM float32 outside the tensor cores, op/s
 
@@ -79,6 +83,8 @@ POISSON_OPS_TAP_SLOT = 45  # per slot: unpack, logs, luma, age blend
 SWEEP_OPS_RAY = 10        # plane loads, bin checks, stores
 SWEEP_OPS_STEP = 25       # texel index, bounds, t(s), validity, hit test
 BILINEAR_OPS = 12 + 3 * 9  # index and window math, 3 lerps a channel
+ZSCAN_OPS = 35            # per (pixel, triangle whose bbox overlaps its block)
+ZSCAN_BLOCK = (8, 32)     # the z-scan kernel's block: rows, columns
 
 
 def _smi() -> str:
@@ -379,9 +385,88 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
                                                   + 2 * POISSON_OPS_TAP_SLOT)))
 
 
+def _zscan_ops(tab, h, w):
+    """Operations the z-scan needs on ``tab``: ZSCAN_OPS per (in-frame
+    pixel, triangle whose bbox overlaps the pixel's kernel block)."""
+    import torch
+
+    def axis(lo, hi, n, b):
+        start = torch.arange(0, n, b, device=tab.device, dtype=torch.float32)
+        over = (lo[:, None] <= start + (b - 1) + 0.5) & (hi[:, None] >= start + 0.5)
+        return (over * torch.clamp(n - start, max=b)).sum(1)
+
+    by, bx = ZSCAN_BLOCK
+    pix = axis(tab[:, 19], tab[:, 20], h, by) * axis(tab[:, 21], tab[:, 22], w, bx)
+    return ZSCAN_OPS * float(pix.sum())
+
+
+def check_raster_kernels(torch, analytic, timer, results):
+    """The raster's kernels on the inputs they take in frame SWEEP_FRAME
+    of the flagship composer at 1080p: the z-scan on the G-buffer pass's
+    triangle table, the record fetch on the G-buffer and velocity
+    records."""
+    from realism_effects_tpu_torch.ops import raster_kernel, table_kernel
+    from realism_effects_tpu_torch.scene import rasterizer
+
+    h, w = HEIGHT, WIDTH
+    maxerr = lambda a, b: _maxerr(torch, a, b)
+    comp, cam = analytic.flagship_composer(h, w, "cuda")
+    analytic.render_frames(comp, cam, SWEEP_FRAME)
+    captured = {"zscan": [], "lookup": []}
+    visibility, lookup = rasterizer.zscan_visibility, rasterizer.face_lookup
+
+    def record_visibility(*args):
+        tab = raster_kernel.zscan_table(*args[:6])
+        captured["zscan"].append(tab)
+        return raster_kernel.zscan(tab, *args[6:])
+
+    rasterizer.zscan_visibility = record_visibility
+    rasterizer.face_lookup = lambda t, i: captured["lookup"].append((t, i)) or lookup(t, i)
+    try:
+        analytic.render_frames(comp, cam, 1, first=SWEEP_FRAME)
+    finally:
+        rasterizer.zscan_visibility, rasterizer.face_lookup = visibility, lookup
+    del comp
+
+    # z-scan: the G-buffer pass's table (the first of the frame)
+    tab = captured["zscan"][0]
+    ids_k, z_k = raster_kernel.zscan(tab, h, w)
+    ids_p, z_p = raster_kernel.zscan_plain(tab, h, w)
+    flips = int((ids_k != ids_p).sum())
+    both = (ids_k == ids_p) & (ids_k >= 0)   # z is +inf where none
+    err = maxerr(torch.where(both, z_k, 0.0), torch.where(both, z_p, 0.0))
+    print(f"[kernel] zscan: {tab.shape[0]} triangles, winner flips {flips} of "
+          f"{h * w}, covered {int((ids_k >= 0).sum())}", flush=True)
+    if flips:
+        raise AssertionError(f"zscan: {flips} winner flips against the plain version")
+    results.add("zscan", "raster.cu", "realism_effects_tpu/ops/pallas/raster.py:67",
+                err, 0.0, timer(lambda: raster_kernel._launch(tab, h, w)),
+                timer(lambda: raster_kernel.zscan_plain(tab, h, w)),
+                tab.nbytes + z_k.nbytes + ids_k.nbytes, _zscan_ops(tab, h, w))
+
+    # record fetch: G-buffer record (timed) and velocity record
+    (gtab, gids), (vtab, vids) = captured["lookup"][:2]
+    errs = []
+    for t, i in ((gtab, gids), (vtab, vids)):
+        k = table_kernel.face_lookup(t, i)
+        errs.append(maxerr(k, table_kernel.face_lookup_plain(t, i)))
+    r, l = table_kernel._indices(gtab, gids)
+    if maxerr(gtab[r, l], table_kernel._launch(gtab, gids)) != 0.0:
+        raise AssertionError("lookup disagrees with table[r, l]")
+    print(f"[kernel] lookup: G-buffer record {gtab.shape[-1]} floats, velocity "
+          f"record {vtab.shape[-1]} floats; errors {errs}", flush=True)
+    out_bytes = gids.numel() * gtab.shape[-1] * 4
+    results.add("lookup", "table.cu", "realism_effects_tpu/ops/pallas/table.py:44",
+                max(errs), 0.0, timer(lambda: table_kernel._launch(gtab, gids)),
+                timer(lambda: table_kernel.face_lookup_plain(gtab, gids)),
+                gtab.nbytes + gids.nbytes + out_bytes, 0,
+                library_ms=timer(lambda: gtab[r, l]))
+
+
 def counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                               stencil, sweep_kernel, warp)
+                                               raster_kernel, stencil,
+                                               sweep_kernel, table_kernel, warp)
     return {
         "warp_catrom5": warp.window_warp.mode_launches["catrom5"],
         "warp_nearest": warp.window_warp.mode_launches["nearest"],
@@ -391,12 +476,15 @@ def counters():
         "poisson": poisson_kernel.poisson_pass_fused.tex_launches[1],
         "poisson_2tex": poisson_kernel.poisson_pass_fused.tex_launches[2],
         "sweep": sweep_kernel.sweep_march.launches,
+        "zscan": raster_kernel.zscan.launches,
+        "lookup": table_kernel.face_lookup.launches,
     }
 
 
 def reset_counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                               stencil, sweep_kernel, warp)
+                                               raster_kernel, stencil,
+                                               sweep_kernel, table_kernel, warp)
     warp.window_warp.launches = 0
     for m in warp.window_warp.mode_launches:
         warp.window_warp.mode_launches[m] = 0
@@ -406,18 +494,21 @@ def reset_counters():
     for n in poisson_kernel.poisson_pass_fused.tex_launches:
         poisson_kernel.poisson_pass_fused.tex_launches[n] = 0
     sweep_kernel.sweep_march.launches = 0
+    raster_kernel.zscan.launches = 0
+    table_kernel.face_lookup.launches = 0
 
 
-def run_path(torch, analytic, name, comp, cam, frames, n, kernels, smi):
-    """``n`` frames after WARMUP warm-up frames, the counters set to 0
-    just before and read just after; checks the images and that each of
-    ``kernels`` launched; then stage times from ``collect_timings``.
-    Returns the launch counts."""
-    analytic.run_frames(comp, cam, frames[:WARMUP])
+def run_path(torch, comp, drive, name, n, kernels, smi):
+    """``n`` frames after WARMUP warm-up frames, ``drive(first, count)``
+    rendering frames first .. first + count - 1 of ``comp``, the counters
+    set to 0 just before and read just after; checks the images and that
+    each of ``kernels`` launched; then stage times from
+    ``collect_timings``. Returns the launch counts."""
+    drive(0, WARMUP)
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
-    images = analytic.run_frames(comp, cam, frames[WARMUP:WARMUP + n], first=WARMUP)
+    images = drive(WARMUP, n)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3 / n
     launches = counters()
@@ -434,8 +525,7 @@ def run_path(torch, analytic, name, comp, cam, frames, n, kernels, smi):
     comp.collect_timings = True
     stages = {}
     for f in range(2, 8):
-        analytic.orbit(cam, f)
-        comp.render_external(*frames[f], dt=1 / 60)
+        drive(f, 1)
         for k_, v_ in comp.last_timings.items():
             stages.setdefault(k_, []).append(v_)
     comp.collect_timings = False
@@ -448,21 +538,26 @@ def run_path(torch, analytic, name, comp, cam, frames, n, kernels, smi):
 
 def card_vs_cpu(torch, analytic, make, sphere):
     """3 frames at 270x480 on the card and on the CPU through the same
-    composer; returns per frame (max, mean, share of pixels > 1e-2)."""
+    composer (``sphere`` None: the flagship path through render());
+    returns per frame (max, mean, share of pixels > 1e-2)."""
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
 
-    small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
-    small = analytic.frames_for(small_cam, 3, 270, 480, "cuda", sphere=sphere)
     gpu_comp, gpu_cam = make(270, 480, "cuda")
     cpu_comp, cpu_cam = make(270, 480, "cpu")
-    gpu_imgs = analytic.run_frames(gpu_comp, gpu_cam, small)
-    cpu_frames = [(gb_.replace(**{f: getattr(gb_, f).cpu() for f in
-                                  ("diffuse", "normal", "roughness", "metalness",
-                                   "emissive", "depth")}),
-                   type(vel_)(velocity=vel_.velocity.cpu(), normal=vel_.normal.cpu(),
-                              depth=vel_.depth.cpu()),
-                   col_.cpu()) for gb_, vel_, col_ in small]
-    cpu_imgs = analytic.run_frames(cpu_comp, cpu_cam, cpu_frames)
+    if sphere is None:
+        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, 3)
+        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, 3)
+    else:
+        small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
+        small = analytic.frames_for(small_cam, 3, 270, 480, "cuda", sphere=sphere)
+        gpu_imgs = analytic.run_frames(gpu_comp, gpu_cam, small)
+        cpu_frames = [(gb_.replace(**{f: getattr(gb_, f).cpu() for f in
+                                      ("diffuse", "normal", "roughness", "metalness",
+                                       "emissive", "depth")}),
+                       type(vel_)(velocity=vel_.velocity.cpu(), normal=vel_.normal.cpu(),
+                                  depth=vel_.depth.cpu()),
+                       col_.cpu()) for gb_, vel_, col_ in small]
+        cpu_imgs = analytic.run_frames(cpu_comp, cpu_cam, cpu_frames)
     out = []
     for a, b in zip(gpu_imgs, cpu_imgs):
         d = (a.cpu() - b).abs()
@@ -478,6 +573,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs the port on a GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from realism_effects_tpu_torch import analytic, native
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
@@ -516,21 +612,34 @@ def main() -> int:
     kernels = Entries()
     check_kernels(torch, analytic, timer, frames, kernels)
     check_ssgi_kernels(torch, analytic, timer, sph_frames, kernels)
+    check_raster_kernels(torch, analytic, timer, kernels)
 
     # phase 3: the paths at 1920 x 1080
+    def external(comp, cam, frames_):
+        return lambda first, n: analytic.run_frames(
+            comp, cam, frames_[first:first + n], first=first)
+
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
-    hbao_traa = run_path(torch, analytic, "HBAO+TRAA", comp, cam, frames,
+    hbao_traa = run_path(torch, comp, external(comp, cam, frames), "HBAO+TRAA",
                          HBAO_TRAA_FRAMES, ("warp_catrom5", "warp_nearest",
                                             "minmax", "hbao", "poisson"), smi)
     del comp
     comp, cam = analytic.ssgi_hbao_traa_composer(HEIGHT, WIDTH, "cuda")
-    ssgi_path = run_path(torch, analytic, "SSGI+HBAO+TRAA", comp, cam,
-                         sph_frames, FRAMES, [k["name"] for k in kernels], smi)
+    ssgi_path = run_path(torch, comp, external(comp, cam, sph_frames),
+                         "SSGI+HBAO+TRAA", FRAMES,
+                         [k["name"] for k in kernels if k["name"] not in
+                          ("zscan", "lookup")], smi)
+    del comp, frames, sph_frames
+    comp, cam = analytic.flagship_composer(HEIGHT, WIDTH, "cuda")
+    flagship = run_path(torch, comp,
+                        lambda first, n: analytic.render_frames(comp, cam, n, first),
+                        "flagship", FRAMES, [k["name"] for k in kernels], smi)
     del comp
     for kern in kernels:
-        kern["launches"] = ssgi_path[kern["name"]]
+        kern["launches"] = flagship[kern["name"]]
         kern["launches_by_path"] = {"hbao_traa": hbao_traa[kern["name"]],
-                                    "ssgi_hbao_traa": ssgi_path[kern["name"]]}
+                                    "ssgi_hbao_traa": ssgi_path[kern["name"]],
+                                    "flagship": flagship[kern["name"]]}
 
     # the paths at 270 x 480 on the card against the CPU composer
     for i, (mx, mean, _) in enumerate(card_vs_cpu(
@@ -548,7 +657,16 @@ def main() -> int:
                 and frac <= SSGI_SLICE_PIX_FRAC):
             raise AssertionError(f"SSGI+HBAO+TRAA: card and CPU disagree at "
                                  f"frame {i}")
+    for i, (mx, mean, frac) in enumerate(card_vs_cpu(
+            torch, analytic, analytic.flagship_composer, None)):
+        print(f"[path] flagship 270x480 frame {i}: card vs CPU max {mx} "
+              f"mean {mean} share of pixels > {SSGI_SLICE_PIX_TOL}: {frac}",
+              flush=True)
+        if not (mx <= SSGI_SLICE_MAX_TOL and mean <= SSGI_SLICE_MEAN_TOL
+                and frac <= SSGI_SLICE_PIX_FRAC):
+            raise AssertionError(f"flagship: card and CPU disagree at frame {i}")
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

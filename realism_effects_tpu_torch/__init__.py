@@ -4,9 +4,11 @@ The effect chain of the JAX package on NVIDIA Hopper: the same module
 layout, option names and tensor layouts, with each TPU kernel rewritten
 as a CUDA C++ kernel (``csrc/``) that is built with ``nvcc`` at first use.
 Every kernel's wrapper runs a plain PyTorch version of the same function
-for tensors on the CPU. The port carries ``render_external`` with
-``SSGIEffect`` (under an ``EquirectEnv`` environment), ``HBAOEffect`` and
-``TRAAEffect``; the rasterizer and the other effects are not ported yet.
+for tensors on the CPU. ``EffectComposer.render`` rasterizes a
+``Scene`` (opaque meshes), shades it and runs ``SSGIEffect`` (under an
+``EquirectEnv`` environment), ``HBAOEffect``, ``MotionBlurEffect`` and
+``TRAAEffect``; ``render_external`` runs the effects on buffers the
+caller supplies. The other effects are not ported yet.
 """
 
 from .composer import EffectComposer, FrameContext
@@ -15,16 +17,25 @@ from .core.envmap import EquirectEnv, build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .effects.ao import AOEffect, HBAOEffect
 from .effects.base import Effect
+from .effects.motion_blur import MotionBlurEffect
 from .effects.ssgi import SSGIEffect
 from .effects.traa import TRAAEffect
 from .ops.ao import AOConfig
 from .ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise
 from .ops.temporal_reproject import TemporalReprojectConfig, temporal_reproject
+from .scene.geometry import (Material, Mesh, make_box, make_plane, make_sphere,
+                             rotation_y, translation)
+from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
+from .scene.scene import PackedScene, Scene
+from .scene.shading import shade_direct
 
 __all__ = [
     "EffectComposer", "FrameContext", "Effect", "AOEffect", "HBAOEffect",
     "TRAAEffect", "Camera", "CameraMatrices", "PerspectiveCamera", "GBuffer",
     "VelocityBuffer", "AOConfig", "PoissonDenoiseConfig", "poisson_denoise",
     "TemporalReprojectConfig", "temporal_reproject", "SSGIEffect",
-    "EquirectEnv", "build_equirect_env", "procedural_sky",
+    "EquirectEnv", "build_equirect_env", "procedural_sky", "MotionBlurEffect",
+    "Scene", "PackedScene", "Material", "Mesh", "make_plane", "make_box",
+    "make_sphere", "translation", "rotation_y", "rasterize_gbuffer",
+    "rasterize_velocity", "shade_direct",
 ]

@@ -1,16 +1,19 @@
-"""Analytic input buffers for driving the effect chain without a
-rasterizer: a 20 x 20 ground plane at y = 0 with a unit box on it (the
-scene of the JAX package's ``tests/test_external_ingestion.py``) and,
-with ``sphere=True``, the flagship's third mesh, a metallic sphere
-(``bench.py:193-197``); ray-cast per pixel on the given device, with the
-camera orbiting as the animated configurations of ``bench.py`` do.
-``chip_smoke.py`` and ``profile_slice.py`` drive the HBAO + TRAA and
-SSGI + HBAO + TRAA slices with it.
+"""The port's three paths, as ``chip_smoke.py`` and ``profile_slice.py``
+drive them, with the camera orbiting as the animated configurations of
+``bench.py`` do:
+
+- the flagship frame (``bench.py:180-207``): ``EffectComposer.render`` of
+  a plane, a box and a metallic sphere under the procedural sky, with
+  SSGI + HBAO + motion blur + TRAA (:func:`flagship_composer`);
+- analytic input buffers for driving the effect chain through
+  ``render_external`` without the rasterizer: a 20 x 20 ground plane at
+  y = 0 with a unit box on it (the scene of the JAX package's
+  ``tests/test_external_ingestion.py``) and, with ``sphere=True``, the
+  flagship's metallic sphere; ray-cast per pixel on the given device.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import numpy as np
@@ -22,8 +25,11 @@ from .core.envmap import build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.math3d import uv_grid
 from .effects.ao import HBAOEffect
+from .effects.motion_blur import MotionBlurEffect
 from .effects.ssgi import SSGIEffect
 from .effects.traa import TRAAEffect
+from .scene.geometry import Material, make_box, make_plane, make_sphere, translation
+from .scene.scene import Scene
 
 #: the flagship's sphere (``bench.py:193-197``): centre, radius, albedo,
 #: roughness, metalness
@@ -151,24 +157,15 @@ def hbao_traa_composer(h: int, w: int, device):
     return comp, cam
 
 
-@dataclasses.dataclass
-class EnvironmentHolder:
-    """What ``render_external`` reads of a scene: its ``environment``
-    (an ``EquirectEnv`` or a raw (H, W, 3) map), until ``Scene`` is
-    ported with the raster slice."""
-
-    environment: object = None
-
-
 def ssgi_hbao_traa_composer(h: int, w: int, device):
     """``EffectComposer`` with ``SSGIEffect()`` + ``HBAOEffect()`` +
     ``TRAAEffect()`` under the flagship's environment,
     ``build_equirect_env(procedural_sky(64, 128))`` (``bench.py:189``),
     and its camera."""
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
-    holder = EnvironmentHolder(
-        build_equirect_env(procedural_sky(64, 128), device=device))
-    comp = EffectComposer(holder, cam, w, h, device=device)
+    scene = Scene()   # render_external reads only its environment
+    scene.environment = build_equirect_env(procedural_sky(64, 128), device=device)
+    comp = EffectComposer(scene, cam, w, h, device=device)
     comp.add_effect(SSGIEffect())
     comp.add_effect(HBAOEffect())
     comp.add_effect(TRAAEffect())
@@ -182,4 +179,44 @@ def run_frames(comp, cam, frames, first: int = 0):
     for i, (gb, vel, color) in enumerate(frames):
         orbit(cam, first + i)
         images.append(comp.render_external(gb, vel, color, dt=1 / 60))
+    return images
+
+
+def flagship_scene(device) -> Scene:
+    """The flagship scene of ``bench.py:188-197``: a 20 x 20 plane, a unit
+    box and the metallic sphere of :data:`SPHERE` (734 triangles) under
+    ``build_equirect_env(procedural_sky(64, 128))``."""
+    scene = Scene()
+    scene.environment = build_equirect_env(procedural_sky(64, 128), device=device)
+    scene.add(make_plane(20, Material(diffuse=(0.6, 0.6, 0.65, 1.0))))
+    box = scene.add(make_box((1, 1, 1), Material(diffuse=(0.9, 0.3, 0.2, 1.0))))
+    box.set_matrix(translation(0, 0.5, 0))
+    (cx, cy, cz), rad, albedo, rough, metal = SPHERE
+    sph = scene.add(make_sphere(rad, material=Material(
+        diffuse=albedo + (1.0,), roughness=rough, metalness=metal)))
+    sph.set_matrix(translation(cx, cy, cz))
+    return scene
+
+
+def flagship_composer(h: int, w: int, device):
+    """``EffectComposer.render`` of :func:`flagship_scene` with the
+    flagship stack of ``bench.py:201-206``: ``SSGIEffect()`` +
+    ``HBAOEffect()`` + ``MotionBlurEffect()`` (sweep) + ``TRAAEffect()``,
+    and its camera."""
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    comp = EffectComposer(flagship_scene(device), cam, w, h, device=device)
+    comp.add_effect(SSGIEffect())
+    comp.add_effect(HBAOEffect())
+    comp.add_effect(MotionBlurEffect())
+    comp.add_effect(TRAAEffect())
+    return comp, cam
+
+
+def render_frames(comp, cam, n: int, first: int = 0):
+    """``comp.render(dt=1/60)`` of frames ``first .. first + n - 1`` with
+    the camera on the orbit; returns the images."""
+    images = []
+    for f in range(first, first + n):
+        orbit(cam, f)
+        images.append(comp.render(dt=1 / 60))
     return images

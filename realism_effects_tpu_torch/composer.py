@@ -1,14 +1,20 @@
-"""EffectComposer: the frame driver of the effect chain.
+"""EffectComposer: the frame driver.
 
 Per frame, on the host: camera jitter bookkeeping (`TAAUtils.js:5-11`),
 previous-matrix snapshots (`TemporalReprojectPass.js:202-213`),
 camera-moved detection (`SceneUtils.js:17-43`) and the one-frame
 ``keepData=0`` reset (`TemporalReprojectPass.js:158-160`). On the device:
-each effect in turn over (H, W, C) tensors, with the temporal state in
-an explicit dict that the frame replaces.
+:meth:`EffectComposer.render` rasterizes the scene (G-buffer with the
+jittered camera, velocity with the unjittered current and previous
+cameras), shades it, then runs each effect in turn over (H, W, C)
+tensors, with the temporal state in an explicit dict that the frame
+replaces; :meth:`EffectComposer.render_external` runs the effects on
+buffers the caller supplies. Both go through one frame driver.
 
-The per-frame values stay host floats (matrices as float32 numpy
-arrays), so a frame copies nothing from the host to the card.
+The packed scene and the lighting go to the device once. The camera
+matrices and the effects' uniforms stay host floats that enter the
+device arithmetic as scalars; the per-mesh model matrices, bone palettes
+and morph weights (a few KB) are copied to the device each frame.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 from .core.camera import Camera, CameraMatrices
 from .core.envmap import EquirectEnv, build_equirect_env
 from .core.framebuffers import GBuffer, VelocityBuffer
+from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
+from .scene.shading import shade_direct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +46,10 @@ class FrameContext:
     frame_index: int
     params: dict                      # per-effect uniform dicts
     env: object = None                # EquirectEnv | None
+    #: restricted G-buffer (excluded faces absent) for exact SSGI
+    #: Selection (`SSGIPass.js:71-79`); None unless an effect asks for
+    #: ``selection="rerender"`` and the scene excludes a mesh
+    gi_gbuffer: GBuffer | None = None
 
 
 def _rigid_inverse(m: np.ndarray) -> np.ndarray:
@@ -70,21 +82,32 @@ def resolve_device(device=None) -> torch.device:
 class EffectComposer:
     """Drives the frame loop; owns effects, state and host bookkeeping.
 
-    :meth:`render_external` reads only ``scene.environment`` (any object
-    with that attribute, until ``Scene`` is ported with the raster
-    slice); ``scene`` may be None for effects that need no environment."""
+    ``scene`` is a :class:`Scene` for :meth:`render`. :meth:`render_external`
+    reads only ``scene.environment`` (and ``scene.gi_mask()`` where the
+    scene has one), so there ``scene`` may be any object with an
+    ``environment`` attribute, or None for effects that need no
+    environment."""
 
     def __init__(self, scene, camera: Camera, width: int, height: int,
-                 device=None):
+                 device=None, msaa: int = 1):
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera
         self.width = int(width)
         self.height = int(height)
+        #: supersampled raster (the JAX package's ``msaa``); not ported
+        #: yet: render() raises for msaa > 1
+        self.msaa = max(1, int(msaa))
+        #: resolve visibility once per frame: the velocity pass reuses the
+        #: G-buffer scan's winner ids (off by default: under TRAA the
+        #: G-buffer scan is jittered, see the JAX package's composer)
+        self.share_visibility = False
         self.effects = []
         self.frame = 0
         self.camera_not_moved_frames = 0
         self._state = None
+        self._packed = None         # PackedScene on the device
+        self._lighting = None       # lighting params on the device
         self._prev_world = None
         self._prev_proj = None
         self._last_world = None
@@ -96,9 +119,9 @@ class EffectComposer:
         #: renders, clamped to >= 1 ms, overridable with ``dt=``
         self.delta_time = 1.0 / 60.0
         self._last_frame_walltime = None
-        #: set True to fill :attr:`last_timings` (ms per effect stage,
-        #: CUDA events on the card, the host clock on the CPU); adds one
-        #: synchronisation per frame
+        #: set True to fill :attr:`last_timings` (ms per stage: ``raster``
+        #: for render(), then one per effect; CUDA events on the card, the
+        #: host clock on the CPU); adds one synchronisation per frame
         self.collect_timings = False
         self.last_timings: dict[str, float] = {}
 
@@ -114,6 +137,12 @@ class EffectComposer:
     def reset(self):
         """Discard temporal history next frame (keepData=0 for one frame)."""
         self._reset_pending = True
+
+    def refresh_lighting(self):
+        """Re-stage the scene's lighting on the device next frame (it is
+        staged once, at the first render); changing which parameters
+        exist (``sun_specular``, point lights) is picked up too."""
+        self._lighting = None
 
     def refresh_environment(self):
         """Rebuild the environment next frame. A new raw map assigned to
@@ -168,10 +197,22 @@ class EffectComposer:
         return state
 
     # ------------------------------------------------------------------
-    def render(self, dt: float | None = None):
-        raise NotImplementedError(
-            "render() needs the rasterizer, which is not ported yet (the "
-            "raster slice); drive the effects with render_external()")
+    def render(self, dt: float | None = None) -> torch.Tensor:
+        """Rasterize, shade and run the effect chain on the composer's
+        :class:`Scene`; returns the (H, W, 3) image on the device.
+
+        ``dt``: seconds since the previous frame, for frame-rate-dependent
+        effects (motion blur); defaults to the wall clock between calls,
+        clamped to >= 1 ms (`MotionBlurEffect.js:87-89`)."""
+        if not hasattr(self.scene, "meshes"):
+            raise ValueError("render() rasterizes the composer's Scene; "
+                             "without one, drive the effects with "
+                             "render_external()")
+        if self.msaa > 1:
+            raise NotImplementedError(
+                "msaa > 1 (the supersampled raster) is not ported yet "
+                "(ROADMAP item 10.2)")
+        return self._render_frame(None, dt)
 
     def render_external(self, gbuffer: GBuffer, velocity: VelocityBuffer,
                         scene_color: torch.Tensor, dt: float | None = None):
@@ -186,6 +227,55 @@ class EffectComposer:
         if tuple(gbuffer.depth.shape) != (self.height, self.width):
             raise ValueError(f"buffers of {tuple(gbuffer.depth.shape)}, "
                              f"composer of {(self.height, self.width)}")
+        return self._render_frame((gbuffer, velocity, scene_color), dt)
+
+    def _raster(self, cam, unjit, prev, env):
+        """The frame's (G-buffer, velocity, lit colour, restricted
+        G-buffer or None) from the scene."""
+        scene, dev = self.scene, self.device
+        if self._packed is None:
+            self._packed = scene.pack(dev)
+        if self._lighting is None:
+            self._lighting = scene.lighting_params(dev)
+        packed, h, w = self._packed, self.height, self.width
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        if scene.meshes:
+            mm, pmm = t(scene.model_matrices()), t(scene.prev_model_matrices())
+        else:  # an empty scene rasterizes nothing
+            mm = pmm = t(np.eye(4)[None])
+        bones = prev_bones = morph = prev_morph = None
+        if scene.num_bones() > 1:
+            bones, prev_bones = t(scene.bone_matrices()), t(scene.bone_matrices(prev=True))
+        if scene.max_morph_targets() > 0:
+            morph = t(scene.morph_weight_matrix())
+            prev_morph = t(scene.morph_weight_matrix(prev=True))
+        gbuffer = rasterize_gbuffer(packed, mm, cam.projection_view_matrix, h, w,
+                                    bones=bones, morph_weights=morph,
+                                    return_ids=self.share_visibility)
+        ids = None
+        if self.share_visibility:
+            gbuffer, ids = gbuffer
+        velocity = rasterize_velocity(
+            packed, mm, pmm, unjit.projection_view_matrix,
+            prev.projection_view_matrix, h, w, bones=bones,
+            prev_bones=prev_bones, morph_weights=morph,
+            prev_morph_weights=prev_morph, share_ids=ids)
+        color = shade_direct(gbuffer, cam, self._lighting, env)
+        gi_gbuffer = None
+        excluded = scene.gi_mask() < 0.5
+        if excluded.any() and any(getattr(e, "selection", "mask") == "rerender"
+                                  for e in self.effects):
+            # exact Selection: a second raster pass without the excluded
+            # meshes' faces (`SSGIPass.js:71-79`)
+            face_keep = ~torch.as_tensor(excluded, device=dev)[packed.face_mesh]
+            gi_gbuffer = rasterize_gbuffer(
+                packed, mm, cam.projection_view_matrix, h, w, bones=bones,
+                morph_weights=morph, face_keep=face_keep)
+        return gbuffer, velocity, color, gi_gbuffer
+
+    def _render_frame(self, external, dt):
+        """The frame driver of :meth:`render` (``external`` None) and
+        :meth:`render_external` (``external`` = the buffers)."""
         if self._state is None:
             self._state = self._init_state()
 
@@ -204,39 +294,55 @@ class EffectComposer:
                  or np.abs(self._last_world - world).max() > 1e-6)
         self.camera_not_moved_frames = (0 if moved
                                         else self.camera_not_moved_frames + 1)
-        env = self._resolve_environment()
+        jit_proj = proj
+        if external is None and any(e.needs_jitter for e in self.effects):
+            self.camera.jitter(self.width, self.height, self.frame)
+            jit_proj = np.asarray(self.camera.projection_matrix, np.float64).copy()
         prev_world = self._prev_world if self._prev_world is not None else world
         prev_proj = self._prev_proj if self._prev_proj is not None else proj
         for e in self.effects:
             e.host_update(self)
+        env = self._resolve_environment()
 
         unjit = _camera(self.camera, world, proj)
+        cam = unjit if jit_proj is proj else _camera(self.camera, world, jit_proj)
+        prev_cam = _camera(self.camera, prev_world, prev_proj)
+        gi_mask = getattr(self.scene, "gi_mask", None)
         params = {"__global__": {
             "keep_data": 0.0 if self._reset_pending else 1.0,
             "camera_moved": bool(moved),
             "camera_not_moved_frames": self.camera_not_moved_frames,
+            # per-mesh SSGI participation, a host array
+            "gi_mask_meshes": gi_mask() if gi_mask is not None else None,
         }}
         for e in self.effects:
             params[e.name] = {k: float(v) for k, v in e.uniforms().items()}
+
+        timer = _StageTimer(self.device) if self.collect_timings else None
+        if external is None:
+            if timer:
+                timer.start("raster")
+            with torch.profiler.record_function("stage:raster"):
+                gbuffer, velocity, color, gi_gbuffer = self._raster(
+                    cam, unjit, prev_cam, env)
+            if timer:
+                timer.stop()
+        else:
+            (gbuffer, velocity, color), gi_gbuffer = external, None
         ctx = FrameContext(
             gbuffer=gbuffer, velocity=velocity,
             last_velocity=self._state["__global__"]["last_velocity"],
-            scene_color=scene_color,
-            cam=unjit,  # external buffers are never jittered
-            unjittered_cam=unjit,
-            prev_cam=_camera(self.camera, prev_world, prev_proj),
-            frame_index=self.frame % 4096,
-            params=params,
-            env=env,
-        )
+            scene_color=color, cam=cam, unjittered_cam=unjit,
+            prev_cam=prev_cam, frame_index=self.frame % 4096, params=params,
+            env=env, gi_gbuffer=gi_gbuffer)
 
-        timer = _StageTimer(self.device) if self.collect_timings else None
         new_state = {"__global__": {"last_velocity": velocity}}
-        image = scene_color
+        image = color
         for e in self.effects:
             if timer:
                 timer.start(e.name)
-            image, new_state[e.name] = e.apply(ctx, image, self._state[e.name])
+            with torch.profiler.record_function(f"stage:{e.name}"):
+                image, new_state[e.name] = e.apply(ctx, image, self._state[e.name])
             if timer:
                 timer.stop()
         if timer:
@@ -246,6 +352,8 @@ class EffectComposer:
         self._prev_world = world
         self._prev_proj = proj
         self._last_world = world
+        if external is None:
+            self.scene.commit_frame()
         self.frame += 1
         self._reset_pending = False
         return image

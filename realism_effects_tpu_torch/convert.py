@@ -1,9 +1,9 @@
 """Carry buffers and temporal state across packages, as numpy arrays.
 
 This system has no weights: what crosses between the JAX package and
-this one is G-buffers, velocity buffers, environments (the nearest thing
-to weights: the HDR map's mips and CDF tables) and the composer's
-temporal state. Inputs may be any objects with the fields as attributes
+this one is packed scenes, G-buffers, velocity buffers, environments
+(the nearest thing to weights: the HDR map's mips and CDF tables) and
+the composer's temporal state. Inputs may be any objects with the fields as attributes
 (the JAX package's dataclasses, whose arrays convert through
 ``np.asarray``) or dicts of arrays. The state layout is the one
 ``jax.tree.map(np.asarray, composer._state)`` gives:
@@ -22,6 +22,7 @@ import torch
 from .core.envmap import EquirectEnv
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.sampling import MipAtlas
+from .scene.scene import _PACKED_DTYPES, PackedScene
 
 _GB_FIELDS = ("diffuse", "normal", "roughness", "metalness", "emissive",
               "depth")
@@ -68,6 +69,13 @@ def env_from_numpy(env, device) -> EquirectEnv:
         conditional=_tensor(env.conditional, device),
         total_sum=_tensor(env.total_sum, device),
         cdf_packed=None if cdf is None else _tensor(cdf, device))
+
+
+def packed_scene_from_numpy(packed, device) -> PackedScene:
+    """The JAX package's ``PackedScene`` (or an object or dict with the
+    same fields) on ``device``."""
+    return PackedScene.from_arrays(
+        {f: np.asarray(_get(packed, f)) for f in _PACKED_DTYPES}, device)
 
 
 def _is_velocity(obj) -> bool:

@@ -178,6 +178,16 @@ def rdiv(num: float, t):
     return torch.full_like(t, num) / t
 
 
+def fma(a, b, c):
+    """``a * b + c`` of float32 tensors with the sum rounded once, as the
+    fused multiply-adds of XLA's CPU dot (its einsum over a short axis is
+    the chain ``fma(a2, b2, fma(a1, b1, a0 * b0))``). The product of two
+    float32 is exact in float64, so this rounds to float64 and then to
+    float32: it differs from a true fused multiply-add only where the
+    float64 sum falls on a float32 halfway point."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def floor_int32(x):
     """``floor(x)`` as int32 with XLA's conversion law: NaN -> 0 and
     out-of-range values saturate. Bounded here to +-2^30, which every

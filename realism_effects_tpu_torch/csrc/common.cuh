@@ -66,9 +66,17 @@ __device__ __forceinline__ void unpack_normal(float packed, float& nx,
 // block, then synchronise it.
 __device__ __forceinline__ void block_load(float* dst, const float* src,
                                            int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  const int nt = blockDim.x * blockDim.y;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n; i += nt) {
+    dst[i] = src[i];
+  }
   __syncthreads();
 }
+
+// Wait until every thread of the block is done with shared memory.
+__device__ __forceinline__ void block_sync() { __syncthreads(); }
+#else
+inline void block_sync() {}
 #endif
 
 }  // namespace re

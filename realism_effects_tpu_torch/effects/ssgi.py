@@ -5,10 +5,11 @@ feedback: the trace reads last frame's composed output
 denoised output (`Denoiser.js:51`), both in this effect's state.
 
 ``denoise_mode`` is `Denoiser.js:7`'s ("full" | "full_temporal" |
-"denoised" | "temporal"). Not ported yet: ``SSREffect`` (ROADMAP item
-10.1) and the ``Mesh.gi_exclude`` selection, which needs the
-rasterizer's ``mesh_id`` (the raster slice); with no mesh excluded the
-selection is the identity.
+"denoised" | "temporal"). ``selection`` honours ``Mesh.gi_exclude``
+(`SSGIPass.js:71-79`): "mask" sends the excluded meshes' pixels of the
+G-buffer to background by its ``mesh_id``; "rerender" runs the whole
+chain on the composer's second raster pass without them. Not ported
+yet: ``SSREffect`` (ROADMAP item 10.1).
 """
 
 from __future__ import annotations
@@ -83,11 +84,7 @@ class SSGIEffect(Effect):
             refine_steps = p.get("refine_steps", refine_steps)
             denoise_mode = p.get("denoise_mode", denoise_mode)
             resolution_scale = p.get("resolution_scale", resolution_scale)
-        if selection == "rerender":
-            raise NotImplementedError(
-                "selection='rerender' needs the rasterizer, which is not "
-                "ported yet (the raster slice)")
-        if selection != "mask":
+        if selection not in ("mask", "rerender"):
             raise ValueError("selection must be 'mask' or 'rerender'")
         if trace == "march":
             raise NotImplementedError(
@@ -139,10 +136,36 @@ class SSGIEffect(Effect):
             "composed": torch.zeros((height, width, 3), device=device),
         }
 
+    def _selected(self, ctx) -> GBuffer:
+        """The G-buffer the GI chain sees (`SSGIPass.js:71-79`): excluded
+        meshes neither occlude rays nor appear in reflections, and their
+        pixels read as background, so the scene colour passes through
+        them in the compose."""
+        gbuffer = ctx.gbuffer
+        if self.selection == "rerender" and ctx.gi_gbuffer is not None:
+            return ctx.gi_gbuffer
+        gi_w = ctx.params["__global__"].get("gi_mask_meshes")
+        if gbuffer.mesh_id is None or gi_w is None or not (gi_w < 0.5).any():
+            return gbuffer  # nothing excluded: the identity
+        weights = torch.as_tensor(gi_w, device=gbuffer.device)
+        mesh_id = gbuffer.mesh_id
+        sel = torch.where(mesh_id >= 0, weights[mesh_id.clamp(min=0).long()],
+                          1.0) > 0.5
+        s1 = sel[..., None]
+        return GBuffer(
+            diffuse=torch.where(s1, gbuffer.diffuse, 0.0),
+            normal=torch.where(s1, gbuffer.normal, 0.0),
+            roughness=torch.where(sel, gbuffer.roughness, 0.0),
+            metalness=torch.where(sel, gbuffer.metalness, 0.0),
+            emissive=torch.where(s1, gbuffer.emissive, 0.0),
+            depth=torch.where(sel, gbuffer.depth, 1.0),
+            mesh_id=torch.where(sel, mesh_id, -1),
+            ao=None if gbuffer.ao is None else torch.where(sel, gbuffer.ao, 1.0))
+
     def apply(self, ctx, color, state):
         u = ctx.params[self.name]
         g = ctx.params["__global__"]
-        gbuffer = ctx.gbuffer
+        gbuffer = self._selected(ctx)
 
         # 1. the trace; its radiance is last frame's composed output.
         #    With resolution_scale < 1 it runs on a downsampled G-buffer

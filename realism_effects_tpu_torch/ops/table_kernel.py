@@ -1,0 +1,65 @@
+"""Per-face record fetch: each pixel's winning face id -> that face's
+packed record.
+
+Kernel: ``csrc/table.cu``. It replaces the JAX package's
+``ops/pallas/table.py::_lookup_kernel`` (``vmem_table_lookup``): the
+function is ``tab[clip(iy), clip(ix)]`` with ``iy = max(id, 0) // 128``
+and ``ix = max(id, 0) % 128`` over the (rows, 128, K) record table
+(``scene/rasterizer._pack_face_table``), for all K channels at once
+(the TPU split the record into chunks of 8). The TPU's ``MAX_ROWS`` gate
+priced its select chain and is not semantics: one kernel serves every
+table size. Kernel and plain version are both a copy, bit-identical. On
+the H100 the kernel is bound by bytes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_build
+
+LANES = 128
+
+
+def _indices(table, ids):
+    safe = torch.clamp(ids, min=0)
+    r = torch.clamp(safe // LANES, 0, table.shape[0] - 1).long()
+    return r, (safe % LANES).long()
+
+
+def face_lookup_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in PyTorch: advanced indexing."""
+    r, l = _indices(table, ids)
+    return table[r, l]
+
+
+def face_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(H, W, K) records of ``table`` (rows, 128, K) float32 at the face
+    ids ``ids`` (H, W) int32 (a negative id reads face 0). CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    if table.device.type == "cpu":
+        return face_lookup_plain(table, ids)
+    out = _launch(table, ids)
+    face_lookup.launches += 1
+    return out
+
+
+face_lookup.launches = 0
+
+
+def _launch(table, ids):
+    if table.ndim != 3 or table.shape[1] != LANES or table.dtype != torch.float32:
+        raise ValueError(f"the record table must be (rows, {LANES}, K) "
+                         f"float32, not {tuple(table.shape)} {table.dtype}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"face ids must be int32, not {ids.dtype}")
+    table, ids = table.contiguous(), ids.contiguous()
+    cuda_build.require_cuda(table, ids)
+    rows, _, k = table.shape
+    out = torch.empty(tuple(ids.shape) + (k,), dtype=torch.float32,
+                      device=table.device)
+    fn = cuda_build.bind("table", "re_lookup", 3, 3)
+    err = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), rows, k,
+             ids.numel(), cuda_build.stream_ptr(table))
+    cuda_build.check(err, "face lookup kernel")
+    return out

@@ -1,19 +1,24 @@
 """Where the time of a frame of the port's paths goes on the card.
 
     python -m realism_effects_tpu_torch.profile_slice [--frames 24]
-        [--width 1920] [--height 1080] [--path all|hbao_traa|ssgi_hbao_traa]
+        [--width 1920] [--height 1080]
+        [--path all|hbao_traa|ssgi_hbao_traa|flagship]
 
 Renders the analytic scene (``analytic.py``) through
 ``EffectComposer.render_external`` with ``HBAOEffect()`` +
 ``TRAAEffect()`` (path ``hbao_traa``) or ``SSGIEffect()`` +
 ``HBAOEffect()`` + ``TRAAEffect()`` under the flagship's environment,
-with the flagship's sphere in the scene (path ``ssgi_hbao_traa``): after
-4 warm-up frames, ``--frames`` frames timed on the host clock
-(synchronised at the end), then the same number under
-``torch.profiler``. Prints one JSON line a path: host ms/frame, device
-busy ms/frame (the sum of the CUDA kernels' durations; one stream, so
-they do not overlap), the device's idle share of the frame, kernel
-launches a frame, the time in the port's kernels, and the costliest
+with the flagship's sphere in the scene (path ``ssgi_hbao_traa``), or
+the flagship frame through ``EffectComposer.render``: raster, shade,
+SSGI, HBAO, motion blur and TRAA (path ``flagship``). After 4 warm-up
+frames, ``--frames`` frames timed on the host clock (synchronised at the
+end), 4 frames with ``collect_timings``, then ``--frames`` frames under
+``torch.profiler``. Prints one JSON line a path: host ms/frame, each
+stage's CUDA-event time, device busy ms/frame (the sum of the CUDA
+kernels' durations; one stream, so they do not overlap), the device's
+idle share of the frame, kernel launches a frame, the time in the port's
+kernels, the device busy time of each composer stage (the kernels that
+start inside its ``stage:<name>`` profiler range), and the costliest
 kernels. Fails without a CUDA device; reports device time as not
 measured when the profiler records no CUDA kernels.
 """
@@ -21,6 +26,7 @@ measured when the profiler records no CUDA kernels.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import sys
@@ -33,41 +39,82 @@ from .core.camera import PerspectiveCamera
 from .ops import cuda_build
 
 PORT_KERNELS = ("warp_kernel", "minmax_kernel", "hbao_kernel",
-                "poisson_kernel", "sweep_kernel")
-PATHS = {"hbao_traa": (analytic.hbao_traa_composer, False),
-         "ssgi_hbao_traa": (analytic.ssgi_hbao_traa_composer, True)}
+                "poisson_kernel", "sweep_kernel", "zscan_kernel",
+                "lookup_kernel")
+PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship")
 
 
-def _kernel_events(prof):
+def _driver(path: str, h: int, w: int, n: int):
+    """``drive(first, count)``: render frames first .. first + count - 1
+    of ``path``'s composer on the card; and the composer."""
+    if path == "flagship":
+        comp, cam = analytic.flagship_composer(h, w, "cuda")
+        return (lambda first, count: analytic.render_frames(comp, cam, count, first)), comp
+    make, sphere = {"hbao_traa": (analytic.hbao_traa_composer, False),
+                    "ssgi_hbao_traa": (analytic.ssgi_hbao_traa_composer, True)}[path]
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    frames = analytic.frames_for(cam, n, h, w, "cuda", sphere=sphere)
+    comp, cam = make(h, w, "cuda")
+    return (lambda first, count: analytic.run_frames(
+        comp, cam, frames[first:first + count], first)), comp
+
+
+def _device_events(prof):
+    """(kernels, stage ranges): the profiler's device-side events, split
+    into the kernels and the ``stage:<name>`` ranges of the composer
+    (which the profiler also places on the device timeline)."""
     cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.events() if e.device_type == cuda]
+    events = [e for e in prof.events() if e.device_type == cuda]
+    stages = sorted((e.time_range.start, e.time_range.end, e.name[len("stage:"):])
+                    for e in events if e.name.startswith("stage:"))
+    return [e for e in events if not e.name.startswith("stage:")], stages
+
+
+def _stage_busy(kernels, stages, n: int) -> dict:
+    """ms a frame of the kernels that start inside each stage's range."""
+    starts = [s[0] for s in stages]
+    busy: dict[str, float] = {}
+    for e in kernels:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < stages[i][1]:
+            name = stages[i][2]
+            busy[name] = busy.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return busy
 
 
 def profile_path(path: str, h: int, w: int, n: int, smi: str) -> dict:
-    make, sphere = PATHS[path]
-    cam = PerspectiveCamera(50, w / h, 0.1, 100)
     warm = 4
-    frames = analytic.frames_for(cam, warm + 2 * n, h, w, "cuda", sphere=sphere)
-    comp, cam = make(h, w, "cuda")
-    analytic.run_frames(comp, cam, frames[:warm])
+    drive, comp = _driver(path, h, w, warm + 2 * n)
+    drive(0, warm)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    analytic.run_frames(comp, cam, frames[warm:warm + n], first=warm)
+    drive(warm, n)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / n
+
+    comp.collect_timings = True
+    stages: dict[str, list] = {}
+    for f in range(warm + n, warm + n + 4):
+        drive(f, 1)
+        for k, v in comp.last_timings.items():
+            stages.setdefault(k, []).append(v)
+    comp.collect_timings = False
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        analytic.run_frames(comp, cam, frames[warm + n:], first=warm + n)
+        drive(warm + n, n)
         torch.cuda.synchronize()
         prof_host_ms = (time.perf_counter() - t0) * 1e3 / n
-    events = _kernel_events(prof)
+    events, stage_ranges = _device_events(prof)
     out = {"path": path, "card": smi, "width": w, "height": h, "frames": n,
            "host_ms_per_frame": host_ms,
-           "host_ms_per_frame_profiled": prof_host_ms}
+           "host_ms_per_frame_profiled": prof_host_ms,
+           # CUDA events around each stage (median of 4 frames); they also
+           # count the device's waits for the host
+           "stage_ms": {k: sorted(v)[len(v) // 2] for k, v in stages.items()}}
     if not events:
         out["device_busy_ms_per_frame"] = "not measured"
         return out
@@ -82,6 +129,7 @@ def profile_path(path: str, h: int, w: int, n: int, smi: str) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     out.update({
         "device_busy_ms_per_frame": busy,
+        "stage_device_busy_ms_per_frame": _stage_busy(events, stage_ranges, n),
         # against the unprofiled frame: the profiler slows the host only
         "device_idle_share": max(0.0, 1.0 - busy / host_ms),
         "launches_per_frame": len(events) / n,

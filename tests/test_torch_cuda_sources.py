@@ -6,9 +6,10 @@ CUDA. A shim header defines those builtins for g++ and each launch
 ``kernel<<<grid, block, 0, stream>>>(...)`` becomes a loop over the grid,
 so each kernel's own arithmetic runs here through its real C entry point
 and wrapper launch code, and is held against the plain PyTorch version.
-Tolerances: warp, minmax and the sweep march are bit-identical (same
-operations in the same order, no contraction: ``-ffp-contract=off`` as
-``-fmad=false`` on the card); HBAO and Poisson agree to 2e-5, the gap
+Tolerances: warp, minmax, the sweep march, the z-scan and the record
+fetch are bit-identical (same operations in the same order, no
+contraction: ``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
+and Poisson agree to 2e-5, the gap
 between glibc's and PyTorch's sin/cos/exp/log. The card itself is checked
 by chip_smoke.py.
 """
@@ -28,8 +29,10 @@ from realism_effects_tpu_torch.core.framebuffers import GBuffer
 from realism_effects_tpu_torch import analytic
 from realism_effects_tpu_torch.core import math3d
 from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
-                                           poisson_kernel, ssgi_sweep,
-                                           stencil, sweep_kernel, warp)
+                                           poisson_kernel, raster_kernel,
+                                           ssgi_sweep, stencil, sweep_kernel,
+                                           table_kernel, warp)
+from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
 from realism_effects_tpu_torch.ops.poisson_denoise import PoissonDenoiseConfig
 
@@ -92,7 +95,7 @@ LAUNCH = re.compile(
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """The four sources built for the host, one g++ each, in parallel."""
+    """The sources built for the host, one g++ each, in parallel."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel sources for the host")
@@ -237,3 +240,59 @@ def test_sweep_source(host_kernels, miss_gi):
     for g, wnt in zip(got, want):
         for a, b in zip(g, wnt):
             assert torch.equal(a, b)
+
+
+def _flagship_table(h, w, eye, target, face_keep=False):
+    """The z-scan table of the flagship scene seen from ``eye``."""
+    scene = analytic.flagship_scene("cpu")
+    packed = scene.pack("cpu")
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    cam.set_position(*eye)
+    cam.look_at(target)
+    world, _ = rasterizer._world_transform(
+        packed, torch.tensor(scene.model_matrices()))
+    clip = rasterizer._clip_positions(world, cam.matrices().projection_view_matrix)
+    captured = []
+    real = raster_kernel.zscan
+    keep = (packed.face_mesh != 1) if face_keep else None
+    raster_kernel.zscan = lambda tab, hh, ww: captured.append(tab) or real(tab, hh, ww)
+    try:
+        rasterizer._visibility(clip, packed.faces, h, w, keep)
+    finally:
+        raster_kernel.zscan = real
+    return captured[0]
+
+
+@pytest.mark.parametrize("view", ["orbit", "inside", "face_keep"])
+def test_zscan_source(host_kernels, view):
+    """The z-scan over the flagship scene at 45 x 83 (blocks cut by the
+    frame edge), from the orbit, from inside the geometry (triangles
+    crossing w = 0, unbounded bboxes) and with the box's faces dropped."""
+    h, w = 45, 83
+    eye, target = ((3.0, 2.5, 4.0), (0, 0.5, 0))
+    if view == "inside":
+        eye, target = (0.2, 0.4, 0.2), (2, 0.5, 1)
+    tab = _flagship_table(h, w, eye, target, face_keep=view == "face_keep")
+    got = raster_kernel._launch(tab, h, w)
+    want = raster_kernel.zscan_plain(tab, h, w)
+    assert bool((want[0] >= 0).any()) and bool((want[0] < 0).any() or view == "inside")
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_lookup_source(host_kernels):
+    rng = np.random.default_rng(6)
+    table = torch.tensor(rng.normal(size=(3, 128, 11)), dtype=torch.float32)
+    ids = torch.tensor(rng.integers(-3, 3 * 128 + 40, (37, 61)), dtype=torch.int32)
+    got = table_kernel._launch(table, ids)
+    assert torch.equal(got, table_kernel.face_lookup_plain(table, ids))
+
+
+@pytest.mark.parametrize("name,entry", [("raster", "re_zscan"), ("table", "re_lookup")])
+def test_raster_sources_are_listed(name, entry):
+    """The raster slice's kernels are built with the others and declare
+    their C entry points for ctypes."""
+    assert name in cuda_build.SOURCES
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    assert re.search(rf'extern "C" int {entry}\(', src)
+    assert "__global__" in src

@@ -141,8 +141,10 @@ def test_cpu_run_never_launches_a_kernel(jax_run):
 
 
 def test_render_needs_the_raster_slice():
+    """render() rasterizes the composer's Scene; a composer built for
+    render_external without one refuses it."""
     comp, _ = _port_composer()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Scene"):
         comp.render()
 
 

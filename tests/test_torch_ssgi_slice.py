@@ -97,8 +97,9 @@ def jax_run():
 
 def _port_composer(env):
     cam = tre.PerspectiveCamera(50, W / H, 0.1, 100)
-    holder = analytic.EnvironmentHolder(env)
-    comp = tre.EffectComposer(holder, cam, W, H, device="cpu")
+    scene = tre.Scene()
+    scene.environment = env
+    comp = tre.EffectComposer(scene, cam, W, H, device="cpu")
     comp.add_effect(tre.SSGIEffect())
     comp.add_effect(tre.HBAOEffect())
     comp.add_effect(tre.TRAAEffect())
@@ -196,7 +197,8 @@ def test_environment_resolution():
     cam = tre.PerspectiveCamera(50, w / h, 0.1, 100)
     frames = analytic.frames_for(cam, 2, h, w, "cpu", sphere=True)
     sky = tre.procedural_sky(16, 32)
-    holder = analytic.EnvironmentHolder(sky)
+    holder = tre.Scene()
+    holder.environment = sky
     comp = tre.EffectComposer(holder, cam, w, h, device="cpu")
     comp.add_effect(tre.SSGIEffect())
     analytic.run_frames(comp, cam, frames[:1])
@@ -217,8 +219,8 @@ def test_environment_resolution():
 
 
 def test_effect_options_on_cpu():
-    """Debug routing, the low preset (half-resolution trace) and the
-    options that wait for later slices."""
+    """Debug routing, the low preset (half-resolution trace), the
+    selection modes and the options that wait for later slices."""
     h, w = 16, 24
     cam = tre.PerspectiveCamera(50, w / h, 0.1, 100)
     frames = analytic.frames_for(cam, 2, h, w, "cpu", sphere=True)
@@ -227,15 +229,17 @@ def test_effect_options_on_cpu():
     for key, kw in [("full", {}), ("diffuse", dict(output_texture="diffuse")),
                     ("low", dict(preset="low")),
                     ("temporal", dict(denoise_mode="temporal"))]:
-        comp = tre.EffectComposer(analytic.EnvironmentHolder(env), cam, w, h,
-                                  device="cpu")
+        scene = tre.Scene()
+        scene.environment = env
+        comp = tre.EffectComposer(scene, cam, w, h, device="cpu")
         comp.add_effect(tre.SSGIEffect(**kw))
         outs[key] = analytic.run_frames(comp, cam, frames)[-1]
     for key, img in outs.items():
         assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all()), key
     assert not torch.equal(outs["full"], outs["diffuse"])
     assert not torch.equal(outs["full"], outs["low"])
-    with pytest.raises(NotImplementedError, match="rasterizer"):
-        tre.SSGIEffect(selection="rerender")
+    assert tre.SSGIEffect(selection="rerender").selection == "rerender"
+    with pytest.raises(ValueError, match="selection"):
+        tre.SSGIEffect(selection="layers")
     with pytest.raises(NotImplementedError, match="10.5"):
         tre.SSGIEffect(trace="march")
