@@ -6,9 +6,13 @@ as a CUDA C++ kernel (``csrc/``) that is built with ``nvcc`` at first use.
 Every kernel's wrapper runs a plain PyTorch version of the same function
 for tensors on the CPU. ``EffectComposer.render`` rasterizes a
 ``Scene`` (opaque meshes), shades it and runs ``SSGIEffect`` (under an
-``EquirectEnv`` environment), ``HBAOEffect``, ``MotionBlurEffect`` and
-``TRAAEffect``; ``render_external`` runs the effects on buffers the
-caller supplies. The other effects are not ported yet.
+``EquirectEnv`` environment), ``HBAOEffect``, ``MotionBlurEffect``,
+``TRAAEffect``, the finishing effects (``SharpnessEffect``,
+``LensDistortionEffect``, ``SparkleEffect``, ``GradualBackgroundEffect``)
+and the reference demo's companion post-FX (``ToneMappingEffect``,
+``VignetteEffect``, ``BloomEffect``, ``LUT3DEffect``);
+``render_external`` runs the effects on buffers the caller supplies.
+GTAO, SSR, TAA, FXAA and SMAA are not ported yet.
 """
 
 from .composer import EffectComposer, FrameContext
@@ -17,7 +21,11 @@ from .core.envmap import EquirectEnv, build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .effects.ao import AOEffect, HBAOEffect
 from .effects.base import Effect
+from .effects.finishing import (GradualBackgroundEffect, LensDistortionEffect,
+                                SharpnessEffect, SparkleEffect)
 from .effects.motion_blur import MotionBlurEffect
+from .effects.postfx import (BloomEffect, LUT3DEffect, ToneMappingEffect,
+                             VignetteEffect, load_lut_3dl)
 from .effects.ssgi import SSGIEffect
 from .effects.traa import TRAAEffect
 from .ops.ao import AOConfig
@@ -37,5 +45,8 @@ __all__ = [
     "EquirectEnv", "build_equirect_env", "procedural_sky", "MotionBlurEffect",
     "Scene", "PackedScene", "Material", "Mesh", "make_plane", "make_box",
     "make_sphere", "translation", "rotation_y", "rasterize_gbuffer",
-    "rasterize_velocity", "shade_direct",
+    "rasterize_velocity", "shade_direct", "SharpnessEffect",
+    "LensDistortionEffect", "SparkleEffect", "GradualBackgroundEffect",
+    "ToneMappingEffect", "VignetteEffect", "BloomEffect", "LUT3DEffect",
+    "load_lut_3dl",
 ]

@@ -1,19 +1,25 @@
-"""The port's three paths, as ``chip_smoke.py`` and ``profile_slice.py``
-drive them, with the camera orbiting as the animated configurations of
+"""The port's paths, as ``chip_smoke.py`` and ``profile_slice.py`` drive
+them, with the camera orbiting as the animated configurations of
 ``bench.py`` do:
 
 - the flagship frame (``bench.py:180-207``): ``EffectComposer.render`` of
   a plane, a box and a metallic sphere under the procedural sky, with
   SSGI + HBAO + motion blur + TRAA (:func:`flagship_composer`);
+- the reference demo's full stack on the same scene through ``render``:
+  SSGI, tone mapping, TRAA, sharpness, vignette, bloom and a grading LUT
+  (:func:`demo_stack_composer`);
 - analytic input buffers for driving the effect chain through
   ``render_external`` without the rasterizer: a 20 x 20 ground plane at
   y = 0 with a unit box on it (the scene of the JAX package's
   ``tests/test_external_ingestion.py``) and, with ``sphere=True``, the
   flagship's metallic sphere; ray-cast per pixel on the given device.
+  HBAO + TRAA runs on them by default (fused) or, inside
+  :func:`unfused`, on the JAX package's unfused HBAO and Poisson route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -25,7 +31,10 @@ from .core.envmap import build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.math3d import uv_grid
 from .effects.ao import HBAOEffect
+from .effects.finishing import SharpnessEffect
 from .effects.motion_blur import MotionBlurEffect
+from .effects.postfx import (BloomEffect, LUT3DEffect, ToneMappingEffect,
+                             VignetteEffect)
 from .effects.ssgi import SSGIEffect
 from .effects.traa import TRAAEffect
 from .scene.geometry import Material, make_box, make_plane, make_sphere, translation
@@ -220,3 +229,51 @@ def render_frames(comp, cam, n: int, first: int = 0):
         orbit(cam, f)
         images.append(comp.render(dt=1 / 60))
     return images
+
+
+def demo_lut(size: int = 32) -> np.ndarray:
+    """An (S, S, S, 3) float32 grading cube built in code, indexed
+    ``lut[r, g, b]``, of the size of the reference demo's ``lut_v2.3dl``:
+    an S-curve per channel, lifted blacks, a warm tint and some
+    cross-talk between channels, so that the trilinear fetch mixes
+    eight distinct texels."""
+    x = np.linspace(0.0, 1.0, size)
+    r, g, b = np.meshgrid(x, x, x, indexing="ij")
+    s_curve = lambda t: t * t * (3.0 - 2.0 * t)
+    out = np.stack([
+        0.02 + 0.96 * (0.7 * s_curve(r) + 0.3 * r ** 0.8),
+        0.01 + 0.97 * (0.5 * s_curve(g) + 0.5 * g) + 0.02 * (r - b),
+        0.03 + 0.9 * b ** 1.1 + 0.03 * g,
+    ], axis=-1)
+    return np.clip(out, 0.0, 1.0).astype(np.float32)
+
+
+def demo_stack_composer(h: int, w: int, device):
+    """``EffectComposer.render`` of :func:`flagship_scene` with the
+    reference demo's full stack in its order (``examples/demo.py:264``,
+    `main.js:510-539`): ``SSGIEffect()`` -> ``ToneMappingEffect()`` ->
+    ``TRAAEffect()`` -> ``SharpnessEffect()`` -> ``VignetteEffect()`` ->
+    ``BloomEffect()`` -> ``LUT3DEffect(demo_lut())``; and its camera."""
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    comp = EffectComposer(flagship_scene(device), cam, w, h, device=device)
+    for effect in (SSGIEffect(), ToneMappingEffect(), TRAAEffect(),
+                   SharpnessEffect(), VignetteEffect(), BloomEffect(),
+                   LUT3DEffect(demo_lut())):
+        comp.add_effect(effect)
+    return comp, cam
+
+
+@contextlib.contextmanager
+def unfused():
+    """Run HBAO and the Poisson denoiser on the JAX package's unfused
+    route (``ops.ao.USE_FUSED_KERNEL`` and
+    ``ops.poisson_kernel.USE_FUSED_PASS`` off) inside the block; the
+    switches are restored after it."""
+    from .ops import ao, poisson_kernel
+
+    saved = ao.USE_FUSED_KERNEL, poisson_kernel.USE_FUSED_PASS
+    ao.USE_FUSED_KERNEL = poisson_kernel.USE_FUSED_PASS = False
+    try:
+        yield
+    finally:
+        ao.USE_FUSED_KERNEL, poisson_kernel.USE_FUSED_PASS = saved

@@ -15,6 +15,15 @@
 // output pixel, direct global loads, all channels of a tap from one
 // contiguous (H, W, C) texel. The TPU's lane-split gathers and dense
 // vertical selects have no counterpart here.
+//
+// Multi-target nearest fetch: N targets (ty, tx) (N, H, W) of one
+// texture, each with the nearest mode's clamps (frame, then +-ky rows /
+// +-kx columns) and flag. Replaces ops/pallas/warp.py::_warp_multi_kernel
+// (window_warp_multi). That kernel's lane-split window holds only for
+// kx <= 32; this one takes any kx with the reference gather's semantics.
+// A thread per pixel walks the N targets: for target t the threads of a
+// warp read and write consecutive pixels of plane t, so the index loads
+// and the value and flag stores coalesce.
 #include "common.cuh"
 
 namespace {
@@ -135,6 +144,35 @@ cudaError_t launch_mode(const float* tex, const int* ty, const int* tx,
   return cudaGetLastError();
 }
 
+template <int C>
+__global__ void warp_multi_kernel(const float* __restrict__ tex,
+                                  const int* __restrict__ ty,
+                                  const int* __restrict__ tx,
+                                  float* __restrict__ out,
+                                  uint8_t* __restrict__ flag, int h, int w,
+                                  int n, int ky, int kx) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y;
+  if (x >= w) return;
+  const size_t hw = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(y) * w + x;
+  const int lim = 1 << 20;
+  for (int t = 0; t < n; ++t) {
+    const size_t q = t * hw + p;
+    const int tyc = clampi(ty[q], -lim, lim);
+    const int txc = clampi(tx[q], -lim, lim);
+    const int dy = tyc - y;
+    const int dx = txc - x;
+    flag[q] = (abs(dy) <= ky && abs(dx) <= kx) ? 1 : 0;
+    const int dyv = clampi(clampi(clampi(dy, -ky, ky), -y, h - 1 - y), -ky, ky);
+    const int col = x + clampi(clampi(txc, 0, w - 1) - x, -kx, kx);
+    const float* src = tex + (static_cast<size_t>(y + dyv) * w + col) * C;
+    float* o = out + q * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[c] = src[c];
+  }
+}
+
 }  // namespace
 
 // ---- host entry points ----
@@ -159,4 +197,31 @@ extern "C" int re_warp(const float* tex, const int* ty, const int* tx,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int re_warp_multi(const float* tex, const int* ty, const int* tx,
+                             float* out, uint8_t* flag, int h, int w, int c,
+                             int n, int ky, int kx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(256);
+  const dim3 grid((w + 255) / 256, h);
+#define RE_WARP_MULTI_CASE(CC)                                            \
+  case CC:                                                                \
+    warp_multi_kernel<CC><<<grid, block, 0, s>>>(tex, ty, tx, out, flag,  \
+                                                 h, w, n, ky, kx);        \
+    break;
+  switch (c) {
+    RE_WARP_MULTI_CASE(1)
+    RE_WARP_MULTI_CASE(2)
+    RE_WARP_MULTI_CASE(3)
+    RE_WARP_MULTI_CASE(4)
+    RE_WARP_MULTI_CASE(5)
+    RE_WARP_MULTI_CASE(6)
+    RE_WARP_MULTI_CASE(7)
+    RE_WARP_MULTI_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RE_WARP_MULTI_CASE
+  return cudaGetLastError();
 }

@@ -1,19 +1,39 @@
 """Edge-aware spatio-temporal Poisson denoiser (`poisson_denoise.frag` +
 `PoissonDenoisePass.js`): 8 rotated Poisson taps with normal, depth,
 roughness and luma edge-stopping weights and disocclusion-age blending,
-run as ``2 * iterations`` ping-pong passes. Each pass is one launch of
-the fused kernel (``ops/poisson_kernel.py``).
+run as ``2 * iterations`` ping-pong passes.
+
+By default each pass is one launch of the fused kernel
+(``ops/poisson_kernel.py``). With ``poisson_kernel.USE_FUSED_PASS`` off
+(or more than ``MAX_TEX`` textures) a pass runs the JAX package's unfused
+formulation in torch ops, its tap fetches in the tap kernel
+(``ops/poisson_taps.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..core.framebuffers import GBuffer
+from ..core.math3d import floor_int32, fwidth, length, mix
+from ..core.packing import (pack_half2x16, pack_normal, unpack_half2x16,
+                            unpack_normal)
+from ..core.rng import blue_noise_image
+from . import poisson_kernel
 from .poisson_kernel import poisson_pass_fused
+from .poisson_taps import poisson_taps
+
+# `poisson_denoise.frag:91-92`, float32 as in the JAX package's table
+_SQRT2_4 = 0.25 * float(np.sqrt(2.0))
+POISSON8 = np.array(
+    [(-1.0, 0.0), (0.0, -1.0), (1.0, 0.0), (0.0, 1.0),
+     (-_SQRT2_4, -_SQRT2_4), (_SQRT2_4, -_SQRT2_4),
+     (_SQRT2_4, _SQRT2_4), (-_SQRT2_4, _SQRT2_4)], np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +57,122 @@ def poisson_denoise_pass(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
                          noise_index: int, cfg: PoissonDenoiseConfig,
                          scalar_slots: tuple | None = None):
     """One 8-tap pass over all texture slots, (H, W, 4) in and out."""
-    return poisson_pass_fused(textures, gbuffer, noise_index, cfg,
-                              scalar_slots=scalar_slots)
+    if poisson_kernel.USE_FUSED_PASS and len(textures) <= poisson_kernel.MAX_TEX:
+        return poisson_pass_fused(textures, gbuffer, noise_index, cfg,
+                                  scalar_slots=scalar_slots)
+    return poisson_pass_unfused(textures, gbuffer, noise_index, cfg)
+
+
+def _to_denoise_space(c):
+    return torch.log(c + 1.0)
+
+
+def _luminance8(rgb):
+    """pow(luminance, 0.125) (`poisson_denoise.frag:28`)."""
+    base = rgb[..., 0] * 0.2125 + rgb[..., 1] * 0.7154 + rgb[..., 2] * 0.0721
+    return torch.clamp(base, min=0.0) ** 0.125
+
+
+def poisson_pass_unfused(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
+                         noise_index: int, cfg: PoissonDenoiseConfig):
+    """One pass in the JAX package's unfused formulation and operation
+    order (``ops/poisson_denoise.py:111-291``, one device): the packed
+    normal (zero normals stay zero), textures read through float16,
+    specular factor, flatness, the noise angle; the 8 tap texels of
+    every pixel from the rotated, aspect-scaled uv offsets; one packed
+    bundle [depth | oct-normal | roughness | 2 half2x16 a texture]
+    fetched at them by :func:`poisson_taps` (more than 2 textures: the
+    decoded normal, depth and roughness, and each texture, fetched
+    apiece); then the edge-stopping weights, the log-space accumulation
+    and the background kept. Scalar slots are not packed here."""
+    h, w = gbuffer.depth.shape
+    dev = gbuffer.depth.device
+    depth = gbuffer.depth
+    n_valid = gbuffer.normal.abs().sum(-1, keepdim=True) > 1e-8
+    packed_nrm = torch.where(n_valid[..., 0], pack_normal(gbuffer.normal), 0.0)
+    normal = torch.where(n_valid, unpack_normal(packed_nrm), 0.0)
+    roughness = gbuffer.roughness
+    is_background = depth >= 1.0
+    textures = [t.to(torch.float16).to(torch.float32) for t in textures]
+
+    glossiness = torch.clamp(4.0 * (1.0 - roughness / 0.25), min=0.0)
+    specular_factor = torch.exp(-glossiness * cfg.specular_phi)
+    flatness = 1.0 - torch.clamp(length(fwidth(normal)), max=1.0)
+    flatness = flatness ** 2.0 * 0.75 + 0.25
+
+    noise = blue_noise_image(h, w, noise_index, device=dev)
+    angle = noise[..., 0] * 2.0 * math.pi
+    s, c = torch.sin(angle), torch.cos(angle)
+    rscale = cfg.radius * flatness
+
+    center = []
+    for tex in textures:
+        t_rgb = _to_denoise_space(tex[..., :3] * 1.0003)
+        center.append({
+            "rgb": t_rgb, "a": tex[..., 3], "lum": _luminance8(t_rgb),
+            "w": 1.0 / (tex[..., 3] + 1.0) ** (1.2 * cfg.phi),
+            "total": torch.ones_like(depth), "acc": t_rgb,
+        })
+
+    n_tex = len(textures)
+    if 3 + 2 * n_tex <= 8:
+        slots = [depth, packed_nrm, roughness]
+        for t in textures:
+            slots += [pack_half2x16(t[..., 0:2]), pack_half2x16(t[..., 2:4])]
+        bundle = torch.stack(slots, dim=-1)
+    else:
+        bundle = torch.cat([normal, depth[..., None], roughness[..., None]], -1)
+
+    # tap texels: neighbourUv = vUv + rm * (offset / resolution), with
+    # rm = r * flatness * mat2(c, -s, s, c) (`poisson_denoise.frag:185-190`)
+    u = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+    v = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    iys, ixs = [], []
+    for off in POISSON8:
+        ox = (c * (off[0] / np.float32(w)) + s * (off[1] / np.float32(h))) * rscale
+        oy = (-s * (off[0] / np.float32(w)) + c * (off[1] / np.float32(h))) * rscale
+        ixs.append(torch.clamp(floor_int32((u[None, :] + ox) * w), 0, w - 1))
+        iys.append(torch.clamp(floor_int32((v[:, None] + oy) * h), 0, h - 1))
+    iy, ix = torch.stack(iys), torch.stack(ixs)
+    taps = poisson_taps(bundle, iy, ix)
+    tex_taps = (None if 3 + 2 * n_tex <= 8
+                else [poisson_taps(t, iy, ix) for t in textures])
+
+    for k in range(8):
+        b = taps[k]
+        if tex_taps is None:
+            n_depth, n_rough = b[..., 0], b[..., 2]
+            n_normal = unpack_normal(b[..., 1])
+            n_texs = [torch.cat([unpack_half2x16(b[..., 3 + 2 * i]),
+                                 unpack_half2x16(b[..., 4 + 2 * i])], -1)
+                      for i in range(n_tex)]
+        else:
+            n_normal, n_depth, n_rough = b[..., :3], b[..., 3], b[..., 4]
+            n_texs = [t[k] for t in tex_taps]
+        normal_diff = 1.0 - torch.clamp((normal * n_normal).sum(-1), min=0.0)
+        depth_diff = 10000.0 * (depth - n_depth).abs()
+        rough_diff = (roughness - n_rough).abs()
+        w_basic = torch.exp(-normal_diff * cfg.normal_phi
+                            - depth_diff * cfg.depth_phi
+                            - rough_diff * cfg.roughness_phi)
+        w_basic = torch.where(n_depth >= 1.0, 0.0, w_basic)
+        for i, st in enumerate(center):
+            wgt = w_basic * (specular_factor if cfg.is_specular[i] else 1.0)
+            t_rgb = _to_denoise_space(torch.clamp(n_texs[i][..., :3], min=0.0))
+            disoccl_w = torch.clamp(wgt, min=1e-20) ** 0.1
+            luma_diff = torch.clamp((st["lum"] - _luminance8(t_rgb)).abs(), max=0.5)
+            luma_factor = torch.exp(-luma_diff * cfg.luma_phi)
+            wgt = mix(wgt * luma_factor, disoccl_w, st["w"]) * st["w"]
+            wgt = wgt * (wgt >= 0.0001)
+            st["acc"] = st["acc"] + wgt[..., None] * t_rgb
+            st["total"] = st["total"] + wgt
+
+    outputs = []
+    for tex, st in zip(textures, center):
+        rgb = torch.exp(st["acc"] / st["total"][..., None]) - 1.0
+        out = torch.cat([rgb, st["a"][..., None]], -1)
+        outputs.append(torch.where(is_background[..., None], tex, out))
+    return outputs
 
 
 def poisson_denoise(textures: Sequence[torch.Tensor], gbuffer: GBuffer,

@@ -32,6 +32,10 @@ from ..core.rng import blue_noise_tile_tensor, noise_shift
 from . import cuda_build
 
 MAX_TEX = 4
+#: route denoise passes through the fused kernel; off, through the
+#: unfused pass of ``ops/poisson_denoise.py`` (the JAX package's
+#: ``ops/pallas/poisson.py`` switch of the same name)
+USE_FUSED_PASS = True
 _PI2 = float(np.float32(2.0 * math.pi))
 _SQRT2_4 = 0.25 * math.sqrt(2.0)
 # `poisson_denoise.frag:91-92`

@@ -1,8 +1,12 @@
-"""Neighborhood AABB min/max for the temporal clamp
-(`reproject.frag:53-81`).
+"""Fixed-window stencils: the neighborhood AABB min/max of the temporal
+clamp (`reproject.frag:53-81`) and the 3x3 unsharp mask of
+``SharpnessEffect`` (`SharpnessEffect.js:4-31`).
 
-Kernel: ``csrc/stencil.cu``. It replaces the JAX package's
-``ops/pallas/stencil.py::_minmax_kernel`` (``neighborhood_minmax``).
+Kernels: ``csrc/stencil.cu``. They replace the JAX package's
+``ops/pallas/stencil.py::_minmax_kernel`` (``neighborhood_minmax``) and
+``_sharpness_kernel`` (``sharpness_3x3``).
+
+``neighborhood_minmax``:
 Per pixel and channel: min and max over the (2r+1)^2 window, where a
 texel whose channel 0 is negative, or that lies outside the frame,
 counts as +1e30 (min) / -1e30 (max). The seeding with the pixel's own
@@ -11,13 +15,24 @@ input colour stays with the caller.
 On the H100 the kernel is bound by bytes (C floats in, 2C out a pixel;
 window re-reads hit L1/L2). One thread per pixel with direct loads; the
 result equals the plain version bit for bit.
+
+``sharpness_3x3``: edge-replicated 3x3 box blur, then
+``max(c + (c - blur) * s, 0)``, in the arithmetic of the JAX package's
+Pallas kernel as XLA compiles it: the sum in the kernel's order (for the
+rows above, at and below: ``acc = ((acc + left) + centre) + right``),
+``blur = acc * (1/9)`` as a product, and the two multiply-adds
+contracted, ``d = fma(-acc, 1/9, c)`` and ``out = fma(d, s, c)``. Any
+other order or rounding differs from it by an ulp on a sixth of the
+pixels. Bound by bytes; one thread per (pixel, channel).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.math3d import fma
 from . import cuda_build
 
 BIG = 1e30
@@ -68,3 +83,49 @@ def _launch(tex, radius):
              int(radius), cuda_build.stream_ptr(tex))
     cuda_build.check(err, "minmax kernel")
     return mn, mx
+
+
+def sharpness_3x3_plain(color: torch.Tensor, sharpness: float) -> torch.Tensor:
+    """The kernel's function in PyTorch (clamped-index slices)."""
+    h, w = color.shape[0], color.shape[1]
+    dev = color.device
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    left = torch.clamp(xs - 1, min=0)
+    right = torch.clamp(xs + 1, max=w - 1)
+    acc = torch.zeros_like(color)
+    for dy in (-1, 0, 1):
+        row = color[torch.clamp(ys + dy, 0, h - 1)]
+        acc = acc + row[:, left] + row + row[:, right]
+    d = fma(-acc, torch.full_like(acc, 1.0 / 9.0), color)
+    return torch.clamp(fma(d, torch.full_like(d, float(sharpness)), color),
+                       min=0.0)
+
+
+def sharpness_3x3(color: torch.Tensor, sharpness: float) -> torch.Tensor:
+    """Unsharp mask of ``color`` (H, W, C) float32 with strength
+    ``sharpness``. CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    if color.device.type == "cpu":
+        return sharpness_3x3_plain(color, sharpness)
+    out = _launch_sharpness(color, sharpness)
+    sharpness_3x3.launches += 1
+    return out
+
+
+sharpness_3x3.launches = 0
+
+
+def _launch_sharpness(color, sharpness):
+    h, w, c = color.shape
+    if c > 4:
+        raise ValueError(f"sharpness_3x3 takes at most 4 channels, not {c}")
+    color = color.contiguous()
+    cuda_build.require_cuda(color)
+    out = torch.empty_like(color)
+    params = np.array([sharpness], np.float32)
+    fn = cuda_build.bind("stencil", "re_sharpness", 2, 3, 1)
+    err = fn(color.data_ptr(), out.data_ptr(), h, w, c, params.ctypes.data,
+             cuda_build.stream_ptr(color))
+    cuda_build.check(err, "sharpness kernel")
+    return out

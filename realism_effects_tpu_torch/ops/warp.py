@@ -19,6 +19,12 @@ the plain version below spells out:
 On the H100 the kernel is bound by bytes (targets, fractions and output
 a pixel; the texel reads are shared with neighbouring pixels through
 L1/L2). One thread per pixel with direct loads.
+
+``window_warp_multi`` fetches one texture at N targets, nearest, each
+with the semantics above (kernel ``re_warp_multi``, the counterpart of
+``ops/pallas/warp.py::_warp_multi_kernel``). The TPU kernel's column
+window is exact only for ``kx <= 32`` (a lane split); the port's takes
+any ``kx``.
 """
 
 from __future__ import annotations
@@ -215,3 +221,57 @@ def nearest_window(tex, uv, ky: int = DEF_KY, kx: int | None = None):
     ix = floor_int32(uv[..., 0] * w)
     iy = floor_int32(uv[..., 1] * h)
     return window_warp(tex, iy, ix, ky=ky, mode="nearest", kx=kx)
+
+
+def window_warp_multi_plain(tex, ty, tx, ky=DEF_KY, kx=None):
+    """The multi-target kernel's function in PyTorch: the nearest
+    :func:`window_warp_plain` of every target at once."""
+    return window_warp_plain(tex, ty, tx, ky=ky, mode="nearest", kx=kx)
+
+
+def window_warp_multi(tex: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
+                      ky: int = DEF_KY, kx: int | None = None):
+    """N nearest window fetches of ``tex`` (H, W[, C<=8]) float32 at the
+    int32 targets ``ty``, ``tx`` (N, H, W). Returns (values (N, H, W[, C]),
+    in_window (N, H, W) bool). CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if tex.device.type == "cpu":
+        return window_warp_multi_plain(tex, ty, tx, ky, kx)
+    out = _launch_multi(tex, ty, tx, ky, kx)
+    window_warp_multi.launches += 1
+    return out
+
+
+window_warp_multi.launches = 0
+
+
+def _launch_multi(tex, ty, tx, ky, kx):
+    base = tex[..., None] if tex.ndim == 2 else tex
+    h, w, c = base.shape
+    n = ty.shape[0]
+    if c > 8:
+        raise ValueError(f"window_warp_multi takes at most 8 channels, not {c}")
+    if tuple(ty.shape) != (n, h, w) or tuple(tx.shape) != (n, h, w):
+        raise ValueError(f"targets of {tuple(ty.shape)} for a {h}x{w} texture")
+    args = [base.contiguous(), ty.to(torch.int32).contiguous(),
+            tx.to(torch.int32).contiguous()]
+    cuda_build.require_cuda(*args)
+    out = torch.empty((n, h, w, c), dtype=torch.float32, device=tex.device)
+    flag = torch.empty((n, h, w), dtype=torch.bool, device=tex.device)
+    kx_w, _ = _windows("nearest", kx)
+    fn = cuda_build.bind("warp", "re_warp_multi", 5, 6)
+    err = fn(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+             out.data_ptr(), flag.data_ptr(), h, w, c, n, int(ky), kx_w,
+             cuda_build.stream_ptr(tex))
+    cuda_build.check(err, "warp multi kernel")
+    return (out[..., 0] if tex.ndim == 2 else out), flag
+
+
+def nearest_window_multi(tex, uvs, ky: int = DEF_KY, kx: int | None = None):
+    """N nearest fetches at ``uvs`` (N, H, W, 2) through
+    :func:`window_warp_multi`. Returns (values (N, H, W[, C]), in_window
+    (N, H, W))."""
+    h, w = tex.shape[0], tex.shape[1]
+    ix = floor_int32(uvs[..., 0] * w)
+    iy = floor_int32(uvs[..., 1] * h)
+    return window_warp_multi(tex, iy, ix, ky=ky, kx=kx)

@@ -2,15 +2,19 @@
 
     python -m realism_effects_tpu_torch.profile_slice [--frames 24]
         [--width 1920] [--height 1080]
-        [--path all|hbao_traa|ssgi_hbao_traa|flagship]
+        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused]
 
 Renders the analytic scene (``analytic.py``) through
 ``EffectComposer.render_external`` with ``HBAOEffect()`` +
-``TRAAEffect()`` (path ``hbao_traa``) or ``SSGIEffect()`` +
-``HBAOEffect()`` + ``TRAAEffect()`` under the flagship's environment,
-with the flagship's sphere in the scene (path ``ssgi_hbao_traa``), or
-the flagship frame through ``EffectComposer.render``: raster, shade,
-SSGI, HBAO, motion blur and TRAA (path ``flagship``). After 4 warm-up
+``TRAAEffect()`` (path ``hbao_traa``; path ``hbao_traa_unfused`` the
+same with HBAO and the Poisson denoiser on the unfused route of
+``analytic.unfused()``) or ``SSGIEffect()`` + ``HBAOEffect()`` +
+``TRAAEffect()`` under the flagship's environment, with the flagship's
+sphere in the scene (path ``ssgi_hbao_traa``); or the flagship scene
+through ``EffectComposer.render``: raster, shade, then SSGI, HBAO,
+motion blur and TRAA (path ``flagship``) or the reference demo's stack,
+SSGI, tone mapping, TRAA, sharpness, vignette, bloom and a grading LUT
+(path ``demo_stack``). After 4 warm-up
 frames, ``--frames`` frames timed on the host clock (synchronised at the
 end), 4 frames with ``collect_timings``, then ``--frames`` frames under
 ``torch.profiler``. Prints one JSON line a path: host ms/frame, each
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import json
 import subprocess
 import sys
@@ -38,25 +43,33 @@ from . import analytic
 from .core.camera import PerspectiveCamera
 from .ops import cuda_build
 
-PORT_KERNELS = ("warp_kernel", "minmax_kernel", "hbao_kernel",
-                "poisson_kernel", "sweep_kernel", "zscan_kernel",
-                "lookup_kernel")
-PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship")
+PORT_KERNELS = ("warp_kernel", "warp_multi_kernel", "minmax_kernel",
+                "sharpness_kernel", "hbao_kernel", "poisson_kernel",
+                "taps_kernel", "sweep_kernel", "zscan_kernel", "lookup_kernel")
+PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship", "demo_stack",
+         "hbao_traa_unfused")
 
 
 def _driver(path: str, h: int, w: int, n: int):
     """``drive(first, count)``: render frames first .. first + count - 1
     of ``path``'s composer on the card; and the composer."""
-    if path == "flagship":
-        comp, cam = analytic.flagship_composer(h, w, "cuda")
+    if path in ("flagship", "demo_stack"):
+        make = {"flagship": analytic.flagship_composer,
+                "demo_stack": analytic.demo_stack_composer}[path]
+        comp, cam = make(h, w, "cuda")
         return (lambda first, count: analytic.render_frames(comp, cam, count, first)), comp
     make, sphere = {"hbao_traa": (analytic.hbao_traa_composer, False),
+                    "hbao_traa_unfused": (analytic.hbao_traa_composer, False),
                     "ssgi_hbao_traa": (analytic.ssgi_hbao_traa_composer, True)}[path]
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
     frames = analytic.frames_for(cam, n, h, w, "cuda", sphere=sphere)
     comp, cam = make(h, w, "cuda")
-    return (lambda first, count: analytic.run_frames(
-        comp, cam, frames[first:first + count], first)), comp
+
+    def drive(first, count):
+        with (analytic.unfused() if path == "hbao_traa_unfused"
+              else contextlib.nullcontext()):
+            return analytic.run_frames(comp, cam, frames[first:first + count], first)
+    return drive, comp
 
 
 def _device_events(prof):

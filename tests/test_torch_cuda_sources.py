@@ -6,9 +6,10 @@ CUDA. A shim header defines those builtins for g++ and each launch
 ``kernel<<<grid, block, 0, stream>>>(...)`` becomes a loop over the grid,
 so each kernel's own arithmetic runs here through its real C entry point
 and wrapper launch code, and is held against the plain PyTorch version.
-Tolerances: warp, minmax, the sweep march, the z-scan and the record
-fetch are bit-identical (same operations in the same order, no
-contraction: ``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
+Tolerances: warp (one target and many), minmax, sharpness, the sweep
+march, the z-scan, the record fetch and the Poisson tap fetch are
+bit-identical (same operations in the same order, no contraction but the
+explicit ``fmaf``: ``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
 and Poisson agree to 2e-5, the gap
 between glibc's and PyTorch's sin/cos/exp/log. The card itself is checked
 by chip_smoke.py.
@@ -29,9 +30,9 @@ from realism_effects_tpu_torch.core.framebuffers import GBuffer
 from realism_effects_tpu_torch import analytic
 from realism_effects_tpu_torch.core import math3d
 from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
-                                           poisson_kernel, raster_kernel,
-                                           ssgi_sweep, stencil, sweep_kernel,
-                                           table_kernel, warp)
+                                           poisson_kernel, poisson_taps,
+                                           raster_kernel, ssgi_sweep, stencil,
+                                           sweep_kernel, table_kernel, warp)
 from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
 from realism_effects_tpu_torch.ops.poisson_denoise import PoissonDenoiseConfig
@@ -156,6 +157,46 @@ def test_minmax_source(host_kernels, radius):
     got = stencil._launch(tex, radius)
     want = stencil.neighborhood_minmax_plain(tex, radius)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("c,s", [(3, 1.0), (3, 0.75), (1, 2.5)])
+def test_sharpness_source(host_kernels, c, s):
+    tex = _warp_inputs(max(c, 2), seed=c)[0][..., :c].contiguous().abs()
+    tex[3, 4] = 0.0
+    got = stencil._launch_sharpness(tex, s)
+    assert torch.equal(got, stencil.sharpness_3x3_plain(tex, s))
+
+
+@pytest.mark.parametrize("kx", [None, 3, 40])
+@pytest.mark.parametrize("c", [1, 4])
+def test_warp_multi_source(host_kernels, kx, c):
+    """8 targets a pixel, near and far (beyond the frame and the +-2^20
+    clip), on a 37 x 61 texture with ky = 5."""
+    rng = np.random.default_rng(c)
+    h, w, n = 37, 61, 8
+    tex = torch.tensor(rng.normal(size=(h, w, c)), dtype=torch.float32)
+    tex = tex[..., 0] if c == 1 else tex
+    ty = torch.tensor(np.arange(h)[None, :, None] + rng.integers(-9, 10, (n, h, w)),
+                      dtype=torch.int32)
+    tx = torch.tensor(np.arange(w)[None, None, :] + rng.integers(-90, 91, (n, h, w)),
+                      dtype=torch.int32)
+    ty[0, 0, :5] = torch.tensor([-(1 << 30), 1 << 30, -50, h + 40, 2_000_000])
+    tx[1, 3, :3] = torch.tensor([-(1 << 30), 1 << 30, w + 500])
+    got, got_ok = warp._launch_multi(tex, ty, tx, 5, kx)
+    want, want_ok = warp.window_warp_multi_plain(tex, ty, tx, 5, kx)
+    assert torch.equal(got_ok, want_ok) and not bool(want_ok.all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c", [5, 7])
+def test_poisson_taps_source(host_kernels, c):
+    rng = np.random.default_rng(c)
+    h, w = 37, 61
+    bundle = torch.tensor(rng.normal(size=(h, w, c)), dtype=torch.float32)
+    iy = torch.tensor(rng.integers(0, h, (8, h, w)), dtype=torch.int32)
+    ix = torch.tensor(rng.integers(0, w, (8, h, w)), dtype=torch.int32)
+    got = poisson_taps._launch(bundle, iy, ix)
+    assert torch.equal(got, poisson_taps.poisson_taps_plain(bundle, iy, ix))
 
 
 def _surface(h, w, seed):
@@ -288,10 +329,13 @@ def test_lookup_source(host_kernels):
     assert torch.equal(got, table_kernel.face_lookup_plain(table, ids))
 
 
-@pytest.mark.parametrize("name,entry", [("raster", "re_zscan"), ("table", "re_lookup")])
+@pytest.mark.parametrize("name,entry", [
+    ("raster", "re_zscan"), ("table", "re_lookup"), ("taps", "re_poisson_taps"),
+    ("stencil", "re_sharpness"), ("warp", "re_warp_multi")])
 def test_raster_sources_are_listed(name, entry):
-    """The raster slice's kernels are built with the others and declare
-    their C entry points for ctypes."""
+    """The kernels of the raster slice, the demo stack and the unfused
+    route are built with the others and declare their C entry points for
+    ctypes."""
     assert name in cuda_build.SOURCES
     src = (cuda_build.CSRC / f"{name}.cu").read_text()
     assert re.search(rf'extern "C" int {entry}\(', src)
