@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    of the SSGI path; the raster kernels (z-scan, per-face record fetch)
    those of frame 5 of the flagship path; the multi-target warp and the
    Poisson tap fetch those of frame 1 of the unfused HBAO + Poisson
-   route; sharpness frame 1's lit colour.
+   route; sharpness frame 1's lit colour. Two more checks print on
+   their own lines: the z-scan on a tie-heavy synthetic table at 1080p
+   (0 winner flips, exact z) and both Poisson passes at radius 12, where
+   taps leave the kernel's staged halo.
 3. Run the five paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
@@ -45,6 +48,7 @@ The script imports nothing of JAX. It needs the repository beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,10 +107,9 @@ POISSON_OPS_TAP_SLOT = 45  # per slot: unpack, logs, luma, age blend
 SWEEP_OPS_RAY = 10        # plane loads, bin checks, stores
 SWEEP_OPS_STEP = 25       # texel index, bounds, t(s), validity, hit test
 BILINEAR_OPS = 12 + 3 * 9  # index and window math, 3 lerps a channel
-ZSCAN_OPS = 35            # per (pixel, triangle whose bbox overlaps its block)
+ZSCAN_OPS = 35            # per (pixel, triangle whose bbox contains its centre)
 WARP_MULTI_OPS = 12       # per (target, pixel): clip, window and frame clamps, flag
 SHARPNESS_OPS = 14        # per (pixel, channel): 9 adds, 2 fused multiply-adds, max
-ZSCAN_BLOCK = (8, 32)     # the z-scan kernel's block: rows, columns
 
 
 def _smi() -> str:
@@ -280,6 +283,13 @@ def check_kernels(torch, analytic, timer, frames, results):
     kk = poisson_kernel.poisson_pass_fused([ao_tex], gb, 2, pcfg, scalar_slots=(True,))[0]
     p = poisson_kernel.poisson_pass_plain(bundle, ch, (True,), 2, pcfg)
     err = maxerr(kk, p)
+    wide = dataclasses.replace(pcfg, radius=12.0)
+    err12 = maxerr(poisson_kernel._launch(bundle, ch, (True,), 2, wide),
+                   poisson_kernel.poisson_pass_plain(bundle, ch, (True,), 2, wide))
+    print(f"[check] poisson at radius 12 (taps beyond the staged halo): "
+          f"max abs error {err12} (tol 5e-4)", flush=True)
+    if not err12 <= 5e-4:
+        raise AssertionError(f"poisson at radius 12: {err12} > 5e-4")
     results.add("poisson", "poisson.cu",
                 "realism_effects_tpu/ops/pallas/poisson.py:126", err, 5e-4,
                 timer(lambda: poisson_kernel._launch(bundle, ch, (True,), 2, pcfg)),
@@ -395,6 +405,14 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
     tile = 128 * 128 * 4 * 4
     scale = float(p.abs().max())
     print(f"[kernel] poisson_2tex: largest value {scale}", flush=True)
+    wide = dataclasses.replace(cfg, radius=12.0)
+    p12 = poisson_kernel.poisson_pass_plain(bundle, ch, (False, False), noise_index, wide)
+    err12 = maxerr(poisson_kernel._launch(bundle, ch, (False, False), noise_index, wide), p12)
+    tol12 = 1e-5 * max(float(p12.abs().max()), 1.0)
+    print(f"[check] poisson_2tex at radius 12 (taps beyond the staged halo): "
+          f"max abs error {err12} (tol {tol12})", flush=True)
+    if not err12 <= tol12:
+        raise AssertionError(f"poisson_2tex at radius 12: {err12} > {tol12}")
     results.add("poisson_2tex", "poisson.cu",
                 "realism_effects_tpu/ops/pallas/poisson.py:126", err,
                 1e-5 * max(scale, 1.0),
@@ -492,18 +510,53 @@ def check_unfused_kernels(torch, analytic, timer, frames, results):
 
 
 def _zscan_ops(tab, h, w):
-    """Operations the z-scan needs on ``tab``: ZSCAN_OPS per (in-frame
-    pixel, triangle whose bbox overlaps the pixel's kernel block)."""
+    """Operations any z-scan needs on ``tab``, whatever its blocks:
+    ZSCAN_OPS per (in-frame pixel, triangle whose bbox contains the
+    pixel's centre)."""
     import torch
 
-    def axis(lo, hi, n, b):
-        start = torch.arange(0, n, b, device=tab.device, dtype=torch.float32)
-        over = (lo[:, None] <= start + (b - 1) + 0.5) & (hi[:, None] >= start + 0.5)
-        return (over * torch.clamp(n - start, max=b)).sum(1)
+    def axis(lo, hi, n):   # pixel centres i + 0.5 in [lo, hi], 0 <= i < n
+        first = torch.clamp(torch.ceil(lo - 0.5), min=0.0)
+        last = torch.clamp(torch.floor(hi - 0.5), max=n - 1.0)
+        return torch.clamp(last - first + 1.0, min=0.0)
 
-    by, bx = ZSCAN_BLOCK
-    pix = axis(tab[:, 19], tab[:, 20], h, by) * axis(tab[:, 21], tab[:, 22], w, bx)
+    pix = axis(tab[:, 19], tab[:, 20], h) * axis(tab[:, 21], tab[:, 22], w)
     return ZSCAN_OPS * float(pix.sum())
+
+
+def tie_table(torch, h, w, seed=0, device="cuda"):
+    """A tie-heavy z-scan table at (h, w): 1500 scattered triangles (2 to
+    150 pixels across, both windings, mixed w) and a shuffled duplicate
+    of each, so every covered pixel of a triangle ties with its copy and
+    the lower id must win, plus 700 small triangles inside one 16 x 16
+    pixel square (more than a round of the kernel's binning holds).
+    3700 triangles in all, made with numpy from ``seed``."""
+    from realism_effects_tpu_torch.ops import raster_kernel
+
+    rng = np.random.default_rng(seed)
+
+    def scatter(n, lo, hi, size):
+        centre = rng.uniform(lo, hi, (n, 1, 2))
+        return centre + rng.normal(size=(n, 3, 2)) * size[:, None, None]
+
+    verts = np.concatenate([
+        scatter(1500, (0, 0), (w, h), rng.uniform(1, 75, 1500)),
+        scatter(700, (200, 100), (212, 112), rng.uniform(0.5, 2, 700))])
+    n = verts.shape[0]
+    tri_w = rng.uniform(0.5, 2.0, (n, 3))
+    tri_z = rng.uniform(-0.95, 0.95, (n, 3)) * tri_w
+    x, y = verts[..., 0], verts[..., 1]
+    nxt, nxt2 = [1, 2, 0], [2, 0, 1]
+    a = y[:, nxt] - y[:, nxt2]
+    b = x[:, nxt2] - x[:, nxt]
+    c = x[:, nxt] * y[:, nxt2] - x[:, nxt2] * y[:, nxt]
+    t = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt, device=device)
+    tab = raster_kernel.zscan_table(
+        t(np.stack([a, b, c], -1)), t(tri_z), t(tri_w),
+        t(np.where(c.sum(1) >= 0, 1.0, -1.0)), t(np.ones(n, bool), torch.bool),
+        t(np.stack([x.min(1), x.max(1), y.min(1), y.max(1)], -1)))
+    dup = torch.tensor(rng.permutation(1500), device=device)
+    return torch.cat([tab[:1500], tab[dup], tab[1500:]])
 
 
 def check_raster_kernels(torch, analytic, timer, results):
@@ -545,6 +598,17 @@ def check_raster_kernels(torch, analytic, timer, results):
           f"{h * w}, covered {int((ids_k >= 0).sum())}", flush=True)
     if flips:
         raise AssertionError(f"zscan: {flips} winner flips against the plain version")
+    tie = tie_table(torch, h, w)
+    ids_t, z_t = raster_kernel._launch(tie, h, w)
+    ids_tp, z_tp = raster_kernel.zscan_plain(tie, h, w)
+    tie_flips = int((ids_t != ids_tp).sum())
+    tie_err = maxerr(torch.where(ids_tp >= 0, z_t, 0.0), torch.where(ids_tp >= 0, z_tp, 0.0))
+    print(f"[check] zscan on the tie-heavy table: {tie.shape[0]} triangles, winner "
+          f"flips {tie_flips}, max z error {tie_err}, covered "
+          f"{int((ids_tp >= 0).sum())}, won by a duplicate "
+          f"{int(((ids_tp >= 1500) & (ids_tp < 3000)).sum())}", flush=True)
+    if tie_flips or tie_err != 0.0:
+        raise AssertionError("zscan disagrees with its plain version on the tie-heavy table")
     results.add("zscan", "raster.cu", "realism_effects_tpu/ops/pallas/raster.py:67",
                 err, 0.0, timer(lambda: raster_kernel._launch(tab, h, w)),
                 timer(lambda: raster_kernel.zscan_plain(tab, h, w)),

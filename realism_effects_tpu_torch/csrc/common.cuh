@@ -56,7 +56,8 @@ __device__ __forceinline__ void unpack_normal(float packed, float& nx,
 
 // A block's dynamic shared-memory array. (The host build of the sources
 // in tests/test_torch_cuda_sources.py, which runs threads one after the
-// other, defines it and block_load for itself.)
+// other, defines it and block_load for itself; the other block helpers
+// below have a host twin.)
 #ifndef RE_DYNAMIC_SHARED
 #define RE_DYNAMIC_SHARED(T, name) extern __shared__ T name[]
 #endif
@@ -73,10 +74,92 @@ __device__ __forceinline__ void block_load(float* dst, const float* src,
   __syncthreads();
 }
 
-// Wait until every thread of the block is done with shared memory.
-__device__ __forceinline__ void block_sync() { __syncthreads(); }
+// fill(i) for every i in [0, n), spread over the block's threads, then
+// synchronise: a cooperative fill of shared memory.
+template <class Fill>
+__device__ __forceinline__ void block_fill(int n, Fill fill) {
+  const int nt = blockDim.x * blockDim.y;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n; i += nt) {
+    fill(i);
+  }
+  __syncthreads();
+}
+
+// Ordered stream compaction over the block. keep(i) is tested for the
+// indices from `begin` on, one thread an index, a block-width at a time;
+// a warp ballot and a prefix over the block's warps give each kept index
+// its slot in index order, and store(slot, i) runs for the first `cap`
+// of them. Returns how many were stored (the same on every thread) and
+// sets `next` to where a later round must go on from (`end` once all
+// fit). Every thread of the block calls it; the block size is a multiple
+// of 32. The stores are visible to the whole block on return, and the
+// block may read them until its next call.
+template <class Keep, class Store>
+__device__ __forceinline__ int block_compact(int begin, int end, int cap,
+                                             Keep keep, Store store,
+                                             int& next) {
+  __shared__ int s_warp[32];
+  __shared__ int s_next;
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int count = 0;
+  int pos = begin;
+  while (pos < end && count < cap) {
+    const int i = pos + tid;
+    const bool hit = i < end && keep(i);
+    const unsigned int m = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) s_warp[warp] = __popc(m);
+    __syncthreads();  // also: every thread is done reading the last round
+    int before = 0, total = 0;
+    for (int k = 0; k < (nt >> 5); ++k) {
+      const int c = s_warp[k];
+      before += k < warp ? c : 0;
+      total += c;
+    }
+    const int slot = count + before + __popc(m & ((1u << lane) - 1u));
+    if (hit && slot < cap) store(slot, i);
+    if (hit && slot == cap) s_next = i;  // the first index that did not fit
+    __syncthreads();
+    if (count + total > cap) {
+      next = s_next;
+      return cap;
+    }
+    count += total;
+    pos += nt;
+  }
+  next = min(pos, end);
+  return count;
+}
 #else
-inline void block_sync() {}
+// Threads run one after another in the host build of the sources: the
+// block's first thread fills it all, the others find it filled.
+template <class Fill>
+inline void block_fill(int n, Fill fill) {
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int i = 0; i < n; ++i) fill(i);
+  }
+}
+
+// Each thread compacts the whole list itself (a later round overwrites
+// it before the next thread runs), with the same slots and the same
+// `next` where a round overflows.
+template <class Keep, class Store>
+inline int block_compact(int begin, int end, int cap, Keep keep, Store store,
+                         int& next) {
+  int count = 0;
+  for (int i = begin; i < end; ++i) {
+    if (!keep(i)) continue;
+    if (count == cap) {
+      next = i;
+      return count;
+    }
+    store(count++, i);
+  }
+  next = end;
+  return count;
+}
 #endif
 
 }  // namespace re

@@ -12,10 +12,22 @@
 // The TPU kernel's tap-window clamp is dropped: its windows are the
 // bound of the tap reach, so it never binds (the tests check this).
 //
-// On the H100 the pass is bound by bytes (Cb floats in, 4 * n_tex out a
-// pixel); the 8 tap reads stay within a few pixels and hit L1/L2, and
-// the per-tap exp/log work is well under the operation rate. Design:
-// one thread per pixel, the slot state in registers, direct loads.
+// On the H100 the pass is bound by instruction issue, not bytes: the
+// first kernel (a thread a pixel, direct loads) recomputed each tap's
+// texel-only values, a normal decode (a square root, three divisions)
+// and per slot three logs and a luminance pow, for each of the 8 taps,
+// so about 160 accurate libm calls a two-slot pixel, while each texel is
+// tapped about 8 times at radius 3. Design: the values that depend on
+// the texel only (depth, decoded normal, roughness, per slot
+// log(max(rgb, 0) + 1) and its luminance8) are computed once a texel
+// into shared memory, as structure-of-arrays floats, for the block's
+// 32 x 8 tile plus a halo of the tap reach (from the radius, the
+// offsets and the aspect, at most kMaxHalo). A tap outside the staged
+// region computes the same function of the same bits directly. The tap
+// loop keeps the work that depends on the pixel: the edge weights' exp,
+// the specular factor, the disocclusion pow, the luma exp, the age blend.
+#include <math.h>
+
 #include "common.cuh"
 
 namespace {
@@ -25,6 +37,9 @@ using re::pow_el;
 
 constexpr int kMaxTex = 4;
 constexpr float kPi2 = 6.2831855f;  // float32(2 * pi)
+constexpr int kBX = 32;             // block: 32 columns x 8 rows
+constexpr int kBY = 8;
+constexpr int kMaxHalo = 8;         // staged texels beyond the tile, a side
 
 struct PoissonParams {
   float radius, age_e, luma_phi, depth_phi, normal_phi, roughness_phi,
@@ -34,6 +49,7 @@ struct PoissonParams {
   float offy[8];  // POISSON8[k][1] / H
   int sy, sx;     // blue-noise shift of this pass
   int cb;         // bundle channels
+  int hx, hy;     // staged halo: columns, rows
   int slot_ch[kMaxTex];
   int scalar[kMaxTex];
   int spec[kMaxTex];
@@ -57,38 +73,82 @@ __device__ __forceinline__ void slot_rgba(const float* t, int ch, bool scalar,
   }
 }
 
+// The texel-only values of bundle texel t, texel_floats(NT) of them:
+// v[0] depth, v[1..3] the decoded normal, v[4] roughness, then per slot
+// s v[5 + 4s ..] the three log(max(raw, 0) + 1) and their luminance8.
+__host__ __device__ constexpr int texel_floats(int nt) { return 5 + 4 * nt; }
+
 template <int NT>
-__global__ void poisson_kernel(const float* __restrict__ bundle,
-                               const float* __restrict__ tile,
-                               float* __restrict__ out, int h, int w,
-                               const PoissonParams p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= w) return;
+__device__ __forceinline__ void texel_values(const float* t,
+                                             const PoissonParams& p,
+                                             float* v) {
+  v[0] = t[0];
+  re::unpack_normal(t[1], v[1], v[2], v[3]);
+  v[4] = t[2];
+#pragma unroll
+  for (int s = 0; s < NT; ++s) {
+    float traw[3], ta;
+    slot_rgba(t, p.slot_ch[s], p.scalar[s] != 0, traw, ta);
+    float* tr = v + 5 + 4 * s;
+    if (p.scalar[s]) {  // three equal channels: one log
+      tr[0] = logf(fmaxf(traw[0], 0.0f) + 1.0f);
+      tr[1] = tr[0];
+      tr[2] = tr[0];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) tr[i] = logf(fmaxf(traw[i], 0.0f) + 1.0f);
+    }
+    tr[3] = luminance8(tr[0], tr[1], tr[2]);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kBX * kBY)
+poisson_kernel(const float* __restrict__ bundle, const float* __restrict__ tile,
+               float* __restrict__ out, int h, int w, const PoissonParams p) {
+  constexpr int kV = texel_floats(NT);
+  RE_DYNAMIC_SHARED(float, s_tex);  // kV planes of tw x th texels
   const int cb = p.cb;
-  const float* center = bundle + (static_cast<size_t>(y) * w + x) * cb;
-  const float d_c = center[0];
-  float ncx, ncy, ncz;
-  re::unpack_normal(center[1], ncx, ncy, ncz);
-  const float rough_c = center[2];
+  const int gx0 = blockIdx.x * kBX - p.hx;  // staged region's origin
+  const int gy0 = blockIdx.y * kBY - p.hy;
+  const int tw = kBX + 2 * p.hx;
+  const int th = kBY + 2 * p.hy;
+  const int tn = tw * th;
+  re::block_fill(tn, [&](int i) {
+    const int gy = gy0 + i / tw;
+    const int gx = gx0 + i % tw;
+    if (gx < 0 || gx >= w || gy < 0 || gy >= h) return;
+    float v[kV];
+    texel_values<NT>(bundle + (static_cast<size_t>(gy) * w + gx) * cb, p, v);
+#pragma unroll
+    for (int j = 0; j < kV; ++j) s_tex[j * tn + i] = v[j];
+  });
+
+  const int x = blockIdx.x * kBX + threadIdx.x;
+  const int y = blockIdx.y * kBY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  // staged index of an in-frame texel (the tile's own, and its right and
+  // down neighbours, are always staged: the halo is at least 1)
+  const auto staged = [&](int iy, int ix) { return (iy - gy0) * tw + (ix - gx0); };
+  const int ic = staged(y, x);
+  const float d_c = s_tex[ic];
+  const float ncx = s_tex[tn + ic], ncy = s_tex[2 * tn + ic], ncz = s_tex[3 * tn + ic];
+  const float rough_c = s_tex[4 * tn + ic];
 
   // flatness from fwidth of the decoded normal (forward differences,
   // zero at the frame edge)
-  float nrx, nry, nrz, ndx, ndy, ndz;
-  re::unpack_normal(bundle[(static_cast<size_t>(y) * w + min(x + 1, w - 1)) * cb + 1],
-                    nrx, nry, nrz);
-  re::unpack_normal(bundle[(static_cast<size_t>(min(y + 1, h - 1)) * w + x) * cb + 1],
-                    ndx, ndy, ndz);
+  const int ir = staged(y, min(x + 1, w - 1));
+  const int id = staged(min(y + 1, h - 1), x);
   const float right_ok = x < w - 1 ? 1.0f : 0.0f;
   const float down_ok = y < h - 1 ? 1.0f : 0.0f;
   float fw2 = 0.0f;
   {
     const float c0[3] = {ncx, ncy, ncz};
-    const float cr[3] = {nrx, nry, nrz};
-    const float cd[3] = {ndx, ndy, ndz};
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const float fw = fabsf(cr[i] - c0[i]) * right_ok + fabsf(cd[i] - c0[i]) * down_ok;
+      const float cr = s_tex[(1 + i) * tn + ir];
+      const float cd = s_tex[(1 + i) * tn + id];
+      const float fw = fabsf(cr - c0[i]) * right_ok + fabsf(cd - c0[i]) * down_ok;
       fw2 = fw2 + fw * fw;
     }
   }
@@ -103,6 +163,7 @@ __global__ void poisson_kernel(const float* __restrict__ bundle,
   const float uvy = (static_cast<float>(y) + 0.5f) * p.inv_h;
 
   // center state per slot
+  const float* center = bundle + (static_cast<size_t>(y) * w + x) * cb;
   float raw[NT][3], alpha[NT], lum[NT], age[NT], acc[NT][3], total[NT];
 #pragma unroll
   for (int s = 0; s < NT; ++s) {
@@ -121,28 +182,30 @@ __global__ void poisson_kernel(const float* __restrict__ bundle,
     const float oy = (-s_ * p.offx[k] + c_ * p.offy[k]) * rscale;
     const int ixt = clampi(static_cast<int>(floorf((uvx + ox) * p.wg)), 0, w - 1);
     const int iyt = clampi(static_cast<int>(floorf((uvy + oy) * p.hg)), 0, h - 1);
-    const float* t = bundle + (static_cast<size_t>(iyt) * w + ixt) * cb;
-    const float n_depth = t[0];
-    float ntx, nty, ntz;
-    re::unpack_normal(t[1], ntx, nty, ntz);
-    const float n_rough = t[2];
-    const float ndot = ncx * ntx + ncy * nty + ncz * ntz;
+    float v[kV];
+    const int sx = ixt - gx0;
+    const int sy = iyt - gy0;
+    if (sx >= 0 && sx < tw && sy >= 0 && sy < th) {
+      const float* q = s_tex + sy * tw + sx;
+#pragma unroll
+      for (int j = 0; j < kV; ++j) v[j] = q[j * tn];
+    } else {
+      texel_values<NT>(bundle + (static_cast<size_t>(iyt) * w + ixt) * cb, p, v);
+    }
+    const float n_depth = v[0];
+    const float ndot = ncx * v[1] + ncy * v[2] + ncz * v[3];
     const float normal_diff = 1.0f - fmaxf(ndot, 0.0f);
     const float depth_diff = 10000.0f * fabsf(d_c - n_depth);
-    const float rough_diff = fabsf(rough_c - n_rough);
+    const float rough_diff = fabsf(rough_c - v[4]);
     float w_basic = expf(-normal_diff * p.normal_phi - depth_diff * p.depth_phi -
                          rough_diff * p.roughness_phi);
     w_basic = n_depth >= 1.0f ? 0.0f : w_basic;
 #pragma unroll
     for (int s = 0; s < NT; ++s) {
-      float traw[3], ta;
-      slot_rgba(t, p.slot_ch[s], p.scalar[s] != 0, traw, ta);
+      const float* tr = v + 5 + 4 * s;
       float wgt = w_basic * (p.spec[s] ? specular_factor : 1.0f);
-      float tr[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) tr[i] = logf(fmaxf(traw[i], 0.0f) + 1.0f);
       const float disoccl_w = pow_el(fmaxf(wgt, 1e-20f), 0.1f);
-      const float luma_diff = fminf(fabsf(lum[s] - luminance8(tr[0], tr[1], tr[2])), 0.5f);
+      const float luma_diff = fminf(fabsf(lum[s] - tr[3]), 0.5f);
       const float luma_factor = expf(-luma_diff * p.luma_phi);
       const float wl = wgt * luma_factor;
       wgt = (wl + (disoccl_w - wl) * age[s]) * age[s];
@@ -163,6 +226,36 @@ __global__ void poisson_kernel(const float* __restrict__ bundle,
     }
     o[4 * s + 3] = alpha[s];
   }
+}
+
+// Texels a tap reaches beyond its pixel along an axis: the offsets'
+// largest length there (times the radius; flatness <= 1) in texels,
+// rounded as the kernel's floor(centre + offset) rounds, at least 1 (the
+// flatness neighbours) and at most kMaxHalo.
+int halo(const float* off_x, const float* off_y, float radius, float scale) {
+  double reach = 0.0;
+  for (int k = 0; k < 8; ++k) {
+    reach = fmax(reach, hypot(static_cast<double>(off_x[k]) * scale,
+                              static_cast<double>(off_y[k]) * scale));
+  }
+  reach = fabs(static_cast<double>(radius)) * reach + 0.5;
+  if (!(reach < kMaxHalo)) return kMaxHalo;  // NaN and inf too
+  return reach < 1.0 ? 1 : static_cast<int>(reach);
+}
+
+template <int NT>
+int launch(const float* bundle, const float* tile, float* out, int h, int w,
+           const PoissonParams& p, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(texel_floats(NT)) * (kBX + 2 * p.hx) *
+                      (kBY + 2 * p.hy) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      poisson_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 block(kBX, kBY);
+  const dim3 grid((w + kBX - 1) / kBX, (h + kBY - 1) / kBY);
+  poisson_kernel<NT><<<grid, block, smem, st>>>(bundle, tile, out, h, w, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -194,20 +287,19 @@ extern "C" int re_poisson(const float* bundle, const float* tile, float* out,
   p.sy = iparams[0];
   p.sx = iparams[1];
   p.cb = cb;
+  p.hx = halo(p.offx, p.offy, p.radius, p.wg);
+  p.hy = halo(p.offx, p.offy, p.radius, p.hg);
   for (int s = 0; s < kMaxTex; ++s) {
     const bool used = s < n_tex;
     p.slot_ch[s] = used ? iparams[2 + 3 * s] : 0;
     p.scalar[s] = used ? iparams[3 + 3 * s] : 0;
     p.spec[s] = used ? iparams[4 + 3 * s] : 0;
   }
-  const dim3 block(128);
-  const dim3 grid((w + 127) / 128, h);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n_tex) {
-    case 1: poisson_kernel<1><<<grid, block, 0, st>>>(bundle, tile, out, h, w, p); break;
-    case 2: poisson_kernel<2><<<grid, block, 0, st>>>(bundle, tile, out, h, w, p); break;
-    case 3: poisson_kernel<3><<<grid, block, 0, st>>>(bundle, tile, out, h, w, p); break;
-    default: poisson_kernel<4><<<grid, block, 0, st>>>(bundle, tile, out, h, w, p); break;
+    case 1: return launch<1>(bundle, tile, out, h, w, p, st);
+    case 2: return launch<2>(bundle, tile, out, h, w, p, st);
+    case 3: return launch<3>(bundle, tile, out, h, w, p, st);
+    default: return launch<4>(bundle, tile, out, h, w, p, st);
   }
-  return cudaGetLastError();
 }

@@ -19,73 +19,111 @@
 // The TPU kernel walked the whole triangle list once per 64 x 512 block
 // from an SMEM table, skipping a triangle whose bbox misses the block
 // (`@pl.when(overlap)`), and ran scenes above 4096 triangles as
-// min-combined batches. On the H100 a thread owns a pixel of an 8 x 32
-// block; the block stages the table through shared memory in chunks of
-// 128 triangles, in triangle order, and skips a triangle with one
-// block-uniform test of its bbox against the block's pixel-centre
-// bounds. One pass in triangle order with strict < gives the batches'
-// result for any triangle count. Bound by operations: about 35 per
-// (pixel, triangle whose bbox overlaps the pixel's block). Built with
-// -fmad=false and IEEE division, so it equals zscan_plain bit for bit.
+// min-combined batches. The first H100 kernel did the same with a
+// thread a pixel: every thread walked every triangle, and the skip test
+// alone (4 shared loads, 4 compares, a branch a triangle, about 570 M
+// warp instructions for the flagship's 734 triangles at 1080p) held it
+// at 0.72 ms, issue-bound, where the scene needs about 3 triangles a
+// pixel and the output write bounds it at 0.005 ms.
+//
+// Design: ordered per-block binning. A block of 16 x 16 threads owns a
+// 16 x 32 tile, two pixels a thread. Its threads test the bboxes of
+// consecutive triangles against the tile's pixel-centre bounds, one
+// thread a triangle, a block-width at a time; re::block_compact (ballot,
+// popc, a prefix over the warps) gives each overlapping triangle its
+// slot in triangle order, and the triangle's row goes to shared memory.
+// Every thread then walks only that list, each row read once for its
+// two pixels. (A taller tile shares the bbox tests over more pixels and
+// lengthens each list; two pixels a thread balance the two on the
+// flagship's table and on a tie-heavy one of a few thousand triangles.)
+// A tile whose list outgrows kCap works in rounds (compact to capacity,
+// walk, go on from the next triangle), so nothing is dropped or
+// reordered: one pass in triangle order with strict < for any triangle
+// count, the batches' result. Built with -fmad=false and IEEE division,
+// so it equals zscan_plain bit for bit.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kNQ = 24;      // floats per triangle row
-constexpr int kChunk = 128;  // triangles staged in shared memory at once
-constexpr int kBX = 32;      // block: 32 columns x 8 rows
-constexpr int kBY = 8;
+constexpr int kNQ = 24;    // floats per triangle row
+constexpr int kBX = 16;    // block: 16 x 16 threads
+constexpr int kBY = 16;
+constexpr int kPY = 2;     // pixels a thread, kBY rows apart: a 16 x 32 tile
+constexpr int kCap = 256;  // triangles a round holds in shared memory
 
 __global__ void zscan_kernel(const float* __restrict__ tab, int n_tris, int h,
                              int w, float* __restrict__ zout,
                              int* __restrict__ idout) {
-  RE_DYNAMIC_SHARED(float, s_tab);
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
+  RE_DYNAMIC_SHARED(float, s_rows);  // kCap rows; float 23 holds the id
+  const int tile_x = blockIdx.x * kBX;
+  const int tile_y = blockIdx.y * kBY * kPY;
+  const int x = tile_x + threadIdx.x;
   const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-  // pixel-centre bounds of the whole block (past the frame edge too, as
+  // pixel-centre bounds of the whole tile (past the frame edge too, as
   // the TPU kernel's padded blocks: the skip only gets more conservative)
-  const float bx0 = static_cast<float>(blockIdx.x * kBX) + 0.5f;
-  const float bx1 = static_cast<float>(blockIdx.x * kBX + kBX - 1) + 0.5f;
-  const float by0 = static_cast<float>(blockIdx.y * kBY) + 0.5f;
-  const float by1 = static_cast<float>(blockIdx.y * kBY + kBY - 1) + 0.5f;
+  const float bx0 = static_cast<float>(tile_x) + 0.5f;
+  const float bx1 = static_cast<float>(tile_x + kBX - 1) + 0.5f;
+  const float by0 = static_cast<float>(tile_y) + 0.5f;
+  const float by1 = static_cast<float>(tile_y + kBY * kPY - 1) + 0.5f;
+  const auto overlaps = [&](int t) {
+    const float* q = tab + static_cast<size_t>(t) * kNQ;
+    return q[19] <= by1 && q[20] >= by0 && q[21] <= bx1 && q[22] >= bx0;
+  };
+  const auto stage = [&](int slot, int t) {
+    const float* q = tab + static_cast<size_t>(t) * kNQ;
+    float* r = s_rows + slot * kNQ;
+#pragma unroll
+    for (int j = 0; j < kNQ - 1; ++j) r[j] = q[j];
+    r[kNQ - 1] = __int_as_float(t);
+  };
 
-  float zbest = __int_as_float(0x7f800000);  // +inf
-  int best = -1;
-  for (int base = 0; base < n_tris; base += kChunk) {
-    const int n = min(kChunk, n_tris - base);
-    re::block_sync();  // the previous chunk is read by every thread
-    re::block_load(s_tab, tab + static_cast<size_t>(base) * kNQ, n * kNQ);
+  float py[kPY], zbest[kPY];
+  int best[kPY];
+#pragma unroll
+  for (int i = 0; i < kPY; ++i) {
+    py[i] = static_cast<float>(tile_y + threadIdx.y + i * kBY) + 0.5f;
+    zbest[i] = __int_as_float(0x7f800000);  // +inf
+    best[i] = -1;
+  }
+  for (int start = 0; start < n_tris;) {
+    int next;
+    const int n = re::block_compact(start, n_tris, kCap, overlaps, stage, next);
     for (int t = 0; t < n; ++t) {
-      const float* q = s_tab + t * kNQ;
+      const float* q = s_rows + t * kNQ;
       const float ymin = q[19], ymax = q[20], xmin = q[21], xmax = q[22];
-      if (!(ymin <= by1 && ymax >= by0 && xmin <= bx1 && xmax >= bx0)) {
-        continue;  // uniform over the block
-      }
       const float s = q[18];
-      const float e0 = q[0] * px + q[1] * py + q[2];
-      const float e1 = q[3] * px + q[4] * py + q[5];
-      const float e2 = q[6] * px + q[7] * py + q[8];
-      bool covered = e0 * s >= 0.0f && e1 * s >= 0.0f && e2 * s >= 0.0f;
-      covered = covered && px >= xmin && px <= xmax && py >= ymin && py <= ymax;
-      const float zw = q[9] * px + q[10] * py + q[11];
-      const float zc = q[12] * px + q[13] * py + q[14];
-      const float se = q[15] * px + q[16] * py + q[17];
-      const float se_safe = fabsf(se) > 1e-20f ? se : 1e-20f;
-      const float w_pix = zw / se_safe;
-      const float z_ndc = zc / (fabsf(zw) > 1e-20f ? zw : 1e-20f);
-      covered = covered && w_pix > 1e-6f && z_ndc >= -1.0f && z_ndc <= 1.0f;
-      if (covered && z_ndc < zbest) {
-        zbest = z_ndc;
-        best = base + t;
+      const int id = static_cast<int>(__float_as_uint(q[kNQ - 1]));
+#pragma unroll
+      for (int i = 0; i < kPY; ++i) {
+        const float e0 = q[0] * px + q[1] * py[i] + q[2];
+        const float e1 = q[3] * px + q[4] * py[i] + q[5];
+        const float e2 = q[6] * px + q[7] * py[i] + q[8];
+        bool covered = e0 * s >= 0.0f && e1 * s >= 0.0f && e2 * s >= 0.0f;
+        covered = covered && px >= xmin && px <= xmax && py[i] >= ymin &&
+                  py[i] <= ymax;
+        const float zw = q[9] * px + q[10] * py[i] + q[11];
+        const float zc = q[12] * px + q[13] * py[i] + q[14];
+        const float se = q[15] * px + q[16] * py[i] + q[17];
+        const float se_safe = fabsf(se) > 1e-20f ? se : 1e-20f;
+        const float w_pix = zw / se_safe;
+        const float z_ndc = zc / (fabsf(zw) > 1e-20f ? zw : 1e-20f);
+        covered = covered && w_pix > 1e-6f && z_ndc >= -1.0f && z_ndc <= 1.0f;
+        if (covered && z_ndc < zbest[i]) {
+          zbest[i] = z_ndc;
+          best[i] = id;
+        }
       }
     }
+    start = next;
   }
-  if (x < w && y < h) {
-    const size_t pix = static_cast<size_t>(y) * w + x;
-    zout[pix] = zbest;
-    idout[pix] = best;
+#pragma unroll
+  for (int i = 0; i < kPY; ++i) {
+    const int y = tile_y + threadIdx.y + i * kBY;
+    if (x < w && y < h) {
+      const size_t pix = static_cast<size_t>(y) * w + x;
+      zout[pix] = zbest[i];
+      idout[pix] = best[i];
+    }
   }
 }
 
@@ -98,8 +136,8 @@ extern "C" int re_zscan(const float* tab, float* zout, int* idout, int n_tris,
                         int h, int w, void* stream) {
   if (n_tris < 0 || h < 1 || w < 1) return cudaErrorInvalidValue;
   const dim3 block(kBX, kBY);
-  const dim3 grid((w + kBX - 1) / kBX, (h + kBY - 1) / kBY);
-  const size_t smem = static_cast<size_t>(kChunk) * kNQ * sizeof(float);
+  const dim3 grid((w + kBX - 1) / kBX, (h + kBY * kPY - 1) / (kBY * kPY));
+  const size_t smem = static_cast<size_t>(kCap) * kNQ * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   zscan_kernel<<<grid, block, smem, st>>>(tab, n_tris, h, w, zout, idout);
   return cudaGetLastError();

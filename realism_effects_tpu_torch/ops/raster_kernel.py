@@ -14,7 +14,10 @@ The TPU kernel's batching of scenes above 4096 triangles (an SMEM limit)
 is not semantics and is not ported: one pass in triangle order with the
 strict test gives the same winners. Kernel and plain version agree bit
 for bit (same operations in the same order; built with ``-fmad=false``).
-On the H100 the kernel is bound by operations; see the source.
+On the H100 a kernel in which every thread tests every triangle's bbox
+is bound by instruction issue, not by the output write that bounds the
+z-scan; the kernel bins triangles per 16 x 32 tile in triangle order
+and each thread walks only its tile's list. See the source.
 """
 
 from __future__ import annotations

@@ -49,6 +49,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -57,7 +58,9 @@ static dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
 struct __half { unsigned short b; };
@@ -65,9 +68,9 @@ inline __half __ushort_as_half(unsigned short s) { __half h; h.b = s; return h; 
 inline float __half2float(__half h) { _Float16 v; memcpy(&v, &h.b, 2); return (float)v; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 // threads run one after another: a block's shared table is filled whole
-// by its first thread
+// by its first thread (common.cuh's block helpers have host twins)
 #define RE_HOST_SEQUENTIAL
-#define RE_DYNAMIC_SHARED(T, name) static T name[1 << 14]
+#define RE_DYNAMIC_SHARED(T, name) static T name[1 << 16]
 namespace re {
 inline void block_load(float* d, const float* s, int n) {
   for (int i = 0; i < n; ++i) d[i] = s[i];
@@ -248,6 +251,37 @@ def test_poisson_source(host_kernels, slots):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("radius", [3.0, 12.0])
+@pytest.mark.parametrize("slots,spec", [
+    ((False, True, False), (True, False, True)),
+    ((True, False, False, True), (False, True, True, False))])
+def test_poisson_source_staged(host_kernels, slots, spec, radius):
+    """3 and 4 slots, scalar and specular mixed, on a 45 x 83 frame whose
+    32 x 8 tiles the edge cuts. At radius 3 every tap lands in the
+    staged tile and halo; at radius 12 the reach (about 22 columns and 12
+    rows) passes the staged halo, and those taps decode the bundle
+    directly."""
+    h, w = 45, 83
+    rng = np.random.default_rng(len(slots) + int(radius))
+    depth, nrm = _surface(h, w, 5)
+    z = torch.zeros
+    gb = GBuffer(diffuse=z(h, w, 4), normal=nrm,
+                 roughness=torch.tensor(rng.random((h, w)) * 0.4, dtype=torch.float32),
+                 metalness=z(h, w), emissive=z(h, w, 3), depth=depth)
+    texs = []
+    for scalar in slots:
+        t = np.concatenate([rng.random((h, w, 3)) * 3 - 0.2,
+                            rng.integers(0, 40, (h, w, 1))], -1)
+        texs.append(torch.tensor(t[..., [0, 0, 0, 3]] if scalar else t,
+                                 dtype=torch.float32))
+    cfg = dataclasses.replace(PoissonDenoiseConfig(), radius=radius,
+                              is_specular=spec)
+    bundle, ch = poisson_kernel.pack_bundle(texs, gb, slots)
+    got = poisson_kernel._launch(bundle, ch, slots, 7, cfg)
+    want = poisson_kernel.poisson_pass_plain(bundle, ch, slots, 7, cfg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+
+
 @pytest.mark.parametrize("miss_gi", [False, True])
 def test_sweep_source(host_kernels, miss_gi):
     """The march over a real frame's rays (the analytic scene with the
@@ -317,6 +351,72 @@ def test_zscan_source(host_kernels, view):
     got = raster_kernel._launch(tab, h, w)
     want = raster_kernel.zscan_plain(tab, h, w)
     assert bool((want[0] >= 0).any()) and bool((want[0] < 0).any() or view == "inside")
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def _synthetic_table(case, h, w):
+    """A z-scan table of random screen-space triangles at (h, w), each
+    case over three block-widths (768) of triangles: ``many`` scattered
+    triangles of mixed size, winding and w; ``ties`` 420 triangles and
+    a scrambled duplicate of each (equal planes, so a tie that the lowest
+    id must win); ``scrambled`` large overlapping triangles whose depth
+    order is a shuffle of their id order; ``overflow`` 700 small
+    triangles inside one 16 x 16 tile, more than a round of the kernel
+    holds (256), among 200 scattered ones."""
+    rng = np.random.default_rng(["many", "ties", "scrambled", "overflow"].index(case))
+
+    def scatter(n, lo, hi, size):
+        centre = rng.uniform(lo, hi, (n, 1, 2))
+        return centre + rng.normal(size=(n, 3, 2)) * size[:, None, None]
+
+    if case == "many":
+        verts = scatter(900, (-5, -5), (w + 5, h + 5), rng.uniform(0.5, 12, 900))
+    elif case == "ties":
+        verts = scatter(420, (0, 0), (w, h), rng.uniform(2, 15, 420))
+    elif case == "scrambled":
+        verts = scatter(800, (0, 0), (w, h), rng.uniform(10, 40, 800))
+    else:
+        verts = np.concatenate([
+            scatter(700, (18, 18), (30, 30), rng.uniform(0.5, 2, 700)),
+            scatter(200, (0, 0), (w, h), rng.uniform(1, 10, 200))])
+    n = verts.shape[0]
+    tri_w = rng.uniform(0.5, 2.0, (n, 3))
+    if case == "scrambled":   # flat triangles, depth order shuffled
+        tri_w[:] = 1.0
+        tri_z = np.repeat(rng.permutation(np.linspace(-0.9, 0.9, n))[:, None], 3, 1)
+    else:
+        tri_z = rng.uniform(-0.95, 0.95, (n, 3)) * tri_w
+    x, y = verts[..., 0], verts[..., 1]
+    nxt, nxt2 = [1, 2, 0], [2, 0, 1]
+    a = y[:, nxt] - y[:, nxt2]
+    b = x[:, nxt2] - x[:, nxt]
+    c = x[:, nxt] * y[:, nxt2] - x[:, nxt2] * y[:, nxt]
+    coeffs = np.stack([a, b, c], -1)            # (F, 3 edges, A B C)
+    sgn = np.where(c.sum(1) >= 0, 1.0, -1.0)
+    bbox = np.stack([x.min(1), x.max(1), y.min(1), y.max(1)], -1)
+    valid = rng.random(n) > 0.02
+    t = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt)
+    tab = raster_kernel.zscan_table(t(coeffs), t(tri_z), t(tri_w), t(sgn),
+                                    t(valid, torch.bool), t(bbox))
+    if case == "ties":
+        tab = torch.cat([tab, tab[torch.tensor(rng.permutation(n))]])
+    return tab
+
+
+@pytest.mark.parametrize("case", ["many", "ties", "scrambled", "overflow"])
+def test_zscan_source_binning(host_kernels, case):
+    """The per-block binning on synthetic tables at 45 x 83, bit for bit:
+    ties to the lowest id, overlaps out of id order, a tile whose list
+    takes several rounds."""
+    h, w = 45, 83
+    tab = _synthetic_table(case, h, w)
+    got = raster_kernel._launch(tab, h, w)
+    want = raster_kernel.zscan_plain(tab, h, w)
+    ids = want[0]
+    assert tab.shape[0] > 3 * 256 and bool((ids >= 0).float().mean() > 0.3)
+    if case == "ties":   # winners among the duplicates are the first copies
+        assert bool((ids[ids >= 0] < tab.shape[0] // 2).all())
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
 
