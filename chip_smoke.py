@@ -17,10 +17,13 @@ Phases (any failure raises and the script exits non-zero):
    of the SSGI path; the raster kernels (z-scan, per-face record fetch)
    those of frame 5 of the flagship path; the multi-target warp and the
    Poisson tap fetch those of frame 1 of the unfused HBAO + Poisson
-   route; sharpness frame 1's lit colour. Two more checks print on
-   their own lines: the z-scan on a tie-heavy synthetic table at 1080p
-   (0 winner flips, exact z) and both Poisson passes at radius 12, where
-   taps leave the kernel's staged halo.
+   route; sharpness frame 1's lit colour. More checks print on their
+   own lines: the z-scan on a tie-heavy synthetic table at 1080p (0
+   winner flips, exact z); both Poisson passes at radius 12, where taps
+   leave the kernel's staged halo; minmax at r=1 (exact); HBAO at spp 40,
+   two launches with the sums carried (tol 2e-4); the sweep over a 32 x
+   128 table (in shared memory through the opt-in) and a 64 x 304 one
+   (above the opt-in limit, read from device memory), both exact.
 3. Run the five paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
@@ -259,6 +262,14 @@ def check_kernels(torch, analytic, timer, frames, results):
                 timer(lambda: stencil._launch(inp, 2)),
                 timer(lambda: stencil.neighborhood_minmax_plain(inp, 2)),
                 inp.nbytes * 3, h * w * 4 * 25 * 2, library_ms=timer(lib))
+    # minmax r=1: the specular texture's second window
+    k = stencil.neighborhood_minmax(inp, 1)
+    p = stencil.neighborhood_minmax_plain(inp, 1)
+    err1 = max(maxerr(k[0], p[0]), maxerr(k[1], p[1]))
+    print(f"[check] minmax at r=1: max abs error {err1} (tol 0.0), ms="
+          f"{timer(lambda: stencil._launch(inp, 1))}", flush=True)
+    if not err1 <= 0.0:
+        raise AssertionError(f"minmax at r=1: {err1} > 0.0")
 
     # HBAO, spp 8, 32 x 32 window, on the frame's depth and normals
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
@@ -275,6 +286,13 @@ def check_kernels(torch, analytic, timer, frames, results):
                 timer(lambda: hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg)),
                 gb.depth.nbytes + gb.normal.nbytes + tile + k.nbytes,
                 h * w * (HBAO_OPS_SETUP + cfg.spp * HBAO_OPS_SAMPLE))
+    # spp 40: two launches of 32 and 8 samples, the sums carried between
+    cfg40 = dataclasses.replace(cfg, spp=40)
+    err40 = maxerr(hbao_kernel._launch(gb.depth, gb.normal, mats, 1, cfg40),
+                   hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg40))
+    print(f"[check] hbao at spp 40: max abs error {err40} (tol 2e-4)", flush=True)
+    if not err40 <= 2e-4:
+        raise AssertionError(f"hbao at spp 40: {err40} > 2e-4")
 
     # Poisson AO pass: one scalar slot, radius 3
     ao_tex = torch.cat([k[..., None].expand(h, w, 3), torch.zeros_like(k)[..., None]], -1)
@@ -351,21 +369,57 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
     # frame's rays walk (to their hit, all steps on a miss, none for a
     # ray whose bin is not one of the dirs)
     prev_t = torch.tensor(np.asarray(radii_prev), device="cuda")
-    walked = 0
+    tab = torch.tensor(np.asarray(table, np.float32), device="cuda")
+    ys = torch.arange(h, device="cuda")[:, None]
+    xs = torch.arange(w, device="cuda")[None, :]
+    walked = live = warp_steps = warp_live = 0
     for r, (hit, _, s_lo, _, _) in enumerate(p):
-        bin_ = planes[1 + 6 * r + 4]
+        k_len, p2, rwd, _, bin_, s_end = planes[1 + 6 * r: 7 + 6 * r]
         ok_bin = (bin_ >= 0) & (bin_ < dirs) & (bin_ == torch.floor(bin_))
         k_hit = torch.searchsorted(prev_t, s_lo.contiguous()) + 1
-        walked += int(torch.where(hit, k_hit, torch.where(ok_bin, steps, 0)).sum())
+        n_walk = torch.where(hit, k_hit, torch.where(ok_bin, steps, 0))
+        walked += int(n_walk.sum())
+        # live steps (those that reach the depth test) of the walk, and
+        # warp-steps (32 pixels of a row) with a live lane
+        row0 = torch.where(ok_bin, bin_, 0.0).long() * steps
+        for k_ in range(steps):
+            e = tab[row0 + k_]
+            yy, xx, s_ = ys + e[..., 0].int(), xs + e[..., 1].int(), e[..., 2]
+            den = k_len - s_ * rwd
+            t_s = s_ * p2 / torch.where(den > ssgi_sweep.EPS, den, 1.0)
+            on = ((k_ < n_walk) & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w) &
+                  (s_ <= s_end) & (den > ssgi_sweep.EPS) & (t_s >= 0) &
+                  (t_s <= ray_distance))
+            live += int(on.sum())
+            warp_live += int(on.view(h, w // 32, 32).any(-1).sum())
+            warp_steps += int((k_ < n_walk).view(h, w // 32, 32).any(-1).sum())
     outs = sum(t.nbytes for kr in k for t in kr)
     nbytes = z_tex.nbytes + rad.nbytes + planes.nbytes + \
         np.asarray(table).nbytes + np.asarray(radii_prev).nbytes + outs
     print(f"[kernel] sweep: {walked / (h * w * n_rays):.2f} steps a ray of "
-          f"{steps}; hits {[int(r[0].sum()) for r in p]} of {h * w}", flush=True)
+          f"{steps}; hits {[int(r[0].sum()) for r in p]} of {h * w}; live "
+          f"steps {live / walked:.3f} of those walked; warp-steps with a live "
+          f"lane {warp_live / warp_steps:.3f} of {warp_steps}", flush=True)
     results.add("sweep", "sweep.cu", "realism_effects_tpu/ops/pallas/sweep.py:84",
                 err, 0.0, timer(lambda: sweep_kernel._launch(*args)),
                 timer(lambda: sweep_kernel.sweep_march_plain(*args)),
                 nbytes, h * w * n_rays * SWEEP_OPS_RAY + walked * SWEEP_OPS_STEP)
+    # the same rays over larger tables: 32 x 128 (shared memory through
+    # the opt-in) and 64 x 304 (above the opt-in limit: device memory)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for d_, s_ in ((32, 128), (64, 304)):
+        tab_, prev_ = ssgi_sweep.step_table(SWEEP_FRAME, h, w, d_, s_, 1.5)[:2]
+        packed = sweep_kernel.packed_table(tab_, prev_, d_, s_).nbytes
+        a_ = args[:3] + (tab_, prev_) + args[5:8] + (d_, s_) + args[10:]
+        e_ = max(maxerr(a, b) for kr, pr in zip(sweep_kernel._launch(*a_),
+                                               sweep_kernel.sweep_march_plain(*a_))
+                 for a, b in zip(kr, pr))
+        where = "shared memory" if packed <= optin else "device memory"
+        print(f"[check] sweep with a {d_} x {s_} table ({packed} bytes packed, "
+              f"opt-in limit {optin}: {where}): max abs error {e_} (tol 0.0)",
+              flush=True)
+        if not e_ <= 0.0:
+            raise AssertionError(f"sweep with a {d_} x {s_} table: {e_} > 0.0")
 
     # warp bilinear: the prewarp of last frame's output (f16-rounded rgb)
     # to uv - velocity, ky=8, kx=30 (ops/ssgi.py)

@@ -14,13 +14,28 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 // NaN-propagating min / max (jnp.minimum / torch.minimum semantics;
-// fminf/fmaxf would drop a NaN operand).
+// fminf/fmaxf would drop a NaN operand). On the card one min.NaN /
+// max.NaN instruction each (sm_80 and later); a NaN comes out as the
+// canonical NaN either way.
+#ifndef RE_HOST_SEQUENTIAL
 __device__ __forceinline__ float pmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float pmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+#else
+inline float pmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+inline float pmax(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
+#endif
 
 // x ** e for x >= 0 as exp(log(x) * e): 0 -> 0 (the JAX kernels' _pow).
 __device__ __forceinline__ float pow_el(float x, float e) {
@@ -85,6 +100,16 @@ __device__ __forceinline__ void block_fill(int n, Fill fill) {
   __syncthreads();
 }
 
+// fill(i, j) for every i in [0, rows), j in [0, cols), the threads of a
+// block row walking j (so a warp takes consecutive j), then synchronise.
+template <class Fill>
+__device__ __forceinline__ void block_fill_2d(int rows, int cols, Fill fill) {
+  for (int i = threadIdx.y; i < rows; i += blockDim.y) {
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) fill(i, j);
+  }
+  __syncthreads();
+}
+
 // Ordered stream compaction over the block. keep(i) is tested for the
 // indices from `begin` on, one thread an index, a block-width at a time;
 // a warp ballot and a prefix over the block's warps give each kept index
@@ -139,6 +164,15 @@ template <class Fill>
 inline void block_fill(int n, Fill fill) {
   if (threadIdx.x == 0 && threadIdx.y == 0) {
     for (int i = 0; i < n; ++i) fill(i);
+  }
+}
+
+template <class Fill>
+inline void block_fill_2d(int rows, int cols, Fill fill) {
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int i = 0; i < rows; ++i) {
+      for (int j = 0; j < cols; ++j) fill(i, j);
+    }
   }
 }
 

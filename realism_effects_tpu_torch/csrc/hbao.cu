@@ -19,14 +19,18 @@
 // registers, the spp sample depths fetched straight from global memory
 // (neighbouring threads fetch neighbouring texels; L1/L2 serve them).
 // No window limit: the TPU's ky <= 64, kx <= 32 came from VMEM blocks
-// and lane groups.
+// and lane groups. Any spp: the noise shifts travel in the launch's
+// parameters, kChunk samples a launch; above kChunk the entry point
+// launches once a chunk, and each launch carries the running ao and
+// weight sums to the next through a (2, h, w) scratch in device memory,
+// so the samples are summed in the same order as in one launch.
 #include "common.cuh"
 
 namespace {
 
 using re::clampi;
 
-constexpr int kMaxSpp = 32;
+constexpr int kChunk = 32;  // samples a launch
 constexpr float kPi2 = 6.2831855f;  // float32(2 * pi)
 
 struct HbaoParams {
@@ -40,9 +44,11 @@ struct HbaoParams {
   float th;        // thickness * 0.01
   float inv_w;     // float32(1 / W)
   float inv_h;     // float32(1 / H)
-  int spp;
-  int sy[kMaxSpp];
-  int sx[kMaxSpp];
+  int n;          // samples of this launch, at most kChunk
+  int first;      // 1: the sums start at 0, else from the carry
+  int last;       // 1: write the AO, else the sums to the carry
+  int sy[kChunk];
+  int sx[kChunk];
 };
 
 __device__ __forceinline__ void tpoint(const float* m, float x, float y,
@@ -60,7 +66,8 @@ __device__ __forceinline__ void tpoint(const float* m, float x, float y,
 __global__ void hbao_kernel(const float* __restrict__ depth,
                             const float* __restrict__ normal,
                             const float* __restrict__ tile,
-                            float* __restrict__ ao_out, int h, int w, int ky,
+                            float* __restrict__ ao_out,
+                            float* __restrict__ carry, int h, int w, int ky,
                             int kx, const HbaoParams p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
@@ -90,9 +97,10 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
   const float ty_ = bz * nx - bx * nz;
   const float tz_ = bx * ny - by * nx;
 
-  float ao = 0.0f;
-  float tw = 0.0f;
-  for (int s = 0; s < p.spp; ++s) {
+  const size_t hw = static_cast<size_t>(h) * w;
+  float ao = p.first ? 0.0f : carry[pix];
+  float tw = p.first ? 0.0f : carry[hw + pix];
+  for (int s = 0; s < p.n; ++s) {
     const float* u = tile + (((y + p.sy[s]) & 127) * 128 + ((x + p.sx[s]) & 127)) * 4;
     const float u0 = u[0];
     const float u1 = u[1];
@@ -145,6 +153,11 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
     occl = sqrtf(fmaxf(10.0f * occl * m / fmaxf(dd, 1e-6f), 0.0f));
     ao = ao + (delta < p.th ? occl : 0.0f);
   }
+  if (!p.last) {
+    carry[pix] = ao;
+    carry[hw + pix] = tw;
+    return;
+  }
   ao = tw > 0.0f ? ao / tw : ao;
   ao = fminf(fmaxf(1.0f - ao, 0.0f), 1.0f);
   ao_out[pix] = d >= 1.0f ? 1.0f : ao;
@@ -154,12 +167,13 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
 
 // ---- host entry points ----
 // fparams (host): pmi[16] cmw[16] pv[16] cpos[3] dist pow1 bias th inv_w
-// inv_h; shifts (host): sy[spp] then sx[spp].
+// inv_h; shifts (host): sy[spp] then sx[spp]; carry: (2, h, w) float32
+// scratch, needed (and only read or written) when spp > 32.
 extern "C" int re_hbao(const float* depth, const float* normal,
-                       const float* tile, float* ao, int h, int w, int ky,
-                       int kx, int spp, const float* fparams,
+                       const float* tile, float* ao, float* carry, int h,
+                       int w, int ky, int kx, int spp, const float* fparams,
                        const int* shifts, void* stream) {
-  if (spp < 1 || spp > kMaxSpp) return cudaErrorInvalidValue;
+  if (spp < 1 || (spp > kChunk && carry == nullptr)) return cudaErrorInvalidValue;
   HbaoParams p;
   const float* f = fparams;
   for (int i = 0; i < 16; ++i) p.pmi[i] = *f++;
@@ -172,14 +186,21 @@ extern "C" int re_hbao(const float* depth, const float* normal,
   p.th = *f++;
   p.inv_w = *f++;
   p.inv_h = *f++;
-  p.spp = spp;
-  for (int s = 0; s < kMaxSpp; ++s) {
-    p.sy[s] = s < spp ? shifts[s] : 0;
-    p.sx[s] = s < spp ? shifts[spp + s] : 0;
-  }
   const dim3 block(128);
   const dim3 grid((w + 127) / 128, h);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hbao_kernel<<<grid, block, 0, s>>>(depth, normal, tile, ao, h, w, ky, kx, p);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int s0 = 0; s0 < spp; s0 += kChunk) {
+    p.n = spp - s0 < kChunk ? spp - s0 : kChunk;
+    p.first = s0 == 0;
+    p.last = s0 + kChunk >= spp;
+    for (int s = 0; s < kChunk; ++s) {
+      p.sy[s] = s < p.n ? shifts[s0 + s] : 0;
+      p.sx[s] = s < p.n ? shifts[spp + s0 + s] : 0;
+    }
+    hbao_kernel<<<grid, block, 0, st>>>(depth, normal, tile, ao, carry, h, w, ky,
+                                        kx, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }

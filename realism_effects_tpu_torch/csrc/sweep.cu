@@ -5,9 +5,9 @@
 //
 // Replaces ops/pallas/sweep.py::_sweep_kernel (sweep_march_vmem), whose
 // semantics are the jnp executor's (ops/ssgi_sweep.py:264-313). A ray in
-// bin d takes step k of the table row d * steps + k: texel offset
-// (dy, dx) and screen distance s. The step is live when the texel is in
-// the frame, denom = k_len - s * rwd > EPS, t_s = s * p2 / denom lies in
+// bin d takes step k of the table row d: texel offset (dy, dx) and
+// screen distance s. The step is live when the texel is in the frame,
+// denom = k_len - s * rwd > EPS, t_s = s * p2 / denom lies in
 // [0, ray_distance] and s <= s_end; it hits when z_d - (z0 + t_s * lz)
 // lies in [0, thickness). The first hit records (s, radii_prev[k], z_d)
 // and the radiance there; with miss_gi the radiance follows every live
@@ -17,43 +17,74 @@
 //
 // The TPU kernel evaluated all bins at every radius over a whole row slab
 // held in VMEM and selected each pixel's own bin; on the H100 a thread
-// per pixel walks its own bin only, ends at its hit, and reads just the
-// texels it needs (most of z and radiance, 25 MB at 1080p, stay in the
-// 50 MB L2). The (dirs * steps, 3) table and the radii sit in shared
-// memory: the bins of a warp's pixels differ, so __constant__ reads would
-// serialise. Bound by bytes: the 13 planes in, 12 B of floats + 1 B
-// flag + 8 B radiance a ray out.
+// per pixel walks its own bin only and ends at its hit. The first such
+// kernel (128 x 1 blocks, the table as (dirs * steps, 3) floats) was not
+// bound by bytes but by shared-memory bank conflicts: row d started at
+// float d * steps * 3, a multiple of the 32 banks at 32 steps, so the
+// lanes of a warp, in different bins at the same step, read one bank at
+// different addresses, and each of the three table loads of a step
+// replayed once per distinct bin of the warp. Design: the host packs the
+// table into one 16-byte record a step, (dy, dx) already truncated to
+// int32, s and radii_prev[k], in rows of an odd stride (steps rounded up
+// to odd), so one 128-bit load a step reads it and lanes in distinct
+// bins at the same step fall in distinct bank groups. A step's cheap
+// tests (in the frame, s <= s_end, denom > EPS) come before its IEEE
+// division, and its depth fetch goes out before the division, so the
+// two overlap. The radiance is read once a ray, at the last texel the
+// walk recorded, not at every live step. Blocks are 32 x 4 pixels. What
+// is left is issue: most rays miss and walk all their steps, more than
+// half the steps walked are live, and a live step costs some 45
+// instructions, the division's among them (chip_smoke.py prints the
+// shares). Sorting a tile's rays by bin would make a warp's lanes agree
+// on liveness only a little more often; fetching the next step's depth
+// a step ahead cost more than it hid.
+// The table sits in shared memory up to the card's opt-in limit (227 KB
+// on the H100; above 48 KB through the dynamic shared-memory opt-in); a
+// larger table is read from device memory by the same code. The
+// operation order of _t_of_s (ops/ssgi_sweep.py:90-98), the IEEE
+// division and the hit law are kept, so the result equals the plain
+// version bit for bit.
 #include "common.cuh"
 
 namespace {
 
 constexpr float kEps = 1e-6f;
 constexpr int kPlanesPerRay = 6;  // k_len, p2, rwd, lz, bin, s_end
+constexpr int kBX = 32;           // block: 32 x 4 pixels, one a thread
+constexpr int kBY = 4;
+
+// One step of the packed table.
+struct alignas(16) Step {
+  int dy, dx;
+  float s, s_lo;
+};
 
 struct SweepParams {
   float thickness, ray_distance;
-  int h, w, n_rays, dirs, steps, miss_gi;
+  int h, w, n_rays, dirs, steps, stride, miss_gi;
 };
 
 // z_tex (h, w) view z; rad (h, w) texels of 4 float16 (8 bytes) or null;
-// planes (1 + 6 * n_rays, h, w); table: (dirs * steps, 3) (dy, dx, s)
-// then radii_prev (steps). Out per ray: hit (h, w) u8, fout (3, h, w)
-// [s_hit, s_lo, z_d_hit], gi (h, w) texels.
-__global__ void sweep_kernel(const float* __restrict__ z_tex,
-                             const uint64_t* __restrict__ rad,
-                             const float* __restrict__ planes,
-                             const float* __restrict__ table,
-                             uint8_t* __restrict__ hit_out,
-                             float* __restrict__ fout,
-                             uint64_t* __restrict__ gi_out, SweepParams p) {
-  RE_DYNAMIC_SHARED(float, tab);
-  const int n_tab = p.dirs * p.steps * 3;
-  re::block_load(tab, table, n_tab + p.steps);
-  const float* radii_prev = tab + n_tab;
+// planes (1 + 6 * n_rays, h, w); table (dirs, stride) Steps, of which
+// the first `steps` of each row are used. Out per ray: hit (h, w) u8,
+// fout (3, h, w) [s_hit, s_lo, z_d_hit], gi (h, w) texels.
+template <bool kShared>
+__global__ void __launch_bounds__(kBX * kBY)
+sweep_kernel(const float* __restrict__ z_tex, const uint64_t* __restrict__ rad,
+             const float* __restrict__ planes, const Step* __restrict__ table,
+             uint8_t* __restrict__ hit_out, float* __restrict__ fout,
+             uint64_t* __restrict__ gi_out, SweepParams p) {
+  const Step* tab = table;
+  if constexpr (kShared) {
+    RE_DYNAMIC_SHARED(Step, s_tab);
+    re::block_load(reinterpret_cast<float*>(s_tab),
+                   reinterpret_cast<const float*>(table), p.dirs * p.stride * 4);
+    tab = s_tab;
+  }
 
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= p.w) return;
+  const int x = blockIdx.x * kBX + threadIdx.x;
+  const int y = blockIdx.y * kBY + threadIdx.y;
+  if (x >= p.w || y >= p.h) return;
   const size_t hw = static_cast<size_t>(p.h) * p.w;
   const size_t pix = static_cast<size_t>(y) * p.w + x;
   const float z0 = planes[pix];
@@ -69,30 +100,31 @@ __global__ void sweep_kernel(const float* __restrict__ z_tex,
 
     bool hit = false;
     float s_hit = 0.0f, s_lo = 0.0f, z_d_hit = 0.0f;
-    uint64_t gi = 0;
+    size_t q_gi = hw;  // the texel whose radiance the ray returns; none
     if (bin >= 0.0f && bin < static_cast<float>(p.dirs) && bin == floorf(bin)) {
-      const float* row = tab + static_cast<int>(bin) * p.steps * 3;
+      const Step* row = tab + static_cast<int>(bin) * p.stride;
       for (int k = 0; k < p.steps; ++k) {
-        const int yy = y + static_cast<int>(row[3 * k]);
-        const int xx = x + static_cast<int>(row[3 * k + 1]);
+        const Step e = row[k];
+        const int yy = y + e.dy;
+        const int xx = x + e.dx;
         if (yy < 0 || yy >= p.h || xx < 0 || xx >= p.w) continue;
-        const float s = row[3 * k + 2];
-        // _t_of_s (ops/ssgi_sweep.py:90-98), in its operation order
+        // _t_of_s (ops/ssgi_sweep.py:90-98) in its operation order; the
+        // cheap tests first, and with denom > EPS its safe denominator is
+        // denom itself. The depth fetch goes out before the division.
+        const float s = e.s;
         const float denom = k_len - s * rwd;
-        const float t_s = s * p2 / (fabsf(denom) > kEps ? denom : kEps);
-        if (!(denom > kEps && t_s >= 0.0f && t_s <= p.ray_distance &&
-              s <= s_end)) {
-          continue;
-        }
+        if (!(s <= s_end && denom > kEps)) continue;
         const size_t q = static_cast<size_t>(yy) * p.w + xx;
         const float z_d = z_tex[q];
+        const float t_s = s * p2 / denom;
+        if (!(t_s >= 0.0f && t_s <= p.ray_distance)) continue;
         const float diff = z_d - (z0 + t_s * lz);
         const bool cond = diff >= 0.0f && diff < p.thickness;
-        if (rad != nullptr && (cond || p.miss_gi)) gi = rad[q];
+        if (cond || p.miss_gi) q_gi = q;
         if (cond) {
           hit = true;
           s_hit = s;
-          s_lo = radii_prev[k];
+          s_lo = e.s_lo;
           z_d_hit = z_d;
           break;
         }
@@ -103,22 +135,39 @@ __global__ void sweep_kernel(const float* __restrict__ z_tex,
     fo[0] = s_hit;
     fo[hw] = s_lo;
     fo[2 * hw] = z_d_hit;
-    if (gi_out != nullptr) gi_out[r * hw + pix] = gi;
+    if (gi_out != nullptr) gi_out[r * hw + pix] = q_gi < hw ? rad[q_gi] : 0;
   }
+}
+
+template <bool kShared>
+int launch(const float* z_tex, const uint64_t* rad, const float* planes,
+           const Step* table, uint8_t* hit, float* fout, uint64_t* gi,
+           size_t smem, const SweepParams& p, cudaStream_t st) {
+  if (kShared && smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 block(kBX, kBY);
+  const dim3 grid((p.w + kBX - 1) / kBX, (p.h + kBY - 1) / kBY);
+  sweep_kernel<kShared><<<grid, block, kShared ? smem : 0, st>>>(
+      z_tex, rad, planes, table, hit, fout, gi, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // ---- host entry point ----
-// fparams (host): thickness, ray_distance. rad and gi are both null for
-// a march without radiance.
+// table: (dirs, stride) packed Steps (int32 dy, int32 dx, float s, float
+// radii_prev[k]), stride >= steps; fparams (host): thickness,
+// ray_distance. rad and gi are both null for a march without radiance.
 extern "C" int re_sweep(const float* z_tex, const void* rad,
-                        const float* planes, const float* table,
+                        const float* planes, const void* table,
                         uint8_t* hit, float* fout, void* gi, int h, int w,
-                        int n_rays, int dirs, int steps, int miss_gi,
-                        const float* fparams, void* stream) {
-  const size_t smem = (static_cast<size_t>(dirs) * steps * 3 + steps) * sizeof(float);
-  if (n_rays < 1 || dirs < 1 || steps < 1 || smem > 48 * 1024 ||
+                        int n_rays, int dirs, int steps, int stride,
+                        int miss_gi, const float* fparams, void* stream) {
+  if (n_rays < 1 || dirs < 1 || steps < 1 || stride < steps ||
       (rad == nullptr) != (gi == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -130,12 +179,22 @@ extern "C" int re_sweep(const float* z_tex, const void* rad,
   p.n_rays = n_rays;
   p.dirs = dirs;
   p.steps = steps;
+  p.stride = stride;
   p.miss_gi = miss_gi;
-  const dim3 block(128);
-  const dim3 grid((w + 127) / 128, h);
+  const size_t smem = static_cast<size_t>(dirs) * stride * sizeof(Step);
+  int dev = 0;
+  int optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const auto* zr = static_cast<const uint64_t*>(rad);
+  const auto* tb = static_cast<const Step*>(table);
+  auto* go = static_cast<uint64_t*>(gi);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sweep_kernel<<<grid, block, smem, st>>>(
-      z_tex, static_cast<const uint64_t*>(rad), planes, table, hit, fout,
-      static_cast<uint64_t*>(gi), p);
-  return cudaGetLastError();
+  if (smem <= static_cast<size_t>(optin)) {
+    return launch<true>(z_tex, zr, planes, tb, hit, fout, go, smem, p, st);
+  }
+  return launch<false>(z_tex, zr, planes, tb, hit, fout, go, smem, p, st);
 }

@@ -7,7 +7,11 @@ are those of ``ops/ao.py::hbao`` with the window-clamped sampling radius
 directions from the blue-noise tile, the projected sample, its depth
 fetched nearest within +-ky rows / +-kx columns, and the horizon
 occlusion integral. The port's kernel takes any window (the TPU's
-ky <= 64, kx <= 32 were VMEM and lane limits).
+ky <= 64, kx <= 32 were VMEM and lane limits) and any spp: the noise
+shifts ride in the launch's parameters 32 samples at a time, and above
+32 samples the kernel is launched once a chunk of 32 with the running
+sums carried between launches in a (2, H, W) scratch, in the same
+summation order as one launch.
 
 On the H100 the kernel is bound by operations (per sample: sin, cos,
 exp, log, three sqrt, two rsqrt, two divisions) against 20 bytes a pixel.
@@ -25,8 +29,8 @@ import torch
 from ..core.rng import blue_noise_tile_tensor, noise_shift
 from . import cuda_build
 
-MAX_SPP = 32
 _PI2 = float(np.float32(2.0 * math.pi))
+_CHUNK = 32  # samples a launch takes (csrc/hbao.cu kChunk)
 
 
 def sample_indices(spp: int, frame: int, animated: bool) -> list[int]:
@@ -166,21 +170,24 @@ hbao_fused.launches = 0
 
 def _launch(depth, normal, cam, frame, cfg):
     h, w = depth.shape
-    if not 1 <= cfg.spp <= MAX_SPP:
-        raise ValueError(f"spp must be in [1, {MAX_SPP}], not {cfg.spp}")
+    if cfg.spp < 1:
+        raise ValueError(f"spp must be at least 1, not {cfg.spp}")
     depth = depth.contiguous()
     normal = normal.contiguous()
     tile = blue_noise_tile_tensor(depth.device)
     cuda_build.require_cuda(depth, normal, tile)
     ao = torch.empty_like(depth)
+    carry = (torch.empty((2, h, w), dtype=torch.float32, device=depth.device)
+             if cfg.spp > _CHUNK else None)
     fparams = _host_params(cam, cfg, h, w)
     shifts = [noise_shift(i) for i in
               sample_indices(cfg.spp, frame, cfg.animated_noise)]
     ishifts = np.array([s[0] for s in shifts] + [s[1] for s in shifts],
                        np.int32)
-    fn = cuda_build.bind("hbao", "re_hbao", 4, 5, 2)
+    fn = cuda_build.bind("hbao", "re_hbao", 5, 5, 2)
     err = fn(depth.data_ptr(), normal.data_ptr(), tile.data_ptr(),
-             ao.data_ptr(), h, w, int(cfg.window_ky), int(cfg.window_kx),
+             ao.data_ptr(), None if carry is None else carry.data_ptr(), h, w,
+             int(cfg.window_ky), int(cfg.window_kx),
              int(cfg.spp), fparams.ctypes.data, ishifts.ctypes.data,
              cuda_build.stream_ptr(depth))
     cuda_build.check(err, "hbao kernel")

@@ -12,9 +12,15 @@ texel whose channel 0 is negative, or that lies outside the frame,
 counts as +1e30 (min) / -1e30 (max). The seeding with the pixel's own
 input colour stays with the caller.
 
-On the H100 the kernel is bound by bytes (C floats in, 2C out a pixel;
-window re-reads hit L1/L2). One thread per pixel with direct loads; the
-result equals the plain version bit for bit.
+On the H100 a thread a pixel with direct loads was bound by instruction
+issue (25 taps of 4 loads and 8 NaN-checked min/max a pixel at r = 2),
+not by bytes. The kernel takes the window as a row pass over a 32 x 16
+tile and its r-halo rows into shared memory, with the validity rule
+folded in as each texel is loaded, and a column pass (2(2r+1)
+comparisons a channel, not (2r+1)^2). Any radius runs: the row pass is
+sized from r, and above the card's opt-in shared-memory limit the
+kernel loads each tap directly. The result equals the plain version bit
+for bit.
 
 ``sharpness_3x3``: edge-replicated 3x3 box blur, then
 ``max(c + (c - blur) * s, 0)``, in the arithmetic of the JAX package's

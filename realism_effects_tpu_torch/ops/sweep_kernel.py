@@ -21,7 +21,12 @@ Inputs (``ops/ssgi_sweep.py`` builds them):
 Per ray it returns (hit bool, s_hit, s_lo, z_d_hit, gi (H, W, 4) float16
 or None); a ray that never hits keeps zeros.
 
-On the H100 the kernel is bound by bytes; see the source for its design.
+The kernel reads the table as :func:`packed_table` lays it out: one
+16-byte record a step, rows of an odd stride. A table of any size runs:
+in shared memory up to the card's opt-in limit (227 KB on the H100),
+from device memory above it. On the H100 the first kernel was held back
+by shared-memory bank conflicts on the table, not by bytes; see the
+source for the design that removes them.
 """
 
 from __future__ import annotations
@@ -33,7 +38,6 @@ from . import cuda_build
 
 EPS = 1e-6
 _PLANES_PER_RAY = 6
-_MAX_TABLE_FLOATS = 48 * 1024 // 4  # the kernel's shared-memory table
 
 
 def _split_planes(planes, r):
@@ -112,12 +116,26 @@ def sweep_march(z_tex, radiance, planes, table, radii_prev, thickness,
 sweep_march.launches = 0
 
 
-def host_table(table, radii_prev, device) -> torch.Tensor:
-    """The packed [table | radii_prev] float32 the kernel reads, copied to
-    a CUDA ``device`` without blocking the host (through pinned memory)."""
-    tab = torch.from_numpy(np.concatenate(
-        [np.asarray(table, np.float32).reshape(-1),
-         np.asarray(radii_prev, np.float32)]))
+def packed_table(table, radii_prev, dirs: int, steps: int) -> np.ndarray:
+    """The (dirs, stride, 4) int32 table the kernel reads: per step
+    (dy, dx) truncated to int32 as the plain version does, then the
+    float32 bits of s and of radii_prev[k]; ``stride`` is ``steps``
+    rounded up to odd, so that rows of different bins start in different
+    shared-memory bank groups."""
+    tab = np.asarray(table, np.float32).reshape(dirs, steps, 3)
+    stride = steps | 1
+    out = np.zeros((dirs, stride, 4), np.int32)
+    out[:, :steps, 0] = tab[..., 0].astype(np.int32)
+    out[:, :steps, 1] = tab[..., 1].astype(np.int32)
+    out[:, :steps, 2] = tab[..., 2].view(np.int32)
+    out[:, :steps, 3] = np.asarray(radii_prev, np.float32).view(np.int32)[None]
+    return out
+
+
+def host_table(table, radii_prev, dirs: int, steps: int, device) -> torch.Tensor:
+    """:func:`packed_table` copied to a CUDA ``device`` without blocking
+    the host (through pinned memory)."""
+    tab = torch.from_numpy(packed_table(table, radii_prev, dirs, steps))
     if torch.device(device).type != "cuda":
         return tab
     return tab.pin_memory().to(device, non_blocking=True)
@@ -133,9 +151,6 @@ def _launch(z_tex, radiance, planes, table, radii_prev, thickness,
             np.asarray(radii_prev).shape != (steps,):
         raise ValueError("the step table must be (dirs * steps, 3) and "
                          "radii_prev (steps,)")
-    if dirs * steps * 3 + steps > _MAX_TABLE_FLOATS:
-        raise ValueError(f"a {dirs} x {steps} table exceeds the kernel's "
-                         "48 KB of shared memory")
     tensors = [z_tex.contiguous(), planes.contiguous()]
     if radiance is not None:
         if tuple(radiance.shape) != (h, w, 4) or radiance.dtype != torch.float16:
@@ -143,18 +158,18 @@ def _launch(z_tex, radiance, planes, table, radii_prev, thickness,
         tensors.append(radiance.contiguous())
     cuda_build.require_cuda(*tensors)
     dev = z_tex.device
-    tab = host_table(table, radii_prev, dev)
+    tab = host_table(table, radii_prev, dirs, steps, dev)
     hit = torch.empty((n_rays, h, w), dtype=torch.bool, device=dev)
     fout = torch.empty((n_rays, 3, h, w), dtype=torch.float32, device=dev)
     gi = (None if radiance is None else
           torch.empty((n_rays, h, w, 4), dtype=torch.float16, device=dev))
     fparams = np.array([thickness, ray_distance], np.float32)
-    fn = cuda_build.bind("sweep", "re_sweep", 7, 6, 1)
+    fn = cuda_build.bind("sweep", "re_sweep", 7, 7, 1)
     err = fn(tensors[0].data_ptr(), None if gi is None else tensors[2].data_ptr(),
              tensors[1].data_ptr(), tab.data_ptr(), hit.data_ptr(),
              fout.data_ptr(), None if gi is None else gi.data_ptr(), h, w,
-             n_rays, dirs, steps, int(miss_gi), fparams.ctypes.data,
-             cuda_build.stream_ptr(z_tex))
+             n_rays, dirs, steps, tab.shape[1], int(miss_gi),
+             fparams.ctypes.data, cuda_build.stream_ptr(z_tex))
     cuda_build.check(err, "sweep kernel")
     return [(hit[r], fout[r, 0], fout[r, 1], fout[r, 2],
              None if gi is None else gi[r]) for r in range(n_rays)]

@@ -59,8 +59,12 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 inline int cudaGetLastError() { return 0; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+// the H100's opt-in limit, 227 KB
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
 struct __half { unsigned short b; };
@@ -152,7 +156,7 @@ def test_warp_source(host_kernels, mode, kx, c):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", [1, 2, 5])
 def test_minmax_source(host_kernels, radius):
     tex = _warp_inputs(4, seed=radius)[0].clone()
     tex[..., 0][torch.rand(tex.shape[:2], generator=torch.Generator().manual_seed(0)) < 0.3] = -1.0
@@ -160,6 +164,42 @@ def test_minmax_source(host_kernels, radius):
     got = stencil._launch(tex, radius)
     want = stencil.neighborhood_minmax_plain(tex, radius)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _same(a, b):
+    """Equal values, NaN where the other is NaN (a NaN's bits may differ)."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and \
+        torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("radius,c,misaligned", [
+    (1, 4, False), (2, 4, True), (2, 3, False), (5, 4, False), (49, 8, False)])
+def test_minmax_source_planted(host_kernels, radius, c, misaligned):
+    """Masked texels (channel 0 < 0) and NaN texels, in channel 0 (so
+    masked) and in the others (so propagated to every window that holds
+    them), on a 37 x 61 frame that the 32 x 16 tiles do not divide. At
+    r = 49 and 8 channels the row pass would need more than the card's
+    227 KB opt-in limit of shared memory, and the taps are loaded
+    directly; a texel array that starts 4 bytes past a 16-byte boundary
+    is read without vector loads."""
+    h, w = 37, 61
+    rng = np.random.default_rng(10 * radius + c)
+    tex = rng.normal(size=(h, w, c)).astype(np.float32)
+    tex[..., 0][rng.random((h, w)) < 0.2] = -1.0
+    tex[6:9, 40:52, 0] = -3.0
+    tex[rng.integers(0, h, 4), rng.integers(0, w, 4), 0] = np.nan
+    iy, ix = rng.integers(0, h, 3), rng.integers(0, w, 3)
+    tex[iy, ix, 0] = 0.5
+    tex[iy, ix, c - 1] = np.nan
+    t = torch.tensor(tex)
+    if misaligned:
+        buf = torch.empty(t.numel() + 1)
+        t = buf[1:].view(h, w, c).copy_(t)
+        assert t.data_ptr() % 16 != 0
+    got = stencil._launch(t, radius)
+    want = stencil.neighborhood_minmax_plain(t, radius)
+    assert bool(torch.isnan(want[0]).any()) and not bool(torch.isnan(want[0]).all())
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
 
 
 @pytest.mark.parametrize("c,s", [(3, 1.0), (3, 0.75), (1, 2.5)])
@@ -216,8 +256,11 @@ def _surface(h, w, seed):
 
 @pytest.mark.parametrize("cfg", [
     AOConfig(distance=0.3),
-    AOConfig(spp=3, window_ky=4, window_kx=3, animated_noise=False)])
+    AOConfig(spp=3, window_ky=4, window_kx=3, animated_noise=False),
+    AOConfig(spp=40, distance=0.3)])
 def test_hbao_source(host_kernels, cfg):
+    """Two configurations of one launch, and spp 40: two launches, the
+    second going on from the sums the first carried."""
     h, w = 48, 80
     depth, nrm = _surface(h, w, 1)
     cam = PerspectiveCamera(50, w / h, 0.1, 80)
@@ -282,11 +325,12 @@ def test_poisson_source_staged(host_kernels, slots, spec, radius):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("miss_gi", [False, True])
-def test_sweep_source(host_kernels, miss_gi):
+def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
     """The march over a real frame's rays (the analytic scene with the
     sphere, two random ray sets, stochastic bins), with a NaN bin and an
-    out-of-range bin planted."""
+    out-of-range bin planted, through the kernel's source and the plain
+    version. ``short_ends``: the rays of a third of the pixels end at a
+    screen distance s_end in [0, 30) pixels, and one at NaN."""
     h, w = 36, 64
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
     gb = analytic.frames_for(cam, 1, h, w, "cpu", first=3, sphere=True)[0][0]
@@ -303,11 +347,17 @@ def test_sweep_source(host_kernels, miss_gi):
                                  dtype=torch.float32))
     noise = torch.tensor(rng.random((h, w)), dtype=torch.float32)
     z_tex, planes, table, radii_prev, _ = ssgi_sweep.march_inputs(
-        view_pos, rays, gb.depth, m, 5, 10.0, bin_noise=noise)
+        view_pos, rays, gb.depth, m, 5, 10.0, dirs, steps, bin_noise=noise)
     planes[5, 3, 7] = float("nan")
-    planes[11, 4, 9] = 16.0
+    planes[11, 4, 9] = float(dirs)
+    if short_ends:
+        for plane in (6, 12):
+            cut = torch.tensor(rng.random((h, w)) < 1 / 3)
+            ends = torch.tensor(rng.uniform(0, 30, (h, w)), dtype=torch.float32)
+            planes[plane] = torch.where(cut, ends, planes[plane])
+        planes[6, 20, 30] = float("nan")
     rad = torch.tensor(rng.uniform(0, 3, (h, w, 4)), dtype=torch.float16)
-    args = (z_tex, rad, planes, table, radii_prev, 10.0, 10.0, 2, 16, 32,
+    args = (z_tex, rad, planes, table, radii_prev, 10.0, 10.0, 2, dirs, steps,
             miss_gi)
     got = sweep_kernel._launch(*args)
     want = sweep_kernel.sweep_march_plain(*args)
@@ -315,6 +365,31 @@ def test_sweep_source(host_kernels, miss_gi):
     for g, wnt in zip(got, want):
         for a, b in zip(g, wnt):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("miss_gi", [False, True])
+def test_sweep_source(host_kernels, miss_gi):
+    """The flagship's 16 x 32 table."""
+    _sweep_case(miss_gi)
+
+
+@pytest.mark.parametrize("miss_gi", [False, True])
+def test_sweep_source_short_ends(host_kernels, miss_gi):
+    """Rays that end on the screen (s_end) before the table does."""
+    _sweep_case(miss_gi, short_ends=True)
+
+
+@pytest.mark.parametrize("dirs,steps,miss_gi", [
+    (32, 128, False), (32, 128, True), (64, 304, True)])
+def test_sweep_source_large_table(host_kernels, dirs, steps, miss_gi):
+    """A 32 x 128 table (12,416 floats as (dy, dx, s) + radii, 66 KB as
+    the kernel packs it: over 48 KB, through the shared-memory opt-in)
+    and a 64 x 304 one (312 KB packed, over the card's 227 KB opt-in
+    limit: read from device memory)."""
+    packed = sweep_kernel.packed_table(
+        *ssgi_sweep.step_table(5, 36, 64, dirs, steps, 1.5)[:2], dirs, steps)
+    assert (packed.nbytes > 48 * 1024) and ((packed.nbytes > 232448) == (dirs == 64))
+    _sweep_case(miss_gi, dirs, steps)
 
 
 def _flagship_table(h, w, eye, target, face_keep=False):
