@@ -20,10 +20,14 @@ Phases (any failure raises and the script exits non-zero):
    route; sharpness frame 1's lit colour. More checks print on their
    own lines: the z-scan on a tie-heavy synthetic table at 1080p (0
    winner flips, exact z); both Poisson passes at radius 12, where taps
-   leave the kernel's staged halo; minmax at r=1 (exact); HBAO at spp 40,
-   two launches with the sums carried (tol 2e-4); the sweep over a 32 x
-   128 table (in shared memory through the opt-in) and a 64 x 304 one
-   (above the opt-in limit, read from device memory), both exact.
+   leave the kernel's staged halo; minmax at r=1 (exact); HBAO's noise
+   table against torch's libm (tol 2e-5), HBAO timed at spp 1, 8 and
+   32, at spp 40 (two launches with the sums carried) and at a second distance and power (its own noise
+   table), both tol 2e-4; the record fetch on both records of the frame,
+   the G-buffer's (the entry's numbers) and the velocity's, each exact
+   and timed with its library call; the sweep over a 32 x 128 table (in
+   shared memory through the opt-in) and a 64 x 304 one (above the
+   opt-in limit, read from device memory), both exact.
 3. Run the five paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
@@ -41,7 +45,8 @@ Phases (any failure raises and the script exits non-zero):
    route (``analytic.unfused()``). The launch counters are set to 0 just
    before each path and read just after: each path must have launched
    each of its kernels (and the unfused path neither the fused HBAO nor
-   the fused one-texture Poisson kernel), and every kernel in the
+   the fused one-texture Poisson kernel, and no path HBAO's noise-table
+   kernel, whose table is built once per setting), and every kernel in the
    ``kernels`` line launches on at least one path. Then a 3-frame run of
    each path at 270x480 must agree with the same composer on the CPU.
 4. Print the ``kernels`` JSON line, then the device JSON line last.
@@ -103,7 +108,8 @@ UNFUSED_SLICE_MAX_TOL = 1e-2
 # min/max, division, square root and transcendental is one operation
 # (a lower bound: libm's sinf/expf/logf take tens of instructions).
 HBAO_OPS_SETUP = 61       # uv, ndc, two transform_points, the basis
-HBAO_OPS_SAMPLE = 135     # direction, projection, fetch index, integral
+HBAO_OPS_SAMPLE = 122     # direction, projection, fetch index, integral
+HBAO_OPS_NOISE = 13       # per blue-noise texel: the cosine draw and distance
 POISSON_OPS_SETUP = 90    # 3 normal decodes, flatness, noise angle
 POISSON_OPS_TAP = 45      # offsets, snap, normal decode, edge weights
 POISSON_OPS_TAP_SLOT = 45  # per slot: unpack, logs, luma, age blend
@@ -280,19 +286,42 @@ def check_kernels(torch, analytic, timer, frames, results):
     p = hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg)
     err = maxerr(k, p)
     tile = 128 * 128 * 4 * 4
+    # the noise table (k1, k2, k3, dist) against torch's libm on the card
+    noise = hbao_kernel.noise_table("cuda", cfg.distance, cfg.distance_power + 1.0)
+    err_noise = maxerr(noise, hbao_kernel.noise_table_plain(
+        hbao_kernel.blue_noise_tile_tensor("cuda"), cfg.distance,
+        cfg.distance_power + 1.0))
+    print(f"[check] hbao noise table vs torch: max abs error {err_noise} (tol 2e-5); "
+          f"table kernel launches so far {hbao_kernel.noise_table.launches}", flush=True)
+    if not err_noise <= 2e-5:
+        raise AssertionError(f"hbao noise table: {err_noise} > 2e-5")
+    # operations: the pixels in front of the background (a background
+    # pixel's AO is 1 whatever its samples) and the noise once a texel
+    fg = int((gb.depth < 1.0).sum())
+    print(f"[kernel] hbao: {fg} of {h * w} pixels in front of the background",
+          flush=True)
+    # the cost of a sample: the time at 1, 8 and 32 samples a pixel
+    by_spp = {n: timer(lambda: hbao_kernel._launch(
+        gb.depth, gb.normal, mats, 1, dataclasses.replace(cfg, spp=n))) for n in (1, 8, 32)}
+    print(f"[check] hbao ms by spp: {json.dumps(by_spp)}; a sample "
+          f"{(by_spp[32] - by_spp[1]) / 31} ms", flush=True)
     results.add("hbao", "hbao.cu", "realism_effects_tpu/ops/pallas/hbao.py:58",
                 err, 2e-4,
                 timer(lambda: hbao_kernel._launch(gb.depth, gb.normal, mats, 1, cfg)),
                 timer(lambda: hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg)),
                 gb.depth.nbytes + gb.normal.nbytes + tile + k.nbytes,
-                h * w * (HBAO_OPS_SETUP + cfg.spp * HBAO_OPS_SAMPLE))
-    # spp 40: two launches of 32 and 8 samples, the sums carried between
-    cfg40 = dataclasses.replace(cfg, spp=40)
-    err40 = maxerr(hbao_kernel._launch(gb.depth, gb.normal, mats, 1, cfg40),
-                   hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg40))
-    print(f"[check] hbao at spp 40: max abs error {err40} (tol 2e-4)", flush=True)
-    if not err40 <= 2e-4:
-        raise AssertionError(f"hbao at spp 40: {err40} > 2e-4")
+                fg * (HBAO_OPS_SETUP + cfg.spp * HBAO_OPS_SAMPLE)
+                + 128 * 128 * HBAO_OPS_NOISE)
+    # spp 40: two launches of 32 and 8 samples, the sums carried between;
+    # then a second distance and power: its own noise table
+    for label, cfg2 in (("spp 40", dataclasses.replace(cfg, spp=40)),
+                        ("distance 1.7, power 2.5",
+                         dataclasses.replace(cfg, distance=1.7, distance_power=2.5))):
+        err2 = maxerr(hbao_kernel._launch(gb.depth, gb.normal, mats, 1, cfg2),
+                      hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, cfg2))
+        print(f"[check] hbao at {label}: max abs error {err2} (tol 2e-4)", flush=True)
+        if not err2 <= 2e-4:
+            raise AssertionError(f"hbao at {label}: {err2} > 2e-4")
 
     # Poisson AO pass: one scalar slot, radius 3
     ao_tex = torch.cat([k[..., None].expand(h, w, 3), torch.zeros_like(k)[..., None]], -1)
@@ -668,23 +697,32 @@ def check_raster_kernels(torch, analytic, timer, results):
                 timer(lambda: raster_kernel.zscan_plain(tab, h, w)),
                 tab.nbytes + z_k.nbytes + ids_k.nbytes, _zscan_ops(tab, h, w))
 
-    # record fetch: G-buffer record (timed) and velocity record
-    (gtab, gids), (vtab, vids) = captured["lookup"][:2]
-    errs = []
-    for t, i in ((gtab, gids), (vtab, vids)):
+    # record fetch: the G-buffer record (the entry's numbers) and the
+    # velocity record, each exact and each timed with its library call
+    records = []
+    for t, i in captured["lookup"][:2]:
         k = table_kernel.face_lookup(t, i)
-        errs.append(maxerr(k, table_kernel.face_lookup_plain(t, i)))
-    r, l = table_kernel._indices(gtab, gids)
-    if maxerr(gtab[r, l], table_kernel._launch(gtab, gids)) != 0.0:
-        raise AssertionError("lookup disagrees with table[r, l]")
-    print(f"[kernel] lookup: G-buffer record {gtab.shape[-1]} floats, velocity "
-          f"record {vtab.shape[-1]} floats; errors {errs}", flush=True)
-    out_bytes = gids.numel() * gtab.shape[-1] * 4
+        err = maxerr(k, table_kernel.face_lookup_plain(t, i))
+        r, l = table_kernel._indices(t, i)
+        if maxerr(t[r, l], k) != 0.0:
+            raise AssertionError("lookup disagrees with table[r, l]")
+        bound_ms, bound_by = _bound(t.nbytes + i.nbytes + k.nbytes, 0)
+        rec = dict(k=t.shape[-1], max_abs_err=err,
+                   ms=timer(lambda: table_kernel._launch(t, i)),
+                   plain_ms=timer(lambda: table_kernel.face_lookup_plain(t, i)),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=timer(lambda: t[r, l]))
+        print(f"[kernel] lookup, {rec['k']}-float record: {json.dumps(rec)}", flush=True)
+        if not err <= 0.0:
+            raise AssertionError(f"lookup, {rec['k']}-float record: {err} > 0.0")
+        records.append(rec)
+    (gtab, gids), _ = captured["lookup"][:2]
+    g = records[0]
     results.add("lookup", "table.cu", "realism_effects_tpu/ops/pallas/table.py:44",
-                max(errs), 0.0, timer(lambda: table_kernel._launch(gtab, gids)),
-                timer(lambda: table_kernel.face_lookup_plain(gtab, gids)),
-                gtab.nbytes + gids.nbytes + out_bytes, 0,
-                library_ms=timer(lambda: gtab[r, l]))
+                g["max_abs_err"], 0.0, g["ms"], g["plain_ms"],
+                gtab.nbytes + gids.nbytes + gids.numel() * gtab.shape[-1] * 4, 0,
+                library_ms=g["library_ms"])
+    results[-1]["records"] = records
 
 
 def counters():
@@ -706,6 +744,8 @@ def counters():
         "warp_multi": warp.window_warp_multi.launches,
         "poisson_taps": poisson_taps.poisson_taps.launches,
         "sharpness": stencil.sharpness_3x3.launches,
+        # HBAO's noise table: built once per distance and power, not a frame
+        "hbao_noise": hbao_kernel.noise_table.launches,
     }
 
 
@@ -719,6 +759,7 @@ def reset_counters():
         warp.window_warp.mode_launches[m] = 0
     stencil.neighborhood_minmax.launches = 0
     hbao_kernel.hbao_fused.launches = 0
+    hbao_kernel.noise_table.launches = 0
     poisson_kernel.poisson_pass_fused.launches = 0
     for n in poisson_kernel.poisson_pass_fused.tex_launches:
         poisson_kernel.poisson_pass_fused.tex_launches[n] = 0
@@ -748,7 +789,7 @@ def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
     for k in kernels:
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched on the {name} path")
-    for k in forbidden:
+    for k in (*forbidden, "hbao_noise"):
         if launches[k] != 0:
             raise AssertionError(f"{k} launched on the {name} path")
     for img in images:

@@ -9,6 +9,11 @@ namespace re {
 
 constexpr float kBig = 1e30f;
 
+// Four floats that move in one 16-byte load or store.
+struct alignas(16) F4 {
+  float v[4];
+};
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }

@@ -13,11 +13,23 @@
 // Noise of sample s is tile[(y + sy_s) % 128, (x + sx_s) % 128],
 // channels 0..2, with the shifts computed on the host.
 //
-// On the H100 this kernel is bound by operations, not bytes: 20 bytes a
-// pixel against, per sample, sin, cos, exp, log, three sqrt, two rsqrt
-// and two divisions. Design: one thread per pixel, everything in
-// registers, the spp sample depths fetched straight from global memory
-// (neighbouring threads fetch neighbouring texels; L1/L2 serve them).
+// On the H100 this kernel is bound by instruction issue, not bytes (20
+// bytes a pixel). A sample's cosine draw (sqrt, sin, cos, sqrt and
+// exp(log) of libm) depends on its tile texel and two launch constants
+// only, and drawing it per sample more than doubled the loop's
+// instructions. Design: a noise table. hbao_noise_kernel
+// computes, once per tile texel, the float4 (k1, k2, k3, dist) with the
+// same expressions and libm calls, so each value is the same function of
+// the same bits (the wrapper keeps the 256 KB table per distance and
+// power, so a frame launches nothing more); the per-sample loop reads one
+// float4 of it at the texel it read before (L2 holds it, a warp reads 512
+// consecutive bytes) and keeps the rest in its order: the basis products,
+// rsqrt, the projection with its two IEEE divisions, the clamps, the
+// depth fetch, the integral. A background pixel (depth >= 1), whose AO
+// is 1 whatever its samples, stops after its depth load (a fifth of the
+// flagship frame; its carry is never read). One thread per pixel,
+// everything in registers, 128 x 1 blocks (2D blocks, whose rows share
+// the sample-depth gathers' L1 lines, measured no faster).
 // No window limit: the TPU's ky <= 64, kx <= 32 came from VMEM blocks
 // and lane groups. Any spp: the noise shifts travel in the launch's
 // parameters, kChunk samples a launch; above kChunk the entry point
@@ -38,8 +50,6 @@ struct HbaoParams {
   float cmw[16];   // camera_matrix_world
   float pv[16];    // projection_view_matrix
   float cpos[3];   // camera position
-  float dist;      // distance
-  float pow1;      // distance_power + 1
   float bias;      // bias (scaled by 1000 in the kernel)
   float th;        // thickness * 0.01
   float inv_w;     // float32(1 / W)
@@ -63,9 +73,30 @@ __device__ __forceinline__ void tpoint(const float* m, float x, float y,
   oz = r2 / r3;
 }
 
+// One float4 per blue-noise texel: (k1, k2, k3, dist) of the cosine
+// draw, r = sqrt(u0), theta = 2 pi u1: k1 = r sin(theta), k2 =
+// sqrt(max(1 - u0, 0)), k3 = r cos(theta), dist = distance * u2^pow1.
+__global__ void hbao_noise_kernel(const float* __restrict__ tile,
+                                  re::F4* __restrict__ table, float dist_k,
+                                  float pow1) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 128 * 128) return;
+  const float u0 = tile[4 * i];
+  const float u1 = tile[4 * i + 1];
+  const float u2 = tile[4 * i + 2];
+  const float r_ = sqrtf(u0);
+  const float theta = u1 * kPi2;
+  re::F4 v;
+  v.v[0] = r_ * sinf(theta);
+  v.v[1] = sqrtf(fmaxf(1.0f - u0, 0.0f));
+  v.v[2] = r_ * cosf(theta);
+  v.v[3] = dist_k * re::pow_el(u2, pow1);
+  table[i] = v;
+}
+
 __global__ void hbao_kernel(const float* __restrict__ depth,
                             const float* __restrict__ normal,
-                            const float* __restrict__ tile,
+                            const re::F4* __restrict__ noise,
                             float* __restrict__ ao_out,
                             float* __restrict__ carry, int h, int w, int ky,
                             int kx, const HbaoParams p) {
@@ -74,6 +105,10 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
   if (x >= w) return;
   const int pix = y * w + x;
   const float d = depth[pix];
+  if (d >= 1.0f) {  // background: its AO is 1 whatever its samples
+    if (p.last) ao_out[pix] = 1.0f;
+    return;
+  }
   const float uvx = (static_cast<float>(x) + 0.5f) * p.inv_w;
   const float uvy = (static_cast<float>(y) + 0.5f) * p.inv_h;
   float cx, cy, cz, wpx, wpy, wpz;
@@ -101,17 +136,10 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
   float ao = p.first ? 0.0f : carry[pix];
   float tw = p.first ? 0.0f : carry[hw + pix];
   for (int s = 0; s < p.n; ++s) {
-    const float* u = tile + (((y + p.sy[s]) & 127) * 128 + ((x + p.sx[s]) & 127)) * 4;
-    const float u0 = u[0];
-    const float u1 = u[1];
-    const float u2 = u[2];
-    const float r_ = sqrtf(u0);
-    const float theta = u1 * kPi2;
-    const float sth = sinf(theta);
-    const float cth = cosf(theta);
-    const float k1 = r_ * sth;
-    const float k2 = sqrtf(fmaxf(1.0f - u0, 0.0f));
-    const float k3 = r_ * cth;
+    const re::F4 u = noise[((y + p.sy[s]) & 127) * 128 + ((x + p.sx[s]) & 127)];
+    const float k1 = u.v[0];
+    const float k2 = u.v[1];
+    const float k3 = u.v[2];
     float dx_ = k1 * bx + k2 * nx + k3 * tx_;
     float dy_ = k1 * by + k2 * ny + k3 * ty_;
     float dz_ = k1 * bz + k2 * nz + k3 * tz_;
@@ -120,7 +148,7 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
     dy_ = dy_ * dinv;
     dz_ = dz_ * dinv;
 
-    const float dist = p.dist * re::pow_el(u2, p.pow1);
+    const float dist = u.v[3];
     const float spx = wpx + dist * dx_;
     const float spy = wpy + dist * dy_;
     const float spz = wpz + dist * dz_;
@@ -130,8 +158,7 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
     const float safe_w = fabsf(cwv) > 1e-8f ? cwv : 1e-8f;
     float sux = cxv / safe_w * 0.5f + 0.5f;
     float suy = cyv / safe_w * 0.5f + 0.5f;
-    // background pixels have zero normals -> NaN directions; their AO is
-    // replaced below, but their fetch index must stay in range
+    // a degenerate direction gives NaN; its fetch index must stay in range
     sux = (sux == sux) ? fminf(fmaxf(sux, -2.0f), 3.0f) : 0.0f;
     suy = (suy == suy) ? fminf(fmaxf(suy, -2.0f), 3.0f) : 0.0f;
     const int ixt = static_cast<int>(floorf(sux * static_cast<float>(w)));
@@ -160,28 +187,42 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
   }
   ao = tw > 0.0f ? ao / tw : ao;
   ao = fminf(fmaxf(1.0f - ao, 0.0f), 1.0f);
-  ao_out[pix] = d >= 1.0f ? 1.0f : ao;
+  ao_out[pix] = ao;
 }
 
 }  // namespace
 
 // ---- host entry points ----
-// fparams (host): pmi[16] cmw[16] pv[16] cpos[3] dist pow1 bias th inv_w
-// inv_h; shifts (host): sy[spp] then sx[spp]; carry: (2, h, w) float32
-// scratch, needed (and only read or written) when spp > 32.
+// The noise table of hbao_kernel: tile (128, 128, 4) float32, table
+// (128, 128, 4) float32; kparams (host): distance, distance_power + 1.
+extern "C" int re_hbao_noise(const float* tile, float* table,
+                             const float* kparams, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  hbao_noise_kernel<<<128, 128, 0, st>>>(
+      tile, reinterpret_cast<re::F4*>(table), kparams[0], kparams[1]);
+  return cudaGetLastError();
+}
+
+// noise: the table of re_hbao_noise (16-byte aligned); fparams (host):
+// pmi[16] cmw[16] pv[16] cpos[3] dist pow1 bias th inv_w inv_h (dist and
+// pow1 are in the table); shifts (host): sy[spp] then sx[spp]; carry:
+// (2, h, w) float32 scratch, needed (and only read or written) when
+// spp > 32.
 extern "C" int re_hbao(const float* depth, const float* normal,
-                       const float* tile, float* ao, float* carry, int h,
+                       const float* noise, float* ao, float* carry, int h,
                        int w, int ky, int kx, int spp, const float* fparams,
                        const int* shifts, void* stream) {
-  if (spp < 1 || (spp > kChunk && carry == nullptr)) return cudaErrorInvalidValue;
+  if (spp < 1 || (spp > kChunk && carry == nullptr) ||
+      reinterpret_cast<uintptr_t>(noise) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
   HbaoParams p;
   const float* f = fparams;
   for (int i = 0; i < 16; ++i) p.pmi[i] = *f++;
   for (int i = 0; i < 16; ++i) p.cmw[i] = *f++;
   for (int i = 0; i < 16; ++i) p.pv[i] = *f++;
   for (int i = 0; i < 3; ++i) p.cpos[i] = *f++;
-  p.dist = *f++;
-  p.pow1 = *f++;
+  f += 2;  // dist, pow1
   p.bias = *f++;
   p.th = *f++;
   p.inv_w = *f++;
@@ -197,8 +238,9 @@ extern "C" int re_hbao(const float* depth, const float* normal,
       p.sy[s] = s < p.n ? shifts[s0 + s] : 0;
       p.sx[s] = s < p.n ? shifts[spp + s0 + s] : 0;
     }
-    hbao_kernel<<<grid, block, 0, st>>>(depth, normal, tile, ao, carry, h, w, ky,
-                                        kx, p);
+    hbao_kernel<<<grid, block, 0, st>>>(
+        depth, normal, reinterpret_cast<const re::F4*>(noise), ao, carry, h, w,
+        ky, kx, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

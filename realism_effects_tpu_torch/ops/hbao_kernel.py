@@ -13,14 +13,22 @@ shifts ride in the launch's parameters 32 samples at a time, and above
 sums carried between launches in a (2, H, W) scratch, in the same
 summation order as one launch.
 
-On the H100 the kernel is bound by operations (per sample: sin, cos,
-exp, log, three sqrt, two rsqrt, two divisions) against 20 bytes a pixel.
-One thread per pixel, all in registers; the sample depths are direct
-loads served by L1/L2.
+On the H100 the kernel is bound by instruction issue against 20 bytes
+a pixel. The cosine draw of a sample (sqrt, sin, cos, sqrt, exp(log))
+depends on the blue-noise texel and two launch constants only, so a
+small kernel computes it once per tile texel into a (128, 128, 4) table
+of (k1, k2, k3, dist) (``noise_table``, kept per device, distance and
+power: a frame launches nothing more), and the per-sample loop reads one
+float4 of it; what is left a sample is the direction's normalisation,
+the projection, the depth fetch and the integral (four IEEE divisions,
+three square roots). A background pixel (depth >= 1), whose AO is 1
+whatever its samples, stops after its depth load. One thread per pixel,
+all in registers; the sample depths are direct loads served by L1/L2.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -153,6 +161,50 @@ def hbao_fused_plain(depth, normal, cam, frame: int, cfg) -> torch.Tensor:
     return torch.where(depth >= 1.0, 1.0, ao)
 
 
+def noise_table_plain(tile: torch.Tensor, distance: float,
+                      pow1: float) -> torch.Tensor:
+    """The noise table's function in PyTorch: (128, 128, 4) float32
+    (k1, k2, k3, dist) of the (128, 128, 4) blue-noise ``tile``."""
+    u0, u1, u2 = tile[..., 0], tile[..., 1], tile[..., 2]
+    r_ = torch.sqrt(u0)
+    theta = u1 * _PI2
+    return torch.stack([
+        r_ * torch.sin(theta), torch.sqrt(torch.clamp(1.0 - u0, min=0.0)),
+        r_ * torch.cos(theta),
+        float(np.float32(distance)) * torch.exp(torch.log(u2) * float(np.float32(pow1)))],
+        -1)
+
+
+def noise_table(device, distance: float, pow1: float) -> torch.Tensor:
+    """The HBAO kernel's (128, 128, 4) noise table for ``distance`` and
+    ``pow1`` (``distance_power + 1``), both as float32, on a CUDA
+    ``device``: built by its kernel once per (device, distance, pow1)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _noise_table(str(dev), float(np.float32(distance)),
+                        float(np.float32(pow1)))
+
+
+@functools.lru_cache(maxsize=8)
+def _noise_table(device: str, distance: float, pow1: float) -> torch.Tensor:
+    tile = blue_noise_tile_tensor(device)
+    table = torch.empty_like(tile)
+    kparams = np.array([distance, pow1], np.float32)
+    fn = cuda_build.bind("hbao", "re_hbao_noise", 2, 0, 1)
+    err = fn(tile.data_ptr(), table.data_ptr(), kparams.ctypes.data,
+             cuda_build.stream_ptr(tile))
+    cuda_build.check(err, "hbao noise table kernel")
+    if table.is_cuda:
+        # built once, read by launches on any stream: finish it here
+        torch.cuda.current_stream(table.device).synchronize()
+    noise_table.launches += 1
+    return table
+
+
+noise_table.launches = 0
+
+
 def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
                cfg) -> torch.Tensor:
     """Fused HBAO: the AO plane (H, W) of ``depth`` (H, W) and world
@@ -174,21 +226,24 @@ def _launch(depth, normal, cam, frame, cfg):
         raise ValueError(f"spp must be at least 1, not {cfg.spp}")
     depth = depth.contiguous()
     normal = normal.contiguous()
-    tile = blue_noise_tile_tensor(depth.device)
-    cuda_build.require_cuda(depth, normal, tile)
+    fparams = _host_params(cam, cfg, h, w)
+    noise = noise_table(depth.device, fparams[51], fparams[52])
+    cuda_build.require_cuda(depth, normal, noise)
+    if noise.is_cuda:
+        # the cache may drop the table while this stream still reads it
+        noise.record_stream(torch.cuda.current_stream(noise.device))
     ao = torch.empty_like(depth)
     carry = (torch.empty((2, h, w), dtype=torch.float32, device=depth.device)
              if cfg.spp > _CHUNK else None)
-    fparams = _host_params(cam, cfg, h, w)
     shifts = [noise_shift(i) for i in
               sample_indices(cfg.spp, frame, cfg.animated_noise)]
     ishifts = np.array([s[0] for s in shifts] + [s[1] for s in shifts],
                        np.int32)
     fn = cuda_build.bind("hbao", "re_hbao", 5, 5, 2)
-    err = fn(depth.data_ptr(), normal.data_ptr(), tile.data_ptr(),
+    err = fn(depth.data_ptr(), normal.data_ptr(), noise.data_ptr(),
              ao.data_ptr(), None if carry is None else carry.data_ptr(), h, w,
-             int(cfg.window_ky), int(cfg.window_kx),
-             int(cfg.spp), fparams.ctypes.data, ishifts.ctypes.data,
+             int(cfg.window_ky), int(cfg.window_kx), int(cfg.spp),
+             fparams.ctypes.data, ishifts.ctypes.data,
              cuda_build.stream_ptr(depth))
     cuda_build.check(err, "hbao kernel")
     return ao

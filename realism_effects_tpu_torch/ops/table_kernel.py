@@ -8,8 +8,16 @@ and ``ix = max(id, 0) % 128`` over the (rows, 128, K) record table
 (``scene/rasterizer._pack_face_table``), for all K channels at once
 (the TPU split the record into chunks of 8). The TPU's ``MAX_ROWS`` gate
 priced its select chain and is not semantics: one kernel serves every
-table size. Kernel and plain version are both a copy, bit-identical. On
-the H100 the kernel is bound by bytes.
+table size. Kernel and plain version are both a copy, bit-identical.
+
+On the H100 the fetch is bound by bytes, 4 B of id in and 4 K B out a
+pixel. A block of the kernel owns 256 whole pixels: it loads their ids
+once and stages the records' addresses in shared memory, then writes
+its 256 x K output floats in order with 16-byte stores (16-byte loads
+too where K % 4 == 0 and the table is 16-byte aligned), its index
+arithmetic 32-bit and free of division. The first version, a thread per
+output float dividing a 64-bit index by the run-time K, was bound by
+that division's instructions.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import torch
 from . import cuda_build
 
 LANES = 128
+_INT32_MAX = (1 << 31) - 1
+_PIX_BLOCK = 256  # pixels a block of the kernel (csrc/table.cu kPix)
 
 
 def _indices(table, ids):
@@ -53,9 +63,15 @@ def _launch(table, ids):
                          f"float32, not {tuple(table.shape)} {table.dtype}")
     if ids.dtype != torch.int32:
         raise ValueError(f"face ids must be int32, not {ids.dtype}")
+    rows, _, k = table.shape
+    # the kernel's indices are 32-bit: record rows * 128, pixels, and the
+    # floats a block writes each stay below 2^31
+    if rows > _INT32_MAX // LANES or ids.numel() > _INT32_MAX or \
+            k > _INT32_MAX // (4 * _PIX_BLOCK):
+        raise ValueError(f"record table {tuple(table.shape)} with {ids.numel()} "
+                         "face ids is beyond the kernel's 32-bit indices")
     table, ids = table.contiguous(), ids.contiguous()
     cuda_build.require_cuda(table, ids)
-    rows, _, k = table.shape
     out = torch.empty(tuple(ids.shape) + (k,), dtype=torch.float32,
                       device=table.device)
     fn = cuda_build.bind("table", "re_lookup", 3, 3)

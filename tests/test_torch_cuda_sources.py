@@ -261,6 +261,10 @@ def _surface(h, w, seed):
 def test_hbao_source(host_kernels, cfg):
     """Two configurations of one launch, and spp 40: two launches, the
     second going on from the sums the first carried."""
+    _hbao_case(cfg)
+
+
+def _hbao_case(cfg):
     h, w = 48, 80
     depth, nrm = _surface(h, w, 1)
     cam = PerspectiveCamera(50, w / h, 0.1, 80)
@@ -270,6 +274,25 @@ def test_hbao_source(host_kernels, cfg):
     got = hbao_kernel._launch(depth, nrm, m, 3, cfg)
     want = hbao_kernel.hbao_fused_plain(depth, nrm, m, 3, cfg)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+
+
+def test_hbao_source_noise_settings(host_kernels):
+    """Two distance / distance_power settings one after the other, and
+    the first again: each launch reads the noise table of its own
+    setting (a table cached under the wrong key shows here)."""
+    for cfg in (AOConfig(distance=0.3), AOConfig(distance=1.7, distance_power=2.5),
+                AOConfig(distance=0.3)):
+        _hbao_case(cfg)
+
+
+def test_hbao_noise_table_source(host_kernels):
+    """The noise table's entry against torch's sqrt, sin, cos, exp and
+    log of the same texels."""
+    table = hbao_kernel.noise_table("cpu", 0.7, 2.25)
+    tile = hbao_kernel.blue_noise_tile_tensor("cpu")
+    want = hbao_kernel.noise_table_plain(tile, 0.7, 2.25)
+    assert table.shape == (128, 128, 4) and bool((tile[..., 2] > 0).all())
+    np.testing.assert_allclose(table.numpy(), want.numpy(), rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("slots", [(False, False), (True,)])
@@ -496,21 +519,32 @@ def test_zscan_source_binning(host_kernels, case):
     assert torch.equal(got[1], want[1])
 
 
-def test_lookup_source(host_kernels):
-    rng = np.random.default_rng(6)
-    table = torch.tensor(rng.normal(size=(3, 128, 11)), dtype=torch.float32)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [1, 11, 24, 30, 33])
+def test_lookup_source(host_kernels, k, offset):
+    """Record widths through the generic instantiation (1, 11), the
+    16-byte route (24) and the scalar-load route (30, 33); ids negative and
+    past the last row; a 37 x 61 frame, whose last block of 256 pixels
+    is filled in part; ``offset`` 1: a table that is a view 4 bytes into
+    its storage, so not 16-byte aligned."""
+    rng = np.random.default_rng(6 + k)
+    vals = torch.tensor(rng.normal(size=(3, 128, k)), dtype=torch.float32)
+    table = torch.empty(vals.numel() + offset)[offset:].view(3, 128, k).copy_(vals)
+    assert (table.data_ptr() % 16 == 0) == (offset == 0)
     ids = torch.tensor(rng.integers(-3, 3 * 128 + 40, (37, 61)), dtype=torch.int32)
+    ids[0, :3] = torch.tensor([-(1 << 31), (1 << 31) - 1, 3 * 128])
     got = table_kernel._launch(table, ids)
     assert torch.equal(got, table_kernel.face_lookup_plain(table, ids))
 
 
 @pytest.mark.parametrize("name,entry", [
     ("raster", "re_zscan"), ("table", "re_lookup"), ("taps", "re_poisson_taps"),
+    ("hbao", "re_hbao_noise"),
     ("stencil", "re_sharpness"), ("warp", "re_warp_multi")])
 def test_raster_sources_are_listed(name, entry):
-    """The kernels of the raster slice, the demo stack and the unfused
-    route are built with the others and declare their C entry points for
-    ctypes."""
+    """The kernels of the raster slice, the demo stack, the unfused route
+    and HBAO's noise table are built with the others and declare their C
+    entry points for ctypes."""
     assert name in cuda_build.SOURCES
     src = (cuda_build.CSRC / f"{name}.cu").read_text()
     assert re.search(rf'extern "C" int {entry}\(', src)
