@@ -20,7 +20,10 @@ Phases (any failure raises and the script exits non-zero):
    route; sharpness frame 1's lit colour. More checks print on their
    own lines: the z-scan on a tie-heavy synthetic table at 1080p (0
    winner flips, exact z); both Poisson passes at radius 12, where taps
-   leave the kernel's staged halo; minmax at r=1 (exact); HBAO's noise
+   leave the kernel's staged halo; the tap fetch at radius 12 against
+   ``bundle[iy, ix]`` (exact); the catrom5 warp on a history that is a
+   view 4 bytes into its storage, so read with 4-byte loads (exact);
+   minmax at r=1 (exact); HBAO's noise
    table against torch's libm (tol 2e-5), HBAO timed at spp 1, 8 and
    32, at spp 40 (two launches with the sums carried) and at a second distance and power (its own noise
    table), both tol 2e-4; the record fetch on both records of the frame,
@@ -225,6 +228,17 @@ def check_kernels(torch, analytic, timer, frames, results):
                 timer(lambda: warp._launch(*args, 8, "catrom5", 30)),
                 timer(lambda: warp.window_warp_plain(*args, ky=8, mode="catrom5", kx=30)),
                 nbytes, h * w * (4 * 32 + 30))
+    # the same history as a view 4 bytes into its storage: 4-byte loads
+    hist_off = torch.empty(hist.numel() + 1, device="cuda")[1:].view_as(hist).copy_(hist)
+    args_off = (hist_off,) + args[1:]
+    k = warp.window_warp(*args_off, ky=8, mode="catrom5", kx=30)
+    p = warp.window_warp_plain(*args_off, ky=8, mode="catrom5", kx=30)
+    err_off = max(maxerr(k[0], p[0]), maxerr(k[1], p[1]))
+    print(f"[check] warp_catrom5 on a texture at a 4-byte offset (data_ptr % 16 = "
+          f"{hist_off.data_ptr() % 16}): max abs error {err_off} (tol 0.0), ms="
+          f"{timer(lambda: warp._launch(*args_off, 8, 'catrom5', 30))}", flush=True)
+    if not err_off <= 0.0:
+        raise AssertionError(f"warp_catrom5 at a 4-byte offset: {err_off} > 0.0")
 
     # warp nearest: the disocclusion probe of (normal, depth)
     nd = torch.cat([last_vel.normal, last_vel.depth[..., None]], -1).contiguous()
@@ -539,6 +553,11 @@ def check_unfused_kernels(torch, analytic, timer, frames, results):
                                        ao.AOConfig())
             poisson_denoise.poisson_denoise_ao(ao_plane, normal, gb, 1,
                                                poisson_denoise.PoissonDenoiseConfig())
+            # the same pass at radius 12: taps beyond a tile's neighbourhood
+            poisson_denoise.poisson_taps = record("taps12", taps)
+            poisson_denoise.poisson_denoise_ao(
+                ao_plane, normal, gb, 1,
+                poisson_denoise.PoissonDenoiseConfig(radius=12.0))
     finally:
         ao.window_warp_multi, poisson_denoise.poisson_taps = multi, taps
 
@@ -575,6 +594,16 @@ def check_unfused_kernels(torch, analytic, timer, frames, results):
         raise AssertionError("poisson_taps disagrees with bundle[iy, ix]")
     print(f"[kernel] poisson_taps: {iy.shape[0]} taps, bundle {tuple(bundle.shape)}",
           flush=True)
+    (b12, iy12, ix12), _ = captured["taps12"]
+    k12 = poisson_taps.poisson_taps(b12, iy12, ix12)
+    reach = [int((iy12 - torch.arange(h, device="cuda")[:, None]).abs().max()),
+             int((ix12 - torch.arange(w, device="cuda")[None, :]).abs().max())]
+    err12 = maxerr(k12, b12[iy12.long(), ix12.long()])
+    print(f"[check] poisson_taps at radius 12 (reach {reach[0]} rows, {reach[1]} "
+          f"columns): max abs error against bundle[iy, ix] {err12} (tol 0.0), ms="
+          f"{timer(lambda: poisson_taps._launch(b12, iy12, ix12))}", flush=True)
+    if not err12 <= 0.0:
+        raise AssertionError(f"poisson_taps at radius 12: {err12} > 0.0")
     results.add("poisson_taps", "taps.cu",
                 "realism_effects_tpu/ops/pallas/poisson_taps.py:59", err, 0.0,
                 timer(lambda: poisson_taps._launch(bundle, iy, ix)),

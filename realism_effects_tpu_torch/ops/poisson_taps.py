@@ -9,8 +9,11 @@ itself, so it needs no window and has no limit on the window's size (the
 TPU kernel refuses windows above 256 candidates, an unrolling limit).
 
 On the H100 the kernel is bound by bytes (two int32 targets in, C floats
-out a tap and pixel). One thread per (tap, pixel, channel), so the
-stores coalesce.
+out a tap and pixel). A block owns a 32 x 8 pixel tile and its taps: it
+loads each (tap, pixel)'s targets once, gathers the C floats into shared
+memory as the output's contiguous runs, and writes those with 16-byte
+stores. Indices are 32-bit, so the launch refuses ``N * H * W * C >=
+2^31``.
 """
 
 from __future__ import annotations
@@ -46,11 +49,11 @@ poisson_taps.launches = 0
 def _launch(bundle, iy, ix):
     h, w, c = bundle.shape
     n = iy.shape[0]
-    if c > 8 or h * w * c >= 1 << 31:
-        raise ValueError(f"poisson_taps takes at most 8 channels and 2^31 "
-                         f"floats a tap, not {h}x{w}x{c}")
     if tuple(iy.shape) != (n, h, w) or tuple(ix.shape) != (n, h, w):
         raise ValueError(f"targets of {tuple(iy.shape)} for a {h}x{w} bundle")
+    if c > 8 or n * h * w * c >= 1 << 31:
+        raise ValueError(f"poisson_taps takes at most 8 channels and 2^31 "
+                         f"output floats, not {n}x{h}x{w}x{c}")
     args = [bundle.contiguous(), iy.to(torch.int32).contiguous(),
             ix.to(torch.int32).contiguous()]
     cuda_build.require_cuda(*args)

@@ -18,7 +18,11 @@ the plain version below spells out:
 
 On the H100 the kernel is bound by bytes (targets, fractions and output
 a pixel; the texel reads are shared with neighbouring pixels through
-L1/L2). One thread per pixel with direct loads.
+L1/L2). One thread per pixel with direct loads: a C = 4 texel is one
+16-byte load where the texture is 16-byte aligned (a view at another
+offset takes 4-byte loads) and a C = 4 output one 16-byte store; the
+filtered modes run 32 x 8 blocks, whose warps share their footprint
+rows through L1.
 
 ``window_warp_multi`` fetches one texture at N targets, nearest, each
 with the semantics above (kernel ``re_warp_multi``, the counterpart of

@@ -12,7 +12,10 @@ bit-identical (same operations in the same order, no contraction but the
 explicit ``fmaf``: ``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
 and Poisson agree to 2e-5, the gap
 between glibc's and PyTorch's sin/cos/exp/log. The card itself is checked
-by chip_smoke.py.
+by chip_smoke.py. The host build checks the alignment of every 16-byte
+load and store (``-fsanitize=alignment``, aborting on the first), which
+the card would refuse at run time: a vector route taken without its
+alignment check fails here too.
 """
 
 import ctypes
@@ -35,7 +38,8 @@ from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
                                            sweep_kernel, table_kernel, warp)
 from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
-from realism_effects_tpu_torch.ops.poisson_denoise import PoissonDenoiseConfig
+from realism_effects_tpu_torch.ops.poisson_denoise import (POISSON8,
+                                                           PoissonDenoiseConfig)
 
 SHIM = r"""
 #pragma once
@@ -115,7 +119,8 @@ def host_libs(tmp_path_factory):
     for name in cuda_build.SOURCES:
         src = (cuda_build.CSRC / f"{name}.cu").read_text()
         (d / f"{name}.cpp").write_text(LAUNCH.sub(r"GRID_LOOP(\2, \3) \1(", src))
-        cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+        cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+               "-fsanitize=alignment", "-fno-sanitize-recover=alignment", "-shared",
                "-fPIC", "-w", "-I", str(d), "-I", str(cuda_build.CSRC),
                "-o", str(d / f"lib{name}.so"), str(d / f"{name}.cpp")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -134,24 +139,45 @@ def host_kernels(host_libs, monkeypatch):
     monkeypatch.setattr(cuda_build, "stream_ptr", lambda t: None)
 
 
-def _warp_inputs(c, seed=0):
+def _warp_inputs(c, seed=0, near=False, offset=0):
+    """A 37 x 61 texture of c channels and its targets: ``near`` most
+    within +-6 rows and +-25 columns of the pixel (so inside the window)
+    and a fifth anywhere, else all far (most outside the window and the
+    frame); ``offset`` 1: the texture a view 4 bytes into its storage,
+    so not 16-byte aligned."""
     rng = np.random.default_rng(seed)
     h, w = 37, 61
     t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt)
-    tex = t(rng.normal(size=(h, w, c)))
-    ty = t(rng.integers(-20, h + 20, (h, w)), torch.int32)
-    tx = t(rng.integers(-200, w + 200, (h, w)), torch.int32)
-    return (tex[..., 0] if c == 1 else tex), ty, tx, t(rng.random((h, w))), \
-        t(rng.random((h, w)))
+    vals = t(rng.normal(size=(h, w, c)))
+    tex = torch.empty(vals.numel() + offset)[offset:].view(h, w, c).copy_(vals)
+    assert (tex.data_ptr() % 16 == 0) == (offset == 0)
+    ty = rng.integers(-20, h + 20, (h, w))
+    tx = rng.integers(-200, w + 200, (h, w))
+    if near:
+        far = rng.random((h, w)) < 0.2
+        ty = np.where(far, ty, np.arange(h)[:, None] + rng.integers(-6, 7, (h, w)))
+        tx = np.where(far, tx, np.arange(w)[None, :] + rng.integers(-25, 26, (h, w)))
+    return (tex[..., 0] if c == 1 else tex), t(ty, torch.int32), \
+        t(tx, torch.int32), t(rng.random((h, w))), t(rng.random((h, w)))
+
+
+# (channels, near targets, texture offset): far targets keep the ids of
+# the first cases; the 4-byte offset sends a C = 4 texture through the
+# 4-byte loads instead of the 16-byte ones
+WARP_CASES = [pytest.param(c, near, offset,
+                           id=("near-" if near else "") + str(c) + ("-offset" if offset else ""))
+              for c in (1, 3, 4, 8) for near in (False, True) for offset in (0, 1)
+              if offset == 0 or c == 4]
 
 
 @pytest.mark.parametrize("mode", ["nearest", "bilinear", "catrom", "catrom5"])
 @pytest.mark.parametrize("kx", [None, 5])
-@pytest.mark.parametrize("c", [1, 4])
-def test_warp_source(host_kernels, mode, kx, c):
-    args = _warp_inputs(c)
+@pytest.mark.parametrize("c,near,offset", WARP_CASES)
+def test_warp_source(host_kernels, mode, kx, c, near, offset):
+    args = _warp_inputs(c, near=near, offset=offset)
     got, got_ok = warp._launch(*args, 8, mode, kx)
     want, want_ok = warp.window_warp_plain(*args, 8, mode, kx)
+    assert bool(want_ok.float().mean() > 0.5) == (near and kx is None)
     assert torch.equal(got_ok, want_ok)
     assert torch.equal(got, want)
 
@@ -231,15 +257,67 @@ def test_warp_multi_source(host_kernels, kx, c):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("c", [5, 7])
-def test_poisson_taps_source(host_kernels, c):
-    rng = np.random.default_rng(c)
+def _tap_targets(h, w, n, radius, rng):
+    """n tap targets a pixel of an h x w frame: ``radius`` None anywhere
+    in the frame, else as the denoiser places them (a Poisson offset
+    rotated by a per-pixel angle, times the radius and a flatness in
+    [0.25, 1], in uv at the frame's aspect), not clamped; plus targets
+    negative, at the int32 extremes and past the edge."""
+    if radius is None:
+        iy = rng.integers(0, h, (n, h, w))
+        ix = rng.integers(0, w, (n, h, w))
+    else:
+        ang = rng.random((h, w)) * 2 * np.pi
+        scale = radius * (0.25 + 0.75 * rng.random((h, w)))
+        u = (np.arange(w) + 0.5) / w
+        v = (np.arange(h)[:, None] + 0.5) / h
+        off = POISSON8[np.arange(n) % 8]
+        ox = (np.cos(ang) * off[:, 0, None, None] / w
+              + np.sin(ang) * off[:, 1, None, None] / h) * scale
+        oy = (-np.sin(ang) * off[:, 0, None, None] / w
+              + np.cos(ang) * off[:, 1, None, None] / h) * scale
+        ix = np.floor((u + ox) * w)
+        iy = np.floor((v + oy) * h)
+    iy, ix = iy.astype(np.int32), ix.astype(np.int32)
+    iy[0, 0, :4] = [-1, h, -(1 << 31), (1 << 31) - 1]
+    ix[0, 1, :4] = [-7, w + 3, (1 << 31) - 1, -(1 << 31)]
+    return torch.tensor(iy), torch.tensor(ix)
+
+
+# (channels, target radius (None: anywhere), taps, bundle offset): the
+# uniform targets keep the ids of the first cases; radius 3 lands in a
+# tile's neighbourhood (up to 3 rows and 5 columns away here), radius 12
+# well past it (12 rows, 20 columns); 11 taps take two blocks along z
+TAPS_CASES = (
+    [pytest.param(c, None, 8, 0, id=str(c)) for c in (1, 4, 5, 7, 8)]
+    + [pytest.param(c, r, 8, 0, id=f"r{r}-{c}") for r in (3, 12) for c in (1, 4, 5, 7, 8)]
+    + [pytest.param(c, 3, 1, 0, id=f"r3-n1-{c}") for c in (4, 5)]
+    + [pytest.param(c, 12, 8, 1, id=f"r12-offset-{c}") for c in (4, 5)]
+    + [pytest.param(c, 12, 11, 0, id=f"r12-n11-{c}") for c in (4, 5)])
+
+
+@pytest.mark.parametrize("c,radius,n,offset", TAPS_CASES)
+def test_poisson_taps_source(host_kernels, c, radius, n, offset):
+    """A 37 x 61 frame, whose 32 x 8 tiles the edge cuts."""
+    rng = np.random.default_rng(c + n + (radius or 0))
     h, w = 37, 61
-    bundle = torch.tensor(rng.normal(size=(h, w, c)), dtype=torch.float32)
-    iy = torch.tensor(rng.integers(0, h, (8, h, w)), dtype=torch.int32)
-    ix = torch.tensor(rng.integers(0, w, (8, h, w)), dtype=torch.int32)
+    vals = torch.tensor(rng.normal(size=(h, w, c)), dtype=torch.float32)
+    bundle = torch.empty(vals.numel() + offset)[offset:].view(h, w, c).copy_(vals)
+    assert (bundle.data_ptr() % 16 == 0) == (offset == 0)
+    iy, ix = _tap_targets(h, w, n, radius, rng)
     got = poisson_taps._launch(bundle, iy, ix)
     assert torch.equal(got, poisson_taps.poisson_taps_plain(bundle, iy, ix))
+
+
+@pytest.mark.parametrize("n,h,w,c,ok", [
+    (8, 2048, 16384, 8, False), (1 << 28, 1, 1, 8, False), (1, 1, 1, 9, False),
+    (0, 1080, 1920, 5, True)])
+def test_poisson_taps_refuses_past_int32(host_kernels, n, h, w, c, ok):
+    """The kernel's indices are 32-bit: the entry point refuses an output
+    of 2^31 floats or more, and more than 8 channels, before it reads a
+    pointer (none is given here); no taps is no launch."""
+    fn = cuda_build.bind("taps", "re_poisson_taps", 4, 4)
+    assert fn(None, None, None, 16, h, w, c, n, None) == (0 if ok else 1)
 
 
 def _surface(h, w, seed):
