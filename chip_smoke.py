@@ -17,8 +17,12 @@ Phases (any failure raises and the script exits non-zero):
    of the SSGI path; the raster kernels (z-scan, per-face record fetch)
    those of frame 5 of the flagship path; the multi-target warp and the
    Poisson tap fetch those of frame 1 of the unfused HBAO + Poisson
-   route; sharpness frame 1's lit colour. More checks print on their
-   own lines: the z-scan on a tie-heavy synthetic table at 1080p (0
+   route; sharpness frame 1's lit colour; the sweep with one ray and the
+   Poisson pass with one RGBA slot those of frame 5 of the SSR + GTAO +
+   TAA path. More checks print on their
+   own lines: sharpness at C = 4 and on a colour that is a view 4 bytes
+   into its storage (exact), and its rows a thread and block timed in
+   turns; the z-scan on a tie-heavy synthetic table at 1080p (0
    winner flips, exact z); both Poisson passes at radius 12, where taps
    leave the kernel's staged halo; the tap fetch at radius 12 against
    ``bundle[iy, ix]`` (exact); the catrom5 warp on a history that is a
@@ -31,7 +35,7 @@ Phases (any failure raises and the script exits non-zero):
    and timed with its library call; the sweep over a 32 x 128 table (in
    shared memory through the opt-in) and a 64 x 304 one (above the
    opt-in limit, read from device memory), both exact.
-3. Run the five paths at 1920x1080. Through
+3. Run the six paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
    ray-cast per pixel on the card with the camera orbiting):
@@ -45,10 +49,15 @@ Phases (any failure raises and the script exits non-zero):
    ``VignetteEffect()`` -> ``BloomEffect()`` -> ``LUT3DEffect`` (a 32^3
    cube built in code), over 12 frames. Then HBAO + TRAA again over 12
    frames with HBAO and the Poisson denoiser on the JAX package's unfused
-   route (``analytic.unfused()``). The launch counters are set to 0 just
-   before each path and read just after: each path must have launched
-   each of its kernels (and the unfused path neither the fused HBAO nor
-   the fused one-texture Poisson kernel, and no path HBAO's noise-table
+   route (``analytic.unfused()``). Then the reference's three other
+   exports through ``render``, ``SSREffect()`` -> ``GTAOEffect()`` ->
+   ``TAAPass()`` on the flagship scene, over 12 frames with the camera
+   still for the first 6 (after 4 warm-up frames) and then one orbit
+   step (``analytic.still_then_step``). The launch counters are set to
+   0 just before each path and read just after: each path must have
+   launched each of its kernels (and the unfused path neither the fused
+   HBAO nor the fused AO Poisson kernel, the SSR path neither HBAO, the
+   2-ray sweep nor the 2-slot Poisson pass, and no path HBAO's noise-table
    kernel, whose table is built once per setting), and every kernel in the
    ``kernels`` line launches on at least one path. Then a 3-frame run of
    each path at 270x480 must agree with the same composer on the CPU.
@@ -359,6 +368,85 @@ def check_kernels(torch, analytic, timer, frames, results):
                 h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + POISSON_OPS_TAP_SLOT)))
 
 
+def _sweep_entry(torch, timer, results, name, args, planes, table, radii_prev):
+    """The sweep's entry on a frame's captured march arguments ``args``:
+    every output of each ray held bit for bit; bytes: each input once,
+    each output once; operations: the steps this frame's rays walk (to
+    their hit, all steps on a miss, none for a ray whose bin is not one
+    of the dirs)."""
+    from realism_effects_tpu_torch.ops import ssgi_sweep, sweep_kernel
+
+    h, w = HEIGHT, WIDTH
+    maxerr = lambda a, b: _maxerr(torch, a, b)
+    z_tex, rad, ray_distance, n_rays, dirs, steps = (args[0], args[1], args[6],
+                                                     args[7], args[8], args[9])
+    k = sweep_kernel.sweep_march(*args)
+    p = sweep_kernel.sweep_march_plain(*args)
+    err = max(maxerr(a, b) for kr, pr in zip(k, p) for a, b in zip(kr, pr))
+    prev_t = torch.tensor(np.asarray(radii_prev), device="cuda")
+    tab = torch.tensor(np.asarray(table, np.float32), device="cuda")
+    ys = torch.arange(h, device="cuda")[:, None]
+    xs = torch.arange(w, device="cuda")[None, :]
+    walked = live = warp_steps = warp_live = 0
+    for r, (hit, _, s_lo, _, _) in enumerate(p):
+        k_len, p2, rwd, _, bin_, s_end = planes[1 + 6 * r: 7 + 6 * r]
+        ok_bin = (bin_ >= 0) & (bin_ < dirs) & (bin_ == torch.floor(bin_))
+        k_hit = torch.searchsorted(prev_t, s_lo.contiguous()) + 1
+        n_walk = torch.where(hit, k_hit, torch.where(ok_bin, steps, 0))
+        walked += int(n_walk.sum())
+        # live steps (those that reach the depth test) of the walk, and
+        # warp-steps (32 pixels of a row) with a live lane
+        row0 = torch.where(ok_bin, bin_, 0.0).long() * steps
+        for k_ in range(steps):
+            e = tab[row0 + k_]
+            yy, xx, s_ = ys + e[..., 0].int(), xs + e[..., 1].int(), e[..., 2]
+            den = k_len - s_ * rwd
+            t_s = s_ * p2 / torch.where(den > ssgi_sweep.EPS, den, 1.0)
+            on = ((k_ < n_walk) & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w) &
+                  (s_ <= s_end) & (den > ssgi_sweep.EPS) & (t_s >= 0) &
+                  (t_s <= ray_distance))
+            live += int(on.sum())
+            warp_live += int(on.view(h, w // 32, 32).any(-1).sum())
+            warp_steps += int((k_ < n_walk).view(h, w // 32, 32).any(-1).sum())
+    outs = sum(t.nbytes for kr in k for t in kr)
+    nbytes = z_tex.nbytes + rad.nbytes + planes.nbytes + \
+        np.asarray(table).nbytes + np.asarray(radii_prev).nbytes + outs
+    print(f"[kernel] {name}: {n_rays} ray(s), {walked / (h * w * n_rays):.2f} steps "
+          f"a ray of {steps}; hits {[int(r[0].sum()) for r in p]} of {h * w}; live "
+          f"steps {live / walked:.3f} of those walked; warp-steps with a live "
+          f"lane {warp_live / warp_steps:.3f} of {warp_steps}", flush=True)
+    results.add(name, "sweep.cu", "realism_effects_tpu/ops/pallas/sweep.py:84",
+                err, 0.0, timer(lambda: sweep_kernel._launch(*args)),
+                timer(lambda: sweep_kernel.sweep_march_plain(*args)),
+                nbytes, h * w * n_rays * SWEEP_OPS_RAY + walked * SWEEP_OPS_STEP)
+
+
+def _poisson_rgba_entry(torch, timer, results, name, texs, gb, noise_index, cfg):
+    """A Poisson pass over ``texs`` (RGBA slots, no AO slot) against its
+    plain version at the tolerance 1e-5 x the largest value (at least 1:
+    exact libm work a tap differs by ulps); returns the plain inputs."""
+    from realism_effects_tpu_torch.ops import poisson_kernel
+
+    h, w = HEIGHT, WIDTH
+    n = len(texs)
+    slots = (False,) * n
+    bundle, ch = poisson_kernel.pack_bundle(texs, gb, slots)
+    k = poisson_kernel.poisson_pass_fused(texs, gb, noise_index, cfg)
+    p = poisson_kernel.poisson_pass_plain(bundle, ch, slots, noise_index, cfg)
+    err = max(_maxerr(torch, k[s], p[..., 4 * s: 4 * s + 4]) for s in range(n))
+    scale = float(p.abs().max())
+    print(f"[kernel] {name}: {n} RGBA slot(s), largest value {scale}", flush=True)
+    results.add(name, "poisson.cu", "realism_effects_tpu/ops/pallas/poisson.py:126",
+                err, 1e-5 * max(scale, 1.0),
+                timer(lambda: poisson_kernel._launch(bundle, ch, slots, noise_index, cfg)),
+                timer(lambda: poisson_kernel.poisson_pass_plain(
+                    bundle, ch, slots, noise_index, cfg)),
+                bundle.nbytes + 128 * 128 * 4 * 4 + p.nbytes,
+                h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP
+                                                  + n * POISSON_OPS_TAP_SLOT)))
+    return bundle, ch
+
+
 def check_ssgi_kernels(torch, analytic, timer, frames, results):
     """The SSGI path's kernels on the inputs they take in frame
     ``SWEEP_FRAME`` of the SSGI + HBAO + TRAA composer at 1080p (after
@@ -405,48 +493,7 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
             n_rays, dirs, steps, kw.get("miss_gi", False))
 
     # sweep: every output of both rays, bit for bit
-    k = sweep_kernel.sweep_march(*args)
-    p = sweep_kernel.sweep_march_plain(*args)
-    err = max(maxerr(a, b) for kr, pr in zip(k, p) for a, b in zip(kr, pr))
-    # bytes: each input once, each output once; operations: the steps this
-    # frame's rays walk (to their hit, all steps on a miss, none for a
-    # ray whose bin is not one of the dirs)
-    prev_t = torch.tensor(np.asarray(radii_prev), device="cuda")
-    tab = torch.tensor(np.asarray(table, np.float32), device="cuda")
-    ys = torch.arange(h, device="cuda")[:, None]
-    xs = torch.arange(w, device="cuda")[None, :]
-    walked = live = warp_steps = warp_live = 0
-    for r, (hit, _, s_lo, _, _) in enumerate(p):
-        k_len, p2, rwd, _, bin_, s_end = planes[1 + 6 * r: 7 + 6 * r]
-        ok_bin = (bin_ >= 0) & (bin_ < dirs) & (bin_ == torch.floor(bin_))
-        k_hit = torch.searchsorted(prev_t, s_lo.contiguous()) + 1
-        n_walk = torch.where(hit, k_hit, torch.where(ok_bin, steps, 0))
-        walked += int(n_walk.sum())
-        # live steps (those that reach the depth test) of the walk, and
-        # warp-steps (32 pixels of a row) with a live lane
-        row0 = torch.where(ok_bin, bin_, 0.0).long() * steps
-        for k_ in range(steps):
-            e = tab[row0 + k_]
-            yy, xx, s_ = ys + e[..., 0].int(), xs + e[..., 1].int(), e[..., 2]
-            den = k_len - s_ * rwd
-            t_s = s_ * p2 / torch.where(den > ssgi_sweep.EPS, den, 1.0)
-            on = ((k_ < n_walk) & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w) &
-                  (s_ <= s_end) & (den > ssgi_sweep.EPS) & (t_s >= 0) &
-                  (t_s <= ray_distance))
-            live += int(on.sum())
-            warp_live += int(on.view(h, w // 32, 32).any(-1).sum())
-            warp_steps += int((k_ < n_walk).view(h, w // 32, 32).any(-1).sum())
-    outs = sum(t.nbytes for kr in k for t in kr)
-    nbytes = z_tex.nbytes + rad.nbytes + planes.nbytes + \
-        np.asarray(table).nbytes + np.asarray(radii_prev).nbytes + outs
-    print(f"[kernel] sweep: {walked / (h * w * n_rays):.2f} steps a ray of "
-          f"{steps}; hits {[int(r[0].sum()) for r in p]} of {h * w}; live "
-          f"steps {live / walked:.3f} of those walked; warp-steps with a live "
-          f"lane {warp_live / warp_steps:.3f} of {warp_steps}", flush=True)
-    results.add("sweep", "sweep.cu", "realism_effects_tpu/ops/pallas/sweep.py:84",
-                err, 0.0, timer(lambda: sweep_kernel._launch(*args)),
-                timer(lambda: sweep_kernel.sweep_march_plain(*args)),
-                nbytes, h * w * n_rays * SWEEP_OPS_RAY + walked * SWEEP_OPS_STEP)
+    _sweep_entry(torch, timer, results, "sweep", args, planes, table, radii_prev)
     # the same rays over larger tables: 32 x 128 (shared memory through
     # the opt-in) and 64 x 304 (above the opt-in limit: device memory)
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
@@ -495,13 +542,8 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
 
     # Poisson, two RGBA slots (diffuse, specular): the frame's first pass
     texs, noise_index = captured["poisson"][0]
-    bundle, ch = poisson_kernel.pack_bundle(texs, gb, (False, False))
-    k = poisson_kernel.poisson_pass_fused(texs, gb, noise_index, cfg)
-    p = poisson_kernel.poisson_pass_plain(bundle, ch, (False, False), noise_index, cfg)
-    err = max(maxerr(k[s], p[..., 4 * s: 4 * s + 4]) for s in range(2))
-    tile = 128 * 128 * 4 * 4
-    scale = float(p.abs().max())
-    print(f"[kernel] poisson_2tex: largest value {scale}", flush=True)
+    bundle, ch = _poisson_rgba_entry(torch, timer, results, "poisson_2tex", texs,
+                                     gb, noise_index, cfg)
     wide = dataclasses.replace(cfg, radius=12.0)
     p12 = poisson_kernel.poisson_pass_plain(bundle, ch, (False, False), noise_index, wide)
     err12 = maxerr(poisson_kernel._launch(bundle, ch, (False, False), noise_index, wide), p12)
@@ -510,16 +552,50 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
           f"max abs error {err12} (tol {tol12})", flush=True)
     if not err12 <= tol12:
         raise AssertionError(f"poisson_2tex at radius 12: {err12} > {tol12}")
-    results.add("poisson_2tex", "poisson.cu",
-                "realism_effects_tpu/ops/pallas/poisson.py:126", err,
-                1e-5 * max(scale, 1.0),
-                timer(lambda: poisson_kernel._launch(bundle, ch, (False, False),
-                                                     noise_index, cfg)),
-                timer(lambda: poisson_kernel.poisson_pass_plain(
-                    bundle, ch, (False, False), noise_index, cfg)),
-                bundle.nbytes + tile + p.nbytes,
-                h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP
-                                                  + 2 * POISSON_OPS_TAP_SLOT)))
+
+
+def check_ssr_kernels(torch, analytic, timer, results):
+    """The SSR path's two kernel configurations that no other path runs,
+    on the inputs they take in frame SWEEP_FRAME of the SSR + GTAO + TAA
+    composer at 1080p: the sweep march with one ray (the specular) and
+    the Poisson pass with one RGBA slot."""
+    from realism_effects_tpu_torch.ops import poisson_denoise, ssgi_sweep
+
+    comp, cam = analytic.reference_exports_composer(HEIGHT, WIDTH, "cuda")
+    drive = exports_driver(analytic, comp, cam, SWEEP_FRAME)
+    drive(0, SWEEP_FRAME)
+    captured = {"sweep": [], "poisson": []}
+    march, ppass = ssgi_sweep.sweep_march, poisson_denoise.poisson_pass_fused
+
+    def record_march(*args, **kw):
+        captured["sweep"].append((args, kw))
+        return march(*args, **kw)
+
+    def record_pass(textures, gbuffer, noise_index, cfg_, scalar_slots=None):
+        if scalar_slots is None:   # the SSR texture, not GTAO's AO slot
+            captured["poisson"].append((list(textures), gbuffer, noise_index, cfg_))
+        return ppass(textures, gbuffer, noise_index, cfg_, scalar_slots)
+
+    ssgi_sweep.sweep_march = record_march
+    poisson_denoise.poisson_pass_fused = record_pass
+    try:
+        drive(SWEEP_FRAME, 1)
+    finally:
+        ssgi_sweep.sweep_march = march
+        poisson_denoise.poisson_pass_fused = ppass
+    del comp
+    (z_tex, rad, planes, table, radii_prev, thickness, ray_distance, n_rays,
+     dirs, steps), kw = captured["sweep"][0]
+    if n_rays != 1:
+        raise AssertionError(f"the SSR path traced {n_rays} rays, not 1")
+    args = (z_tex, rad, planes, table, radii_prev, thickness, ray_distance,
+            n_rays, dirs, steps, kw.get("miss_gi", False))
+    _sweep_entry(torch, timer, results, "sweep_1ray", args, planes, table, radii_prev)
+    texs, gb, noise_index, cfg = captured["poisson"][0]
+    if len(texs) != 1:
+        raise AssertionError(f"the SSR pass denoised {len(texs)} textures, not 1")
+    _poisson_rgba_entry(torch, timer, results, "poisson_1tex", texs, gb,
+                        noise_index, cfg)
 
 
 def check_unfused_kernels(torch, analytic, timer, frames, results):
@@ -619,6 +695,30 @@ def check_unfused_kernels(torch, analytic, timer, frames, results):
                 err, 0.0, timer(lambda: stencil._launch_sharpness(color, 1.0)),
                 timer(lambda: stencil.sharpness_3x3_plain(color, 1.0)),
                 color.nbytes + k.nbytes, h * w * 3 * SHARPNESS_OPS)
+    # C = 4 (the lit colour and its luma), and the colour as a view 4
+    # bytes into its storage (each float loaded and stored on its own)
+    color4 = torch.cat([color, color.mean(-1, keepdim=True)], -1)
+    color_off = torch.empty(color.numel() + 1, device="cuda")[1:].view_as(color).copy_(color)
+    for label, img in (("C = 4", color4), (
+            f"at a 4-byte offset (data_ptr % 16 = {color_off.data_ptr() % 16})", color_off)):
+        e_ = maxerr(stencil._launch_sharpness(img, 1.0), stencil.sharpness_3x3_plain(img, 1.0))
+        bound_ms, _ = _bound(2 * img.nbytes, 0)
+        print(f"[check] sharpness {label}: max abs error {e_} (tol 0.0), ms="
+              f"{timer(lambda: stencil._launch_sharpness(img, 1.0))} bound_ms={bound_ms}",
+              flush=True)
+        if not e_ <= 0.0:
+            raise AssertionError(f"sharpness {label}: {e_} > 0.0")
+    # the rows a thread and the block, timed in turns (C = 3); the entry
+    # above runs stencil.SHARPNESS_ROWS and SHARPNESS_BLOCK
+    tune = {}
+    for rows in (1, 2, 4, 8):
+        for blk in ((128, 2), (32, 4), (256, 1)):
+            if not torch.equal(stencil._launch_sharpness(color, 1.0, rows, blk), k):
+                raise AssertionError(f"sharpness at {rows} rows, block {blk} differs")
+            tune[f"R{rows} {blk[0]}x{blk[1]}"] = timer(
+                lambda: stencil._launch_sharpness(color, 1.0, rows, blk))
+    print(f"[tune] sharpness C = 3, ms by rows a thread and block (all exact): "
+          f"{json.dumps(tune)}", flush=True)
 
 
 def _zscan_ops(tab, h, w):
@@ -759,15 +859,19 @@ def counters():
                                                poisson_taps, raster_kernel,
                                                stencil, sweep_kernel,
                                                table_kernel, warp)
+    slots = poisson_kernel.poisson_pass_fused.slot_launches
+    rays = sweep_kernel.sweep_march.ray_launches
     return {
         "warp_catrom5": warp.window_warp.mode_launches["catrom5"],
         "warp_nearest": warp.window_warp.mode_launches["nearest"],
         "warp_bilinear": warp.window_warp.mode_launches["bilinear"],
         "minmax": stencil.neighborhood_minmax.launches,
         "hbao": hbao_kernel.hbao_fused.launches,
-        "poisson": poisson_kernel.poisson_pass_fused.tex_launches[1],
-        "poisson_2tex": poisson_kernel.poisson_pass_fused.tex_launches[2],
-        "sweep": sweep_kernel.sweep_march.launches,
+        "poisson": slots.get((True,), 0),
+        "poisson_2tex": slots.get((False, False), 0),
+        "poisson_1tex": slots.get((False,), 0),
+        "sweep": rays.get(2, 0),
+        "sweep_1ray": rays.get(1, 0),
         "zscan": raster_kernel.zscan.launches,
         "lookup": table_kernel.face_lookup.launches,
         "warp_multi": warp.window_warp_multi.launches,
@@ -790,14 +894,22 @@ def reset_counters():
     hbao_kernel.hbao_fused.launches = 0
     hbao_kernel.noise_table.launches = 0
     poisson_kernel.poisson_pass_fused.launches = 0
-    for n in poisson_kernel.poisson_pass_fused.tex_launches:
-        poisson_kernel.poisson_pass_fused.tex_launches[n] = 0
+    poisson_kernel.poisson_pass_fused.slot_launches.clear()
     sweep_kernel.sweep_march.launches = 0
+    sweep_kernel.sweep_march.ray_launches.clear()
     raster_kernel.zscan.launches = 0
     table_kernel.face_lookup.launches = 0
     warp.window_warp_multi.launches = 0
     poisson_taps.poisson_taps.launches = 0
     stencil.sharpness_3x3.launches = 0
+
+
+def exports_driver(analytic, comp, cam, still):
+    """``drive(first, count)`` of the SSR + GTAO + TAA composer through
+    render(): the camera still for the frames before ``still``, then one
+    orbit step (``analytic.still_then_step``)."""
+    return lambda first, n: analytic.render_frames(
+        comp, cam, n, first, steps=analytic.still_then_step(first, n, still))
 
 
 def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
@@ -841,17 +953,18 @@ def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
     return launches
 
 
-def card_vs_cpu(torch, analytic, make, sphere):
+def card_vs_cpu(torch, analytic, make, sphere, steps=None):
     """3 frames at 270x480 on the card and on the CPU through the same
-    composer (``sphere`` None: ``make``'s scene through render());
-    returns per frame (max, mean, share of pixels > 1e-2, pixels > 1e-3)."""
+    composer (``sphere`` None: ``make``'s scene through render(), the
+    camera at orbit indices ``steps`` where given); returns per frame
+    (max, mean, share of pixels > 1e-2, pixels > 1e-3)."""
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
 
     gpu_comp, gpu_cam = make(270, 480, "cuda")
     cpu_comp, cpu_cam = make(270, 480, "cpu")
     if sphere is None:
-        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, 3)
-        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, 3)
+        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, 3, steps=steps)
+        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, 3, steps=steps)
     else:
         small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
         small = analytic.frames_for(small_cam, 3, 270, 480, "cuda", sphere=sphere)
@@ -920,6 +1033,7 @@ def main() -> int:
     check_ssgi_kernels(torch, analytic, timer, sph_frames, kernels)
     check_raster_kernels(torch, analytic, timer, kernels)
     check_unfused_kernels(torch, analytic, timer, frames, kernels)
+    check_ssr_kernels(torch, analytic, timer, kernels)
 
     # phase 3: the paths at 1920 x 1080
     def external(comp, cam, frames_):
@@ -933,7 +1047,8 @@ def main() -> int:
         return run
 
     names = [k["name"] for k in kernels]
-    new_kernels = ("warp_multi", "poisson_taps", "sharpness")
+    new_kernels = ("warp_multi", "poisson_taps", "sharpness", "sweep_1ray",
+                   "poisson_1tex")
     by_path = {}
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa"] = run_path(
@@ -964,10 +1079,19 @@ def main() -> int:
                            "warp_nearest", "minmax"), smi,
         forbidden=("hbao", "poisson"))
     del comp, frames
+    comp, cam = analytic.reference_exports_composer(HEIGHT, WIDTH, "cuda")
+    by_path["ssr_gtao_taa"] = run_path(
+        torch, comp, exports_driver(analytic, comp, cam, WARMUP + HBAO_TRAA_FRAMES // 2),
+        "SSR+GTAO+TAA", HBAO_TRAA_FRAMES,
+        ("sweep_1ray", "warp_catrom5", "warp_nearest", "warp_bilinear", "minmax",
+         "poisson", "poisson_1tex", "zscan", "lookup"), smi,
+        forbidden=("hbao", "sweep", "poisson_2tex"))
+    del comp
     # each kernel's launches on its own path: the flagship's, the demo
     # stack's for sharpness, the unfused route's for its two kernels
     home = {"sharpness": "demo_stack", "warp_multi": "hbao_traa_unfused",
-            "poisson_taps": "hbao_traa_unfused"}
+            "poisson_taps": "hbao_traa_unfused", "sweep_1ray": "ssr_gtao_taa",
+            "poisson_1tex": "ssr_gtao_taa"}
     for kern in kernels:
         path = home.get(kern["name"], "flagship")
         kern["launches"] = by_path[path][kern["name"]]
@@ -998,6 +1122,9 @@ def main() -> int:
         check("HBAO+TRAA unfused",
               card_vs_cpu(torch, analytic, analytic.hbao_traa_composer, False),
               UNFUSED_SLICE_MAX_TOL, SLICE_MEAN_TOL, 1.0)
+    check("SSR+GTAO+TAA", card_vs_cpu(torch, analytic, analytic.reference_exports_composer,
+                                      None, steps=analytic.still_then_step(0, 3, 2)),
+          SSGI_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,28 +5,30 @@ layout, option names and tensor layouts, with each TPU kernel rewritten
 as a CUDA C++ kernel (``csrc/``) that is built with ``nvcc`` at first use.
 Every kernel's wrapper runs a plain PyTorch version of the same function
 for tensors on the CPU. ``EffectComposer.render`` rasterizes a
-``Scene`` (opaque meshes), shades it and runs ``SSGIEffect`` (under an
-``EquirectEnv`` environment), ``HBAOEffect``, ``MotionBlurEffect``,
-``TRAAEffect``, the finishing effects (``SharpnessEffect``,
+``Scene`` (opaque meshes), shades it and runs ``SSGIEffect`` and
+``SSREffect`` (under an ``EquirectEnv`` environment), ``HBAOEffect``,
+``GTAOEffect``, ``MotionBlurEffect``, ``TRAAEffect``, ``TAAPass``, the
+finishing effects (``SharpnessEffect``,
 ``LensDistortionEffect``, ``SparkleEffect``, ``GradualBackgroundEffect``)
 and the reference demo's companion post-FX (``ToneMappingEffect``,
 ``VignetteEffect``, ``BloomEffect``, ``LUT3DEffect``);
 ``render_external`` runs the effects on buffers the caller supplies.
-GTAO, SSR, TAA, FXAA and SMAA are not ported yet.
+FXAA and SMAA are not ported yet.
 """
 
 from .composer import EffectComposer, FrameContext
 from .core.camera import Camera, CameraMatrices, PerspectiveCamera
 from .core.envmap import EquirectEnv, build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
-from .effects.ao import AOEffect, HBAOEffect
+from .effects.ao import AOEffect, GTAOEffect, HBAOEffect
 from .effects.base import Effect
 from .effects.finishing import (GradualBackgroundEffect, LensDistortionEffect,
                                 SharpnessEffect, SparkleEffect)
 from .effects.motion_blur import MotionBlurEffect
 from .effects.postfx import (BloomEffect, LUT3DEffect, ToneMappingEffect,
                              VignetteEffect, load_lut_3dl)
-from .effects.ssgi import SSGIEffect
+from .effects.ssgi import SSGIEffect, SSREffect
+from .effects.taa import TAAPass
 from .effects.traa import TRAAEffect
 from .ops.ao import AOConfig
 from .ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise
@@ -48,5 +50,5 @@ __all__ = [
     "rasterize_velocity", "shade_direct", "SharpnessEffect",
     "LensDistortionEffect", "SparkleEffect", "GradualBackgroundEffect",
     "ToneMappingEffect", "VignetteEffect", "BloomEffect", "LUT3DEffect",
-    "load_lut_3dl",
+    "load_lut_3dl", "SSREffect", "GTAOEffect", "TAAPass",
 ]

@@ -8,6 +8,11 @@ them, with the camera orbiting as the animated configurations of
 - the reference demo's full stack on the same scene through ``render``:
   SSGI, tone mapping, TRAA, sharpness, vignette, bloom and a grading LUT
   (:func:`demo_stack_composer`);
+- the reference's three other effect exports on the same scene through
+  ``render``: SSR, GTAO and TAA (:func:`reference_exports_composer`),
+  driven as a product viewer is: the camera still for a few frames (TAA
+  accumulates), then one orbit step (TAA starts again)
+  (:func:`still_then_step`);
 - analytic input buffers for driving the effect chain through
   ``render_external`` without the rasterizer: a 20 x 20 ground plane at
   y = 0 with a unit box on it (the scene of the JAX package's
@@ -30,12 +35,13 @@ from .core.camera import PerspectiveCamera
 from .core.envmap import build_equirect_env, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.math3d import uv_grid
-from .effects.ao import HBAOEffect
+from .effects.ao import GTAOEffect, HBAOEffect
 from .effects.finishing import SharpnessEffect
 from .effects.motion_blur import MotionBlurEffect
 from .effects.postfx import (BloomEffect, LUT3DEffect, ToneMappingEffect,
                              VignetteEffect)
-from .effects.ssgi import SSGIEffect
+from .effects.ssgi import SSGIEffect, SSREffect
+from .effects.taa import TAAPass
 from .effects.traa import TRAAEffect
 from .scene.geometry import Material, make_box, make_plane, make_sphere, translation
 from .scene.scene import Scene
@@ -142,18 +148,33 @@ def ray_cast(mats, prev_mats, h: int, w: int, device, sphere: bool = False):
     return gb, vel, color.contiguous()
 
 
-def frames_for(cam, n: int, h: int, w: int, device, first: int = 0,
-               sphere: bool = False):
-    """Buffers of frames ``first .. first + n - 1`` of the orbit."""
-    out = []
-    orbit(cam, first - 1)
+def frames_at(cam, steps, h: int, w: int, device, sphere: bool = False,
+              prev_step: int | None = None):
+    """Buffers of frames with the camera at orbit indices ``steps``; the
+    first frame's previous camera at ``prev_step`` (default: its own)."""
+    orbit(cam, steps[0] if prev_step is None else prev_step)
     prev = cam.matrices()
-    for f in range(first, first + n):
+    out = []
+    for f in steps:
         orbit(cam, f)
         mats = cam.matrices()
         out.append(ray_cast(mats, prev, h, w, device, sphere=sphere))
         prev = mats
     return out
+
+
+def frames_for(cam, n: int, h: int, w: int, device, first: int = 0,
+               sphere: bool = False):
+    """Buffers of frames ``first .. first + n - 1`` of the orbit."""
+    return frames_at(cam, range(first, first + n), h, w, device, sphere,
+                     prev_step=first - 1)
+
+
+def still_then_step(first: int, n: int, still: int) -> list[int]:
+    """Orbit indices of frames ``first .. first + n - 1`` of a camera that
+    holds still for the first ``still`` frames, then takes one orbit step
+    (0.02 rad) and holds still again: 0, then 1."""
+    return [0 if f < still else 1 for f in range(first, first + n)]
 
 
 def hbao_traa_composer(h: int, w: int, device):
@@ -181,12 +202,13 @@ def ssgi_hbao_traa_composer(h: int, w: int, device):
     return comp, cam
 
 
-def run_frames(comp, cam, frames, first: int = 0):
-    """Render ``frames`` (from :func:`frames_for` with the same ``first``)
-    with the camera on the orbit; returns the images."""
+def run_frames(comp, cam, frames, first: int = 0, steps=None):
+    """Render ``frames`` (from :func:`frames_for` with the same ``first``,
+    or from :func:`frames_at` with the same ``steps``) with the camera on
+    the orbit; returns the images."""
     images = []
     for i, (gb, vel, color) in enumerate(frames):
-        orbit(cam, first + i)
+        orbit(cam, first + i if steps is None else steps[i])
         images.append(comp.render_external(gb, vel, color, dt=1 / 60))
     return images
 
@@ -221,14 +243,27 @@ def flagship_composer(h: int, w: int, device):
     return comp, cam
 
 
-def render_frames(comp, cam, n: int, first: int = 0):
+def render_frames(comp, cam, n: int, first: int = 0, steps=None):
     """``comp.render(dt=1/60)`` of frames ``first .. first + n - 1`` with
-    the camera on the orbit; returns the images."""
+    the camera on the orbit (at orbit indices ``steps``, one a frame,
+    where given); returns the images."""
     images = []
-    for f in range(first, first + n):
-        orbit(cam, f)
+    for i, f in enumerate(range(first, first + n)):
+        orbit(cam, f if steps is None else steps[i])
         images.append(comp.render(dt=1 / 60))
     return images
+
+
+def reference_exports_composer(h: int, w: int, device):
+    """``EffectComposer.render`` of :func:`flagship_scene` (under
+    ``procedural_sky(64, 128)``) with the reference's three other effect
+    exports at their defaults: ``SSREffect()`` -> ``GTAOEffect()`` ->
+    ``TAAPass()``; and its camera. Drive it with :func:`still_then_step`."""
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    comp = EffectComposer(flagship_scene(device), cam, w, h, device=device)
+    for effect in (SSREffect(), GTAOEffect(), TAAPass()):
+        comp.add_effect(effect)
+    return comp, cam
 
 
 def demo_lut(size: int = 32) -> np.ndarray:

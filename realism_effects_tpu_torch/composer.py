@@ -172,7 +172,7 @@ class EffectComposer:
                 raise NotImplementedError(
                     f"an environment of shape {arr.shape}: only (H, W, 3) "
                     "equirect maps are ported; cube maps wait for "
-                    "cube_to_equirect (ROADMAP item 10.6)")
+                    "cube_to_equirect (ROADMAP §1 (h))")
             self._env_built = build_equirect_env(arr, device=self.device)
             self._env_key = id(env)
             self._env_raw = env
@@ -211,7 +211,7 @@ class EffectComposer:
         if self.msaa > 1:
             raise NotImplementedError(
                 "msaa > 1 (the supersampled raster) is not ported yet "
-                "(ROADMAP item 10.2)")
+                "(ROADMAP §1 (c))")
         return self._render_frame(None, dt)
 
     def render_external(self, gbuffer: GBuffer, velocity: VelocityBuffer,

@@ -8,8 +8,9 @@ the composer's temporal state. Inputs may be any objects with the fields as attr
 ``np.asarray``) or dicts of arrays. The state layout is the one
 ``jax.tree.map(np.asarray, composer._state)`` gives:
 ``{"__global__": {"last_velocity": <velocity, normal, depth>},
-"<effect>": {...}}``, where a value may also be a list (the SSGI
-history).
+"<effect>": {...}}``, where a value may also be a list (the SSGI and
+SSR histories: two textures and one). A port composer resumes a JAX run
+from it (``EffectComposer.set_state``), TAA's ``accumulated`` included.
 """
 
 from __future__ import annotations

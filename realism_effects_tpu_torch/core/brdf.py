@@ -126,17 +126,25 @@ def to_world(t, b, n, v):
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
 
 
-def cosine_sample_hemisphere(n: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Cosine-weighted direction around normal ``n`` (..., 3) from two
-    uniforms ``u`` (..., 2) (`ssgi_utils.frag:183-191`):
-    ``b = normalize(cross(n, (0, 1, 1)))``, ``t = cross(b, n)``."""
-    r = torch.sqrt(u[..., 0])
-    theta = u[..., 1] * (2.0 * math.pi)
+def hemisphere_basis(n: torch.Tensor):
+    """The tangent frame of :func:`cosine_sample_hemisphere` around
+    normal ``n`` (..., 3): ``b = normalize(cross(n, (0, 1, 1)))``,
+    ``t = cross(b, n)``."""
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
     b = normalize(torch.stack([ny - nz, -nx, nx], dim=-1))
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     t = torch.stack([by * nz - bz * ny, bz * nx - bx * nz,
                      bx * ny - by * nx], dim=-1)
+    return b, t
+
+
+def cosine_sample_hemisphere(n: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted direction around normal ``n`` (..., 3) from two
+    uniforms ``u`` (..., 2) (`ssgi_utils.frag:183-191`), in the frame of
+    :func:`hemisphere_basis`."""
+    r = torch.sqrt(u[..., 0])
+    theta = u[..., 1] * (2.0 * math.pi)
+    b, t = hemisphere_basis(n)
     k1 = (r * torch.sin(theta))[..., None]
     k2 = torch.sqrt(torch.clamp(1.0 - u[..., 0], min=0.0))[..., None]
     k3 = (r * torch.cos(theta))[..., None]

@@ -4,6 +4,7 @@
   (`QuasirandomGenerator.js:11-24`).
 - PCG4D hash + tiled blue-noise texture for per-pixel randomness
   (`blue_noise.glsl:9-48`).
+- The Vogel spiral on the unit disk (GTAO's samples, `Utils.js:104-120`).
 
 The frame index is a host int in this package, so the PCG4D shift of a
 noise index is computed on the host in numpy ``uint32``; the device only
@@ -134,3 +135,15 @@ def blue_noise_transform(height: int, width: int, index: int, fn,
     reps_y = -(-height // size)
     reps_x = -(-width // size)
     return rolled.repeat(reps_y, reps_x, 1)[:height, :width]
+
+
+def vogel_disk(count: int, phi_offset: float = 0.0) -> np.ndarray:
+    """Vogel spiral distribution on the unit disk, as
+    ``generateVogelDistribution`` (`Utils.js:104-120`): radius
+    sqrt(i / n), golden-angle spiral, first point at the origin.
+    Returns (count, 2) float32."""
+    golden = np.pi * (3.0 - np.sqrt(5.0))
+    i = np.arange(count, dtype=np.float64)
+    r = np.sqrt(i / count)
+    theta = i * golden + phi_offset
+    return np.stack([r * np.cos(theta), r * np.sin(theta)], axis=-1).astype(np.float32)

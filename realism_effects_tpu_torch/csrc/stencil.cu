@@ -31,11 +31,18 @@
 // rows y-1, y, y+1 in turn, acc = ((acc + left) + centre) + right), blur
 // as the product acc * f32(1/9), and both multiply-adds contracted (the
 // explicit fmaf below; -fmad=false leaves every other operation
-// separate). Bound by bytes (C floats in and out a
-// pixel; the 9 reads of a texel hit L1). One thread per (pixel,
-// channel) over the interleaved layout, so loads and stores coalesce; a
-// block row is an image row and C is a template parameter, so the index
-// arithmetic is 32-bit with no run-time division.
+// separate). Bound by bytes: C floats in and out a pixel. The first
+// kernel (a thread a float, 9 scalar loads from L1 and a centre load for
+// one 4-byte store) was bound by load/store issue at 41% of that bound.
+// Design: a thread owns 4 consecutive floats [j, j+4) of the flattened
+// row and a column of R rows. With C <= 4 their horizontal neighbours
+// lie in [j-4, j+8): three 16-byte units a row, kept in registers for
+// the rows y-1, y and y+1 as the thread walks down (3 (R + 2) loads for
+// 4 R outputs, one 16-byte store a row). Edge replication is decided a
+// float from its flat index (x = 0 iff j < C, x = w-1 iff j >= w C - C),
+// with no division. The 16-byte route runs where the entry point finds
+// tex and out 16-byte aligned and w C % 4 == 0; else the same kernel
+// loads and stores each float on its own.
 #include "common.cuh"
 
 namespace {
@@ -165,29 +172,126 @@ minmax_kernel(const float* __restrict__ tex, float* __restrict__ mn,
   }
 }
 
-template <int C>
+// Floats [j0-4, j0+8) of a row into v, the units past the row's ends
+// left unread (no output selects them).
+template <bool VEC>
+__device__ __forceinline__ void sharp_span(const float* __restrict__ row,
+                                           int j0, int n, float (&v)[12]) {
+  if (VEC) {
+    const re::F4 m = *reinterpret_cast<const re::F4*>(row + j0);
+    re::F4 l = m;
+    re::F4 r = m;
+    if (j0 >= 4) l = *reinterpret_cast<const re::F4*>(row + j0 - 4);
+    if (j0 + 4 < n) r = *reinterpret_cast<const re::F4*>(row + j0 + 4);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = l.v[k];
+      v[4 + k] = m.v[k];
+      v[8 + k] = r.v[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const int j = j0 - 4 + k;
+      v[k] = (j >= 0 && j < n) ? row[j] : 0.0f;
+    }
+  }
+}
+
+// One output float: a, b, c are the spans of the rows y-1, y, y+1; K the
+// float's place in the thread's unit (its span index 4 + K).
+template <int C, int K>
+__device__ __forceinline__ float sharp_one(const float (&a)[12],
+                                           const float (&b)[12],
+                                           const float (&c)[12], bool has_l,
+                                           bool has_r, float s) {
+  float acc = 0.0f;
+  acc = acc + (has_l ? a[4 + K - C] : a[4 + K]);
+  acc = acc + a[4 + K];
+  acc = acc + (has_r ? a[4 + K + C] : a[4 + K]);
+  acc = acc + (has_l ? b[4 + K - C] : b[4 + K]);
+  acc = acc + b[4 + K];
+  acc = acc + (has_r ? b[4 + K + C] : b[4 + K]);
+  acc = acc + (has_l ? c[4 + K - C] : c[4 + K]);
+  acc = acc + c[4 + K];
+  acc = acc + (has_r ? c[4 + K + C] : c[4 + K]);
+  const float cur = b[4 + K];
+  const float d = fmaf(-acc, static_cast<float>(1.0 / 9.0), cur);
+  return re::pmax(fmaf(d, s, cur), 0.0f);
+}
+
+template <int C, int R, bool VEC>
 __global__ void sharpness_kernel(const float* __restrict__ tex,
                                  float* __restrict__ out, int h, int w,
                                  float s) {
-  // blockIdx.y is the row; the threads walk its w * C floats
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (j >= w * C) return;
-  const int x = j / C;
-  const int ch = j - x * C;
-  const int xl = max(x - 1, 0) * C + ch;
-  const int xr = min(x + 1, w - 1) * C + ch;
-  float acc = 0.0f;
-  for (int dy = -1; dy <= 1; ++dy) {
-    const float* row = tex + static_cast<size_t>(re::clampi(y + dy, 0, h - 1)) * w * C;
-    acc = acc + row[xl];
-    acc = acc + row[j];
-    acc = acc + row[xr];
+  const int n = w * C;  // floats a row
+  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  const int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * R;
+  if (j0 >= n || y0 >= h) return;
+  // left / right neighbour inside the row (else the float itself)
+  bool has_l[4], has_r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    has_l[k] = j0 + k >= C;
+    has_r[k] = j0 + k < n - C;
   }
-  const size_t i = static_cast<size_t>(y) * w * C + j;
-  const float cur = tex[i];
-  const float d = fmaf(-acc, static_cast<float>(1.0 / 9.0), cur);
-  out[i] = re::pmax(fmaf(d, s, cur), 0.0f);
+  const auto row = [&](int y) { return tex + static_cast<size_t>(y) * n; };
+  float a[12], b[12], c[12];
+  sharp_span<VEC>(row(max(y0 - 1, 0)), j0, n, a);
+  sharp_span<VEC>(row(y0), j0, n, b);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int y = y0 + i;
+    if (y >= h) break;
+    sharp_span<VEC>(row(min(y + 1, h - 1)), j0, n, c);
+    re::F4 o;
+    o.v[0] = sharp_one<C, 0>(a, b, c, has_l[0], has_r[0], s);
+    o.v[1] = sharp_one<C, 1>(a, b, c, has_l[1], has_r[1], s);
+    o.v[2] = sharp_one<C, 2>(a, b, c, has_l[2], has_r[2], s);
+    o.v[3] = sharp_one<C, 3>(a, b, c, has_l[3], has_r[3], s);
+    float* dst = out + static_cast<size_t>(y) * n + j0;
+    if (VEC) {
+      *reinterpret_cast<re::F4*>(dst) = o;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (j0 + k < n) dst[k] = o.v[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      a[k] = b[k];
+      b[k] = c[k];
+    }
+  }
+}
+
+template <int C, int R>
+int launch_sharpness(const float* tex, float* out, int h, int w, float sh,
+                     bool vec, int bx, int by, cudaStream_t s) {
+  const int units = (w * C + 3) / 4;
+  const int groups = (h + R - 1) / R;
+  const dim3 block(bx, by);
+  const dim3 grid((units + bx - 1) / bx, (groups + by - 1) / by);
+  if (vec) {
+    sharpness_kernel<C, R, true><<<grid, block, 0, s>>>(tex, out, h, w, sh);
+  } else {
+    sharpness_kernel<C, R, false><<<grid, block, 0, s>>>(tex, out, h, w, sh);
+  }
+  return cudaGetLastError();
+}
+
+template <int C>
+int launch_sharpness_rows(const float* tex, float* out, int h, int w,
+                          float sh, bool vec, int rows, int bx, int by,
+                          cudaStream_t s) {
+  switch (rows) {
+    case 1: return launch_sharpness<C, 1>(tex, out, h, w, sh, vec, bx, by, s);
+    case 2: return launch_sharpness<C, 2>(tex, out, h, w, sh, vec, bx, by, s);
+    case 4: return launch_sharpness<C, 4>(tex, out, h, w, sh, vec, bx, by, s);
+    case 8: return launch_sharpness<C, 8>(tex, out, h, w, sh, vec, bx, by, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int C>
@@ -235,24 +339,24 @@ extern "C" int re_minmax(const float* tex, float* mn, float* mx, int h, int w,
   }
 }
 
-// params: {sharpness}
+// params: {sharpness}. rows: R, the rows a thread walks (1, 2, 4 or 8);
+// bx x by: the block. The 16-byte route where tex and out are 16-byte
+// aligned and a row holds whole 16-byte units.
 extern "C" int re_sharpness(const float* tex, float* out, int h, int w, int c,
-                            const float* params, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(256);
-  const dim3 grid((w * c + 255) / 256, h);
-#define RE_SHARPNESS_CASE(CC)                                                 \
-  case CC:                                                                    \
-    sharpness_kernel<CC><<<grid, block, 0, s>>>(tex, out, h, w, params[0]);   \
-    break;
-  switch (c) {
-    RE_SHARPNESS_CASE(1)
-    RE_SHARPNESS_CASE(2)
-    RE_SHARPNESS_CASE(3)
-    RE_SHARPNESS_CASE(4)
-    default:
-      return cudaErrorInvalidValue;
+                            int rows, int bx, int by, const float* params,
+                            void* stream) {
+  if (h < 1 || w < 1 || c < 1 || c > 4 || bx < 1 || by < 1 ||
+      bx * by > 1024 || static_cast<long long>(h) * w * c >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
   }
-#undef RE_SHARPNESS_CASE
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = (w * c) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(tex) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  switch (c) {
+    case 1: return launch_sharpness_rows<1>(tex, out, h, w, params[0], vec, rows, bx, by, s);
+    case 2: return launch_sharpness_rows<2>(tex, out, h, w, params[0], vec, rows, bx, by, s);
+    case 3: return launch_sharpness_rows<3>(tex, out, h, w, params[0], vec, rows, bx, by, s);
+    default: return launch_sharpness_rows<4>(tex, out, h, w, params[0], vec, rows, bx, by, s);
+  }
 }

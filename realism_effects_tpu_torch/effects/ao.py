@@ -1,12 +1,13 @@
-"""AO effects (`AOEffect.js`, `HBAOEffect.js`): AO pass -> Poisson
-denoise -> multiplicative compose. ``GTAOEffect`` is not ported yet."""
+"""AO effects (`AOEffect.js`, `HBAOEffect.js`, `GTAOEffect.js`): AO pass
+-> Poisson denoise -> multiplicative compose. As in the JAX package, the
+GTAO wiring is the repaired one (the reference's is unexported)."""
 
 from __future__ import annotations
 
 from ..core.framebuffers import GBuffer
 from ..core.math3d import uv_grid
 from ..core.sampling import sample_bilinear, sample_nearest
-from ..ops.ao import AOConfig, hbao
+from ..ops.ao import AOConfig, gtao, hbao
 from ..ops.compose import ao_compose
 from ..ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise_ao
 from .base import Effect
@@ -92,3 +93,18 @@ class HBAOEffect(AOEffect):
         normal = gbuffer.normal if self.cfg.use_normal_texture else None
         return hbao(gbuffer.depth, normal, ctx.unjittered_cam,
                     ctx.frame_index, self.cfg)
+
+
+class GTAOEffect(AOEffect):
+    """Ground-truth AO (`GTAOEffect.js`); 16 samples by default, the
+    reference's Vogel table."""
+
+    name = "gtao"
+    kind = "gtao"
+
+    def __init__(self, spp: int = 16, **kw):
+        super().__init__(spp=spp, **kw)
+
+    def _ao(self, ctx, gbuffer):
+        return gbuffer.normal, gtao(gbuffer.depth, ctx.unjittered_cam,
+                                    ctx.frame_index, self.cfg)

@@ -8,8 +8,11 @@ denoised output (`Denoiser.js:51`), both in this effect's state.
 "denoised" | "temporal"). ``selection`` honours ``Mesh.gi_exclude``
 (`SSGIPass.js:71-79`): "mask" sends the excluded meshes' pixels of the
 G-buffer to background by its ``mesh_id``; "rerender" runs the whole
-chain on the composer's second raster pass without them. Not ported
-yet: ``SSREffect`` (ROADMAP item 10.1).
+chain on the composer's second raster pass without them.
+
+``SSREffect`` (`SSREffect.js`) is the same chain with ``mode = "ssr"``:
+the specular ray alone is traced, one texture is reprojected, denoised
+and composed over the scene colour.
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ class SSGIEffect(Effect):
             raise ValueError("selection must be 'mask' or 'rerender'")
         if trace == "march":
             raise NotImplementedError(
-                "trace='march' is not ported yet (ROADMAP item 10.5)")
+                "trace='march' is not ported yet (ROADMAP §1 (g))")
         if trace != "sweep":
             raise ValueError("trace must be 'march' or 'sweep'")
         self.distance = distance
@@ -109,15 +112,17 @@ class SSGIEffect(Effect):
             use_direct_light=use_direct_light, env_box=env_box, trace=trace,
             sweep_dirs=sweep_dirs, sweep_steps=sweep_steps,
             env_fetch_stride=env_fetch_stride)
+        n_tex = 2 if self.mode == "ssgi" else 1
         self.temporal_cfg = TemporalReprojectConfig(
-            texture_count=2, log_transform=True,
-            reproject_specular=(False, True), neighborhood_clamp=(True, True),
-            confidence_power=0.75, input_type="diffuse_specular")
+            texture_count=n_tex, log_transform=True,
+            reproject_specular=(False, True) if n_tex == 2 else (True,),
+            neighborhood_clamp=(True,) * n_tex, confidence_power=0.75,
+            input_type="diffuse_specular" if n_tex == 2 else "specular")
         self.denoise_cfg = PoissonDenoiseConfig(
             iterations=denoise_iterations, radius=radius, phi=phi,
             luma_phi=luma_phi, depth_phi=depth_phi, normal_phi=normal_phi,
             roughness_phi=roughness_phi, specular_phi=specular_phi,
-            is_specular=(False, True))
+            is_specular=(False, True) if n_tex == 2 else (True,))
 
     def static_key(self):
         return (self.cfg, self.temporal_cfg, self.denoise_cfg,
@@ -191,8 +196,10 @@ class SSGIEffect(Effect):
                                          state["composed"], color, **trace_args)
 
         # 2. temporal reprojection (`Denoiser.js:33-42`)
+        ssgi_mode = self.mode == "ssgi"
+        inputs = [g_diffuse, g_specular] if ssgi_mode else [g_specular]
         temporal = temporal_reproject(
-            [g_diffuse, g_specular], state["history"], ctx.velocity,
+            inputs, state["history"], ctx.velocity,
             ctx.last_velocity, ctx.cam, ctx.prev_cam, self.temporal_cfg,
             max_blend=1.0, neighborhood_clamp_intensity=0.5,
             full_accumulate=not g["camera_moved"], keep_data=g["keep_data"],
@@ -205,8 +212,15 @@ class SSGIEffect(Effect):
         else:
             denoised = temporal
 
-        # 4. GI composition, 5. over the scene (+ fog)
-        composed = denoiser_compose(denoised[0], denoised[1], gbuffer, ctx.cam)
+        # 4. GI composition (SSR: the specular texture over the scene
+        #    colour), 5. over the scene (+ fog)
+        if ssgi_mode:
+            composed = denoiser_compose(denoised[0], denoised[1], gbuffer,
+                                        ctx.cam)
+        else:
+            composed = denoiser_compose(denoised[0], denoised[0], gbuffer,
+                                        ctx.cam, scene_color=color,
+                                        input_type="specular")
         out = ssgi_compose(composed, color, gbuffer.depth, ctx.cam,
                            fog_color=self.fog_color,
                            fog_density=self.fog_density)
@@ -222,3 +236,10 @@ class SSGIEffect(Effect):
                 "composed": composed,
             }[self.output_texture], new_state
         return out, new_state
+
+
+class SSREffect(SSGIEffect):
+    """Specular-only screen-space reflections (`SSREffect.js:3-9`)."""
+
+    name = "ssr"
+    mode = "ssr"

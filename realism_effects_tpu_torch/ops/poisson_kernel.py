@@ -233,13 +233,15 @@ def poisson_pass_fused(textures, gbuffer, noise_index: int, cfg,
     else:
         out = _launch(bundle, slot_ch, scalar_slots, noise_index, cfg)
         poisson_pass_fused.launches += 1
-        poisson_pass_fused.tex_launches[n_tex] += 1
+        kinds = poisson_pass_fused.slot_launches
+        kinds[scalar_slots] = kinds.get(scalar_slots, 0) + 1
     return [out[..., 4 * s: 4 * s + 4] for s in range(n_tex)]
 
 
 poisson_pass_fused.launches = 0
-#: the launches split by texture count (1: the AO pass, 2: SSGI's)
-poisson_pass_fused.tex_launches = dict.fromkeys(range(1, MAX_TEX + 1), 0)
+#: the launches split by their slots, keyed by ``scalar_slots``: (True,)
+#: the AO pass, (False,) SSR's one RGBA texture, (False, False) SSGI's two
+poisson_pass_fused.slot_launches = {}
 
 
 def _launch(bundle, slot_ch, scalar_slots, noise_index, cfg):

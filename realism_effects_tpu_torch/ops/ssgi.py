@@ -131,7 +131,7 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
     packs them."""
     if cfg.trace != "sweep":
         raise NotImplementedError(
-            f"trace={cfg.trace!r} is not ported yet (ROADMAP item 10.5); "
+            f"trace={cfg.trace!r} is not ported yet (ROADMAP §1 (g)); "
             "the port traces with trace='sweep'")
     h, w = gbuffer.depth.shape
     dev = gbuffer.depth.device

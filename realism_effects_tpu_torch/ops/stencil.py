@@ -29,7 +29,12 @@ rows above, at and below: ``acc = ((acc + left) + centre) + right``),
 ``blur = acc * (1/9)`` as a product, and the two multiply-adds
 contracted, ``d = fma(-acc, 1/9, c)`` and ``out = fma(d, s, c)``. Any
 other order or rounding differs from it by an ulp on a sixth of the
-pixels. Bound by bytes; one thread per (pixel, channel).
+pixels. Bound by bytes. A thread owns 4 consecutive floats of the
+flattened row and walks :data:`SHARPNESS_ROWS` rows down, keeping three
+16-byte units of each of the rows above, at and below in registers, and
+writes each row's 4 floats with one 16-byte store; where the image or
+the output is not 16-byte aligned, or a row is not a whole number of
+16-byte units, the same kernel moves each float on its own.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ from ..core.math3d import fma
 from . import cuda_build
 
 BIG = 1e30
+#: sharpness kernel: rows a thread walks (1, 2, 4 or 8), and its block
+SHARPNESS_ROWS = 2
+SHARPNESS_BLOCK = (128, 2)
 
 
 def neighborhood_minmax_plain(tex: torch.Tensor, radius: int):
@@ -122,16 +130,22 @@ def sharpness_3x3(color: torch.Tensor, sharpness: float) -> torch.Tensor:
 sharpness_3x3.launches = 0
 
 
-def _launch_sharpness(color, sharpness):
+def _launch_sharpness(color, sharpness, rows=None, block=None):
+    """The kernel's launch; ``rows`` and ``block`` default to
+    :data:`SHARPNESS_ROWS` and :data:`SHARPNESS_BLOCK`."""
     h, w, c = color.shape
     if c > 4:
         raise ValueError(f"sharpness_3x3 takes at most 4 channels, not {c}")
+    if h * w * c >= 1 << 31:
+        raise ValueError(f"sharpness_3x3 takes fewer than 2^31 floats, not {h * w * c}")
     color = color.contiguous()
     cuda_build.require_cuda(color)
     out = torch.empty_like(color)
     params = np.array([sharpness], np.float32)
-    fn = cuda_build.bind("stencil", "re_sharpness", 2, 3, 1)
-    err = fn(color.data_ptr(), out.data_ptr(), h, w, c, params.ctypes.data,
-             cuda_build.stream_ptr(color))
+    bx, by = SHARPNESS_BLOCK if block is None else block
+    fn = cuda_build.bind("stencil", "re_sharpness", 2, 6, 1)
+    err = fn(color.data_ptr(), out.data_ptr(), h, w, c,
+             SHARPNESS_ROWS if rows is None else int(rows), int(bx), int(by),
+             params.ctypes.data, cuda_build.stream_ptr(color))
     cuda_build.check(err, "sharpness kernel")
     return out

@@ -110,10 +110,14 @@ def sweep_march(z_tex, radiance, planes, table, radii_prev, thickness,
     out = _launch(z_tex, radiance, planes, table, radii_prev, thickness,
                   ray_distance, n_rays, dirs, steps, miss_gi)
     sweep_march.launches += 1
+    rays = sweep_march.ray_launches
+    rays[n_rays] = rays.get(n_rays, 0) + 1
     return out
 
 
 sweep_march.launches = 0
+#: the launches split by ray count (2: SSGI's, 1: SSR's)
+sweep_march.ray_launches = {}
 
 
 def packed_table(table, radii_prev, dirs: int, steps: int) -> np.ndarray:

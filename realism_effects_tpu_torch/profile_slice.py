@@ -2,7 +2,7 @@
 
     python -m realism_effects_tpu_torch.profile_slice [--frames 24]
         [--width 1920] [--height 1080]
-        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused]
+        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused|ssr_gtao_taa]
 
 Renders the analytic scene (``analytic.py``) through
 ``EffectComposer.render_external`` with ``HBAOEffect()`` +
@@ -14,7 +14,9 @@ sphere in the scene (path ``ssgi_hbao_traa``); or the flagship scene
 through ``EffectComposer.render``: raster, shade, then SSGI, HBAO,
 motion blur and TRAA (path ``flagship``) or the reference demo's stack,
 SSGI, tone mapping, TRAA, sharpness, vignette, bloom and a grading LUT
-(path ``demo_stack``). After 4 warm-up
+(path ``demo_stack``), or the reference's other three exports, SSR,
+GTAO and TAA, with the camera still and then one orbit step half way
+through the host-timed frames (path ``ssr_gtao_taa``). After 4 warm-up
 frames, ``--frames`` frames timed on the host clock (synchronised at the
 end), 4 frames with ``collect_timings``, then ``--frames`` frames under
 ``torch.profiler``. Prints one JSON line a path: host ms/frame, each
@@ -48,7 +50,8 @@ PORT_KERNELS = ("warp_kernel", "warp_multi_kernel", "minmax_kernel",
                 "poisson_kernel",
                 "taps_kernel", "sweep_kernel", "zscan_kernel", "lookup_kernel")
 PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship", "demo_stack",
-         "hbao_traa_unfused")
+         "hbao_traa_unfused", "ssr_gtao_taa")
+WARM = 4
 
 
 def _driver(path: str, h: int, w: int, n: int):
@@ -59,6 +62,12 @@ def _driver(path: str, h: int, w: int, n: int):
                 "demo_stack": analytic.demo_stack_composer}[path]
         comp, cam = make(h, w, "cuda")
         return (lambda first, count: analytic.render_frames(comp, cam, count, first)), comp
+    if path == "ssr_gtao_taa":
+        comp, cam = analytic.reference_exports_composer(h, w, "cuda")
+        still = WARM + (n - WARM) // 4
+        return (lambda first, count: analytic.render_frames(
+            comp, cam, count, first,
+            steps=analytic.still_then_step(first, count, still))), comp
     make, sphere = {"hbao_traa": (analytic.hbao_traa_composer, False),
                     "hbao_traa_unfused": (analytic.hbao_traa_composer, False),
                     "ssgi_hbao_traa": (analytic.ssgi_hbao_traa_composer, True)}[path]
@@ -97,7 +106,7 @@ def _stage_busy(kernels, stages, n: int) -> dict:
 
 
 def profile_path(path: str, h: int, w: int, n: int, smi: str) -> dict:
-    warm = 4
+    warm = WARM
     drive, comp = _driver(path, h, w, warm + 2 * n)
     drive(0, warm)
     torch.cuda.synchronize()

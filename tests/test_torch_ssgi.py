@@ -171,7 +171,7 @@ def test_ssgi_matches_jax(jax_ssgi, jax_env, frame):
 
 def test_ssgi_march_trace_waits():
     gb, vel, color, tcam, _ = _frame(0)
-    with pytest.raises(NotImplementedError, match="10.5"):
+    with pytest.raises(NotImplementedError, match=r"§1 \(g\)"):
         tssgi.ssgi(gb, vel, torch.zeros(H, W, 3), color, None, tcam, 0,
                    tssgi.SSGIConfig(trace="march"))
 
