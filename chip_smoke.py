@@ -21,8 +21,7 @@ Phases (any failure raises and the script exits non-zero):
    Poisson pass with one RGBA slot those of frame 5 of the SSR + GTAO +
    TAA path. More checks print on their
    own lines: sharpness at C = 4 and on a colour that is a view 4 bytes
-   into its storage (exact), and its rows a thread and block timed in
-   turns; the z-scan on a tie-heavy synthetic table at 1080p (0
+   into its storage (exact); the z-scan on a tie-heavy synthetic table at 1080p (0
    winner flips, exact z); both Poisson passes at radius 12, where taps
    leave the kernel's staged halo; the tap fetch at radius 12 against
    ``bundle[iy, ix]`` (exact); the catrom5 warp on a history that is a
@@ -459,7 +458,7 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
     h, w = HEIGHT, WIDTH
     maxerr = lambda a, b: _maxerr(torch, a, b)
     comp, cam = analytic.ssgi_hbao_traa_composer(h, w, "cuda")
-    analytic.run_frames(comp, cam, frames[:SWEEP_FRAME])
+    analytic.run_frames(comp, cam, frames[:SWEEP_FRAME], range(SWEEP_FRAME))
     accumulated = comp.state("ssgi")["composed"]
     cfg = comp.effects[0].denoise_cfg
 
@@ -481,7 +480,7 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
     poisson_denoise.poisson_pass_fused = record_pass
     try:
         analytic.run_frames(comp, cam, frames[SWEEP_FRAME:SWEEP_FRAME + 1],
-                            first=SWEEP_FRAME)
+                            [SWEEP_FRAME])
     finally:
         ssgi_sweep.sweep_march = march
         poisson_denoise.poisson_pass_fused = ppass
@@ -708,17 +707,6 @@ def check_unfused_kernels(torch, analytic, timer, frames, results):
               flush=True)
         if not e_ <= 0.0:
             raise AssertionError(f"sharpness {label}: {e_} > 0.0")
-    # the rows a thread and the block, timed in turns (C = 3); the entry
-    # above runs stencil.SHARPNESS_ROWS and SHARPNESS_BLOCK
-    tune = {}
-    for rows in (1, 2, 4, 8):
-        for blk in ((128, 2), (32, 4), (256, 1)):
-            if not torch.equal(stencil._launch_sharpness(color, 1.0, rows, blk), k):
-                raise AssertionError(f"sharpness at {rows} rows, block {blk} differs")
-            tune[f"R{rows} {blk[0]}x{blk[1]}"] = timer(
-                lambda: stencil._launch_sharpness(color, 1.0, rows, blk))
-    print(f"[tune] sharpness C = 3, ms by rows a thread and block (all exact): "
-          f"{json.dumps(tune)}", flush=True)
 
 
 def _zscan_ops(tab, h, w):
@@ -782,7 +770,7 @@ def check_raster_kernels(torch, analytic, timer, results):
     h, w = HEIGHT, WIDTH
     maxerr = lambda a, b: _maxerr(torch, a, b)
     comp, cam = analytic.flagship_composer(h, w, "cuda")
-    analytic.render_frames(comp, cam, SWEEP_FRAME)
+    analytic.render_frames(comp, cam, range(SWEEP_FRAME))
     captured = {"zscan": [], "lookup": []}
     visibility, lookup = rasterizer.zscan_visibility, rasterizer.face_lookup
 
@@ -794,7 +782,7 @@ def check_raster_kernels(torch, analytic, timer, results):
     rasterizer.zscan_visibility = record_visibility
     rasterizer.face_lookup = lambda t, i: captured["lookup"].append((t, i)) or lookup(t, i)
     try:
-        analytic.render_frames(comp, cam, 1, first=SWEEP_FRAME)
+        analytic.render_frames(comp, cam, [SWEEP_FRAME])
     finally:
         rasterizer.zscan_visibility, rasterizer.face_lookup = visibility, lookup
     del comp
@@ -909,7 +897,7 @@ def exports_driver(analytic, comp, cam, still):
     render(): the camera still for the frames before ``still``, then one
     orbit step (``analytic.still_then_step``)."""
     return lambda first, n: analytic.render_frames(
-        comp, cam, n, first, steps=analytic.still_then_step(first, n, still))
+        comp, cam, analytic.still_then_step(first, n, still))
 
 
 def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
@@ -953,29 +941,29 @@ def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
     return launches
 
 
-def card_vs_cpu(torch, analytic, make, sphere, steps=None):
+def card_vs_cpu(torch, analytic, make, sphere, steps=range(3)):
     """3 frames at 270x480 on the card and on the CPU through the same
-    composer (``sphere`` None: ``make``'s scene through render(), the
-    camera at orbit indices ``steps`` where given); returns per frame
+    composer, the camera at orbit indices ``steps`` (``sphere`` None:
+    ``make``'s scene through render()); returns per frame
     (max, mean, share of pixels > 1e-2, pixels > 1e-3)."""
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
 
     gpu_comp, gpu_cam = make(270, 480, "cuda")
     cpu_comp, cpu_cam = make(270, 480, "cpu")
     if sphere is None:
-        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, 3, steps=steps)
-        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, 3, steps=steps)
+        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, steps)
+        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, steps)
     else:
         small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
-        small = analytic.frames_for(small_cam, 3, 270, 480, "cuda", sphere=sphere)
-        gpu_imgs = analytic.run_frames(gpu_comp, gpu_cam, small)
+        small = analytic.frames_at(small_cam, steps, 270, 480, "cuda", sphere=sphere)
+        gpu_imgs = analytic.run_frames(gpu_comp, gpu_cam, small, steps)
         cpu_frames = [(gb_.replace(**{f: getattr(gb_, f).cpu() for f in
                                       ("diffuse", "normal", "roughness", "metalness",
                                        "emissive", "depth")}),
                        type(vel_)(velocity=vel_.velocity.cpu(), normal=vel_.normal.cpu(),
                                   depth=vel_.depth.cpu()),
                        col_.cpu()) for gb_, vel_, col_ in small]
-        cpu_imgs = analytic.run_frames(cpu_comp, cpu_cam, cpu_frames)
+        cpu_imgs = analytic.run_frames(cpu_comp, cpu_cam, cpu_frames, steps)
     out = []
     for a, b in zip(gpu_imgs, cpu_imgs):
         d = (a.cpu() - b).abs()
@@ -1023,9 +1011,10 @@ def main() -> int:
 
     # phase 2: kernels vs plain at the 1080p shapes
     cam = PerspectiveCamera(50, WIDTH / HEIGHT, 0.1, 100)
-    frames = analytic.frames_for(cam, WARMUP + HBAO_TRAA_FRAMES, HEIGHT, WIDTH, "cuda")
-    sph_frames = analytic.frames_for(cam, WARMUP + FRAMES, HEIGHT, WIDTH, "cuda",
-                                     sphere=True)
+    frames = analytic.frames_at(cam, range(WARMUP + HBAO_TRAA_FRAMES), HEIGHT, WIDTH,
+                                "cuda")
+    sph_frames = analytic.frames_at(cam, range(WARMUP + FRAMES), HEIGHT, WIDTH, "cuda",
+                                    sphere=True)
     torch.cuda.synchronize()
     timer = Timer(torch)
     kernels = Entries()
@@ -1038,7 +1027,7 @@ def main() -> int:
     # phase 3: the paths at 1920 x 1080
     def external(comp, cam, frames_):
         return lambda first, n: analytic.run_frames(
-            comp, cam, frames_[first:first + n], first=first)
+            comp, cam, frames_[first:first + n], range(first, first + n))
 
     def unfused(drive):
         def run(first, n):
@@ -1062,12 +1051,14 @@ def main() -> int:
     del comp, sph_frames
     comp, cam = analytic.flagship_composer(HEIGHT, WIDTH, "cuda")
     by_path["flagship"] = run_path(
-        torch, comp, lambda first, n: analytic.render_frames(comp, cam, n, first),
+        torch, comp, lambda first, n: analytic.render_frames(
+            comp, cam, range(first, first + n)),
         "flagship", FRAMES, [k for k in names if k not in new_kernels], smi)
     del comp
     comp, cam = analytic.demo_stack_composer(HEIGHT, WIDTH, "cuda")
     by_path["demo_stack"] = run_path(
-        torch, comp, lambda first, n: analytic.render_frames(comp, cam, n, first),
+        torch, comp, lambda first, n: analytic.render_frames(
+            comp, cam, range(first, first + n)),
         "demo stack", HBAO_TRAA_FRAMES,
         ("sharpness", "sweep", "zscan", "lookup", "warp_catrom5", "warp_nearest",
          "warp_bilinear", "minmax", "poisson_2tex"), smi)

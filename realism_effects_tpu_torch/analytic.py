@@ -148,11 +148,12 @@ def ray_cast(mats, prev_mats, h: int, w: int, device, sphere: bool = False):
     return gb, vel, color.contiguous()
 
 
-def frames_at(cam, steps, h: int, w: int, device, sphere: bool = False,
-              prev_step: int | None = None):
-    """Buffers of frames with the camera at orbit indices ``steps``; the
-    first frame's previous camera at ``prev_step`` (default: its own)."""
-    orbit(cam, steps[0] if prev_step is None else prev_step)
+def frames_at(cam, steps, h: int, w: int, device, sphere: bool = False):
+    """Buffers of frames with the camera at orbit indices ``steps``, one a
+    frame (``range(first, first + n)`` for the orbiting camera,
+    :func:`still_then_step` for one that holds still, then moves); the
+    first frame's previous camera one orbit step before its own."""
+    orbit(cam, steps[0] - 1)
     prev = cam.matrices()
     out = []
     for f in steps:
@@ -161,13 +162,6 @@ def frames_at(cam, steps, h: int, w: int, device, sphere: bool = False,
         out.append(ray_cast(mats, prev, h, w, device, sphere=sphere))
         prev = mats
     return out
-
-
-def frames_for(cam, n: int, h: int, w: int, device, first: int = 0,
-               sphere: bool = False):
-    """Buffers of frames ``first .. first + n - 1`` of the orbit."""
-    return frames_at(cam, range(first, first + n), h, w, device, sphere,
-                     prev_step=first - 1)
 
 
 def still_then_step(first: int, n: int, still: int) -> list[int]:
@@ -202,13 +196,12 @@ def ssgi_hbao_traa_composer(h: int, w: int, device):
     return comp, cam
 
 
-def run_frames(comp, cam, frames, first: int = 0, steps=None):
-    """Render ``frames`` (from :func:`frames_for` with the same ``first``,
-    or from :func:`frames_at` with the same ``steps``) with the camera on
-    the orbit; returns the images."""
+def run_frames(comp, cam, frames, steps):
+    """Render ``frames`` (from :func:`frames_at`) with the camera at the
+    same orbit indices ``steps``; returns the images."""
     images = []
-    for i, (gb, vel, color) in enumerate(frames):
-        orbit(cam, first + i if steps is None else steps[i])
+    for (gb, vel, color), f in zip(frames, steps, strict=True):
+        orbit(cam, f)
         images.append(comp.render_external(gb, vel, color, dt=1 / 60))
     return images
 
@@ -243,13 +236,13 @@ def flagship_composer(h: int, w: int, device):
     return comp, cam
 
 
-def render_frames(comp, cam, n: int, first: int = 0, steps=None):
-    """``comp.render(dt=1/60)`` of frames ``first .. first + n - 1`` with
-    the camera on the orbit (at orbit indices ``steps``, one a frame,
-    where given); returns the images."""
+def render_frames(comp, cam, steps):
+    """``comp.render(dt=1/60)`` of a frame at each orbit index of
+    ``steps`` (``range(first, first + n)`` or :func:`still_then_step`);
+    returns the images."""
     images = []
-    for i, f in enumerate(range(first, first + n)):
-        orbit(cam, f if steps is None else steps[i])
+    for f in steps:
+        orbit(cam, f)
         images.append(comp.render(dt=1 / 60))
     return images
 

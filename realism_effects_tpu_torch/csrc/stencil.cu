@@ -35,10 +35,12 @@
 // kernel (a thread a float, 9 scalar loads from L1 and a centre load for
 // one 4-byte store) was bound by load/store issue at 41% of that bound.
 // Design: a thread owns 4 consecutive floats [j, j+4) of the flattened
-// row and a column of R rows. With C <= 4 their horizontal neighbours
-// lie in [j-4, j+8): three 16-byte units a row, kept in registers for
-// the rows y-1, y and y+1 as the thread walks down (3 (R + 2) loads for
-// 4 R outputs, one 16-byte store a row). Edge replication is decided a
+// row and a column of kShR = 2 rows (blocks of 128 x 2 threads; of the
+// rows 1, 2, 4 and 8 a thread and three blocks timed on the H100, the
+// fastest). With C <= 4 their horizontal neighbours lie in [j-4, j+8):
+// three 16-byte units a row, kept in registers for the rows y-1, y and
+// y+1 as the thread walks down (3 (kShR + 2) loads for 4 kShR outputs,
+// one 16-byte store a row). Edge replication is decided a
 // float from its flat index (x = 0 iff j < C, x = w-1 iff j >= w C - C),
 // with no division. The 16-byte route runs where the entry point finds
 // tex and out 16-byte aligned and w C % 4 == 0; else the same kernel
@@ -51,6 +53,10 @@ constexpr int kMmBX = 32;  // minmax block: 32 x 8 threads
 constexpr int kMmBY = 8;
 constexpr int kMmPY = 2;   // rows a thread: the tile is 32 x 16
 constexpr int kMmTH = kMmBY * kMmPY;
+
+constexpr int kShR = 2;     // sharpness: rows a thread
+constexpr int kShBX = 128;  // sharpness block: 128 x 2 threads
+constexpr int kShBY = 2;
 
 // One texel of C floats, aligned as far as its size allows (16 bytes at
 // C = 4), so that it moves in one load or store.
@@ -220,13 +226,13 @@ __device__ __forceinline__ float sharp_one(const float (&a)[12],
   return re::pmax(fmaf(d, s, cur), 0.0f);
 }
 
-template <int C, int R, bool VEC>
+template <int C, bool VEC>
 __global__ void sharpness_kernel(const float* __restrict__ tex,
                                  float* __restrict__ out, int h, int w,
                                  float s) {
   const int n = w * C;  // floats a row
   const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  const int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * R;
+  const int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * kShR;
   if (j0 >= n || y0 >= h) return;
   // left / right neighbour inside the row (else the float itself)
   bool has_l[4], has_r[4];
@@ -240,7 +246,7 @@ __global__ void sharpness_kernel(const float* __restrict__ tex,
   sharp_span<VEC>(row(max(y0 - 1, 0)), j0, n, a);
   sharp_span<VEC>(row(y0), j0, n, b);
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+  for (int i = 0; i < kShR; ++i) {
     const int y = y0 + i;
     if (y >= h) break;
     sharp_span<VEC>(row(min(y + 1, h - 1)), j0, n, c);
@@ -266,32 +272,19 @@ __global__ void sharpness_kernel(const float* __restrict__ tex,
   }
 }
 
-template <int C, int R>
+template <int C>
 int launch_sharpness(const float* tex, float* out, int h, int w, float sh,
-                     bool vec, int bx, int by, cudaStream_t s) {
+                     bool vec, cudaStream_t s) {
   const int units = (w * C + 3) / 4;
-  const int groups = (h + R - 1) / R;
-  const dim3 block(bx, by);
-  const dim3 grid((units + bx - 1) / bx, (groups + by - 1) / by);
+  const int groups = (h + kShR - 1) / kShR;
+  const dim3 block(kShBX, kShBY);
+  const dim3 grid((units + kShBX - 1) / kShBX, (groups + kShBY - 1) / kShBY);
   if (vec) {
-    sharpness_kernel<C, R, true><<<grid, block, 0, s>>>(tex, out, h, w, sh);
+    sharpness_kernel<C, true><<<grid, block, 0, s>>>(tex, out, h, w, sh);
   } else {
-    sharpness_kernel<C, R, false><<<grid, block, 0, s>>>(tex, out, h, w, sh);
+    sharpness_kernel<C, false><<<grid, block, 0, s>>>(tex, out, h, w, sh);
   }
   return cudaGetLastError();
-}
-
-template <int C>
-int launch_sharpness_rows(const float* tex, float* out, int h, int w,
-                          float sh, bool vec, int rows, int bx, int by,
-                          cudaStream_t s) {
-  switch (rows) {
-    case 1: return launch_sharpness<C, 1>(tex, out, h, w, sh, vec, bx, by, s);
-    case 2: return launch_sharpness<C, 2>(tex, out, h, w, sh, vec, bx, by, s);
-    case 4: return launch_sharpness<C, 4>(tex, out, h, w, sh, vec, bx, by, s);
-    case 8: return launch_sharpness<C, 8>(tex, out, h, w, sh, vec, bx, by, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <int C>
@@ -339,14 +332,12 @@ extern "C" int re_minmax(const float* tex, float* mn, float* mx, int h, int w,
   }
 }
 
-// params: {sharpness}. rows: R, the rows a thread walks (1, 2, 4 or 8);
-// bx x by: the block. The 16-byte route where tex and out are 16-byte
+// params: {sharpness}. The 16-byte route where tex and out are 16-byte
 // aligned and a row holds whole 16-byte units.
 extern "C" int re_sharpness(const float* tex, float* out, int h, int w, int c,
-                            int rows, int bx, int by, const float* params,
-                            void* stream) {
-  if (h < 1 || w < 1 || c < 1 || c > 4 || bx < 1 || by < 1 ||
-      bx * by > 1024 || static_cast<long long>(h) * w * c >= (1LL << 31)) {
+                            const float* params, void* stream) {
+  if (h < 1 || w < 1 || c < 1 || c > 4 ||
+      static_cast<long long>(h) * w * c >= (1LL << 31)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -354,9 +345,9 @@ extern "C" int re_sharpness(const float* tex, float* out, int h, int w, int c,
                    reinterpret_cast<uintptr_t>(tex) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   switch (c) {
-    case 1: return launch_sharpness_rows<1>(tex, out, h, w, params[0], vec, rows, bx, by, s);
-    case 2: return launch_sharpness_rows<2>(tex, out, h, w, params[0], vec, rows, bx, by, s);
-    case 3: return launch_sharpness_rows<3>(tex, out, h, w, params[0], vec, rows, bx, by, s);
-    default: return launch_sharpness_rows<4>(tex, out, h, w, params[0], vec, rows, bx, by, s);
+    case 1: return launch_sharpness<1>(tex, out, h, w, params[0], vec, s);
+    case 2: return launch_sharpness<2>(tex, out, h, w, params[0], vec, s);
+    case 3: return launch_sharpness<3>(tex, out, h, w, params[0], vec, s);
+    default: return launch_sharpness<4>(tex, out, h, w, params[0], vec, s);
   }
 }

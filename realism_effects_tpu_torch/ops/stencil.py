@@ -30,7 +30,7 @@ rows above, at and below: ``acc = ((acc + left) + centre) + right``),
 contracted, ``d = fma(-acc, 1/9, c)`` and ``out = fma(d, s, c)``. Any
 other order or rounding differs from it by an ulp on a sixth of the
 pixels. Bound by bytes. A thread owns 4 consecutive floats of the
-flattened row and walks :data:`SHARPNESS_ROWS` rows down, keeping three
+flattened row and walks two rows down, keeping three
 16-byte units of each of the rows above, at and below in registers, and
 writes each row's 4 floats with one 16-byte store; where the image or
 the output is not 16-byte aligned, or a row is not a whole number of
@@ -47,9 +47,6 @@ from ..core.math3d import fma
 from . import cuda_build
 
 BIG = 1e30
-#: sharpness kernel: rows a thread walks (1, 2, 4 or 8), and its block
-SHARPNESS_ROWS = 2
-SHARPNESS_BLOCK = (128, 2)
 
 
 def neighborhood_minmax_plain(tex: torch.Tensor, radius: int):
@@ -130,9 +127,7 @@ def sharpness_3x3(color: torch.Tensor, sharpness: float) -> torch.Tensor:
 sharpness_3x3.launches = 0
 
 
-def _launch_sharpness(color, sharpness, rows=None, block=None):
-    """The kernel's launch; ``rows`` and ``block`` default to
-    :data:`SHARPNESS_ROWS` and :data:`SHARPNESS_BLOCK`."""
+def _launch_sharpness(color, sharpness):
     h, w, c = color.shape
     if c > 4:
         raise ValueError(f"sharpness_3x3 takes at most 4 channels, not {c}")
@@ -142,10 +137,8 @@ def _launch_sharpness(color, sharpness, rows=None, block=None):
     cuda_build.require_cuda(color)
     out = torch.empty_like(color)
     params = np.array([sharpness], np.float32)
-    bx, by = SHARPNESS_BLOCK if block is None else block
-    fn = cuda_build.bind("stencil", "re_sharpness", 2, 6, 1)
-    err = fn(color.data_ptr(), out.data_ptr(), h, w, c,
-             SHARPNESS_ROWS if rows is None else int(rows), int(bx), int(by),
-             params.ctypes.data, cuda_build.stream_ptr(color))
+    fn = cuda_build.bind("stencil", "re_sharpness", 2, 3, 1)
+    err = fn(color.data_ptr(), out.data_ptr(), h, w, c, params.ctypes.data,
+             cuda_build.stream_ptr(color))
     cuda_build.check(err, "sharpness kernel")
     return out

@@ -61,24 +61,25 @@ def _driver(path: str, h: int, w: int, n: int):
         make = {"flagship": analytic.flagship_composer,
                 "demo_stack": analytic.demo_stack_composer}[path]
         comp, cam = make(h, w, "cuda")
-        return (lambda first, count: analytic.render_frames(comp, cam, count, first)), comp
+        return (lambda first, count: analytic.render_frames(
+            comp, cam, range(first, first + count))), comp
     if path == "ssr_gtao_taa":
         comp, cam = analytic.reference_exports_composer(h, w, "cuda")
         still = WARM + (n - WARM) // 4
         return (lambda first, count: analytic.render_frames(
-            comp, cam, count, first,
-            steps=analytic.still_then_step(first, count, still))), comp
+            comp, cam, analytic.still_then_step(first, count, still))), comp
     make, sphere = {"hbao_traa": (analytic.hbao_traa_composer, False),
                     "hbao_traa_unfused": (analytic.hbao_traa_composer, False),
                     "ssgi_hbao_traa": (analytic.ssgi_hbao_traa_composer, True)}[path]
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
-    frames = analytic.frames_for(cam, n, h, w, "cuda", sphere=sphere)
+    frames = analytic.frames_at(cam, range(n), h, w, "cuda", sphere=sphere)
     comp, cam = make(h, w, "cuda")
 
     def drive(first, count):
         with (analytic.unfused() if path == "hbao_traa_unfused"
               else contextlib.nullcontext()):
-            return analytic.run_frames(comp, cam, frames[first:first + count], first)
+            return analytic.run_frames(comp, cam, frames[first:first + count],
+                                       range(first, first + count))
     return drive, comp
 
 

@@ -239,53 +239,55 @@ def _sharpness_input(h, w, c, offset, seed):
     return tex
 
 
-# (h, w, c, s, offset, rows, block): the first three keep their ids (a
-# 37 x 61 frame: w c % 4 != 0, so each float moves on its own); then the
-# 16-byte route at C = 1..4 (64 columns), the rows a thread (4 does not
-# divide 37), one float a row short of a 16-byte unit, h = 1, w = 1, an
-# image 4 bytes into its storage, and other blocks
+# (h, w, c, s, offset): the first three keep their ids (a 37 x 61
+# frame: w c % 4 != 0, so each float moves on its own); then the 16-byte
+# route at C = 1..4 (64 columns), frames of 2, 3 and 38 rows (a thread
+# walks two: 3 leaves one for the last thread, 37 and 38 span the block's
+# two threads of rows), one float a row short of a 16-byte unit, h = 1,
+# w = 1, an image 4 bytes into its storage, and frames of several blocks
+# in both directions, on the 16-byte route and off it
 SHARPNESS_CASES = [
-    pytest.param(37, 61, 3, 1.0, 0, None, None, id="3-1.0"),
-    pytest.param(37, 61, 3, 0.75, 0, None, None, id="3-0.75"),
-    pytest.param(37, 61, 1, 2.5, 0, None, None, id="1-2.5"),
-    *[pytest.param(37, 64, c, 1.0, 0, None, None, id=f"vec-c{c}") for c in (1, 2, 3, 4)],
-    *[pytest.param(37, 64, 3, 0.75, 0, r, None, id=f"vec-c3-rows{r}") for r in (1, 2, 8)],
-    pytest.param(37, 61, 2, 1.0, 0, 8, None, id="ragged-c2-rows8"),
-    pytest.param(37, 63, 4, 1.0, 0, None, None, id="vec-c4-w63"),
-    pytest.param(37, 62, 2, 1.0, 0, None, None, id="vec-c2-w62"),
-    pytest.param(1, 64, 3, 1.0, 0, None, None, id="h1-c3"),
-    pytest.param(1, 61, 4, 1.0, 0, 2, None, id="h1-c4"),
-    pytest.param(37, 1, 3, 1.0, 0, None, None, id="w1-c3"),
-    pytest.param(37, 1, 4, 1.0, 0, None, None, id="w1-c4"),
-    pytest.param(1, 1, 2, 1.0, 0, None, None, id="h1-w1"),
-    pytest.param(37, 64, 4, 1.0, 1, None, None, id="offset-c4"),
-    pytest.param(37, 64, 3, 0.5, 1, 8, None, id="offset-c3-rows8"),
-    pytest.param(37, 64, 3, 1.0, 0, 2, (32, 4), id="block-32x4"),
-    pytest.param(37, 64, 4, 1.0, 0, 1, (256, 1), id="block-256x1"),
+    pytest.param(37, 61, 3, 1.0, 0, id="3-1.0"),
+    pytest.param(37, 61, 3, 0.75, 0, id="3-0.75"),
+    pytest.param(37, 61, 1, 2.5, 0, id="1-2.5"),
+    *[pytest.param(37, 64, c, 1.0, 0, id=f"vec-c{c}") for c in (1, 2, 3, 4)],
+    *[pytest.param(h, 64, 3, 0.75, 0, id=f"vec-c3-h{h}") for h in (2, 3, 38)],
+    pytest.param(37, 59, 2, 1.0, 0, id="ragged-c2"),
+    pytest.param(37, 63, 4, 1.0, 0, id="vec-c4-w63"),
+    pytest.param(37, 62, 2, 1.0, 0, id="vec-c2-w62"),
+    pytest.param(1, 64, 3, 1.0, 0, id="h1-c3"),
+    pytest.param(1, 61, 4, 1.0, 0, id="h1-c4"),
+    pytest.param(37, 1, 3, 1.0, 0, id="w1-c3"),
+    pytest.param(37, 1, 4, 1.0, 0, id="w1-c4"),
+    pytest.param(1, 1, 2, 1.0, 0, id="h1-w1"),
+    pytest.param(37, 64, 4, 1.0, 1, id="offset-c4"),
+    pytest.param(37, 64, 3, 0.5, 1, id="offset-c3"),
+    pytest.param(21, 704, 3, 1.0, 0, id="blocks-c3"),
+    pytest.param(21, 701, 4, 1.0, 1, id="blocks-c4-offset"),
 ]
 
 
-@pytest.mark.parametrize("h,w,c,s,offset,rows,block", SHARPNESS_CASES)
-def test_sharpness_source(host_kernels, h, w, c, s, offset, rows, block):
-    if (h, w, offset) == (37, 61, 0) and rows is None:
+@pytest.mark.parametrize("h,w,c,s,offset", SHARPNESS_CASES)
+def test_sharpness_source(host_kernels, h, w, c, s, offset):
+    if (h, w, offset) == (37, 61, 0):
         # the first cases' input: a 37 x 61 texture, absolute values
         tex = _warp_inputs(max(c, 2), seed=c)[0][..., :c].contiguous().abs()
         tex[3, 4] = 0.0
     else:
         tex = _sharpness_input(h, w, c, offset, seed=h * w * c + offset)
-    got = stencil._launch_sharpness(tex, s, rows, block)
+    got = stencil._launch_sharpness(tex, s)
     want = stencil.sharpness_3x3_plain(tex, s)
     assert bool((want == 0.0).any()) or h * w == 1
     assert torch.equal(got, want)
 
 
 def test_sharpness_refuses_bad_shapes(host_kernels):
-    """The C entry refuses 5 channels, rows other than 1, 2, 4, 8 and
-    2^31 floats before reading a pointer."""
-    fn = cuda_build.bind("stencil", "re_sharpness", 2, 6, 1)
+    """The C entry refuses 5 channels, an empty frame and 2^31 floats
+    before reading a pointer."""
+    fn = cuda_build.bind("stencil", "re_sharpness", 2, 3, 1)
     s = np.array([1.0], np.float32)
-    for h, w, c, rows in ((4, 4, 5, 4), (4, 4, 3, 3), (1 << 15, 1 << 15, 2, 4)):
-        assert fn(0, 0, h, w, c, rows, 128, 2, s.ctypes.data, None) != 0
+    for h, w, c in ((4, 4, 5), (0, 4, 3), (4, 0, 1), (1 << 15, 1 << 15, 2)):
+        assert fn(0, 0, h, w, c, s.ctypes.data, None) != 0
 
 
 @pytest.mark.parametrize("kx", [None, 3, 40])
@@ -486,7 +488,7 @@ def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
     screen distance s_end in [0, 30) pixels, and one at NaN."""
     h, w = 36, 64
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
-    gb = analytic.frames_for(cam, 1, h, w, "cpu", first=3, sphere=True)[0][0]
+    gb = analytic.frames_at(cam, [3], h, w, "cpu", sphere=True)[0][0]
     m = cam.matrices()
     view_pos = math3d.get_view_position(
         math3d.uv_grid(h, w), math3d.depth_to_view_z(gb.depth, m),

@@ -78,7 +78,7 @@ def test_demo_stack_matches_jax(jax_run):
     assert [e.name for e in comp.effects] == [
         "ssgi", "tonemapping", "traa", "sharpness", "vignette", "bloom", "lut"]
     before = stencil.sharpness_3x3.launches
-    got = [g.numpy() for g in analytic.render_frames(comp, cam, N_FRAMES)]
+    got = [g.numpy() for g in analytic.render_frames(comp, cam, range(N_FRAMES))]
     assert stencil.sharpness_3x3.launches == before    # plain version on the CPU
     for g, w in zip(got, want):
         assert g.shape == w.shape == (H, W, 3) and np.isfinite(g).all()

@@ -12,7 +12,7 @@ for the module (its first frame compiles the whole chain).
 
 Tolerance: the SSGI slice's (``tests/test_torch_ssgi_slice.py``), mean
 1e-5 and at most 1% of pixels off by more than 1e-4, with its max of
-2e-3 on all but at most 0.1% of the pixels and 2e-2 on those. From the
+2e-3 on all but at most 0.1% of the pixels and 5e-3 on those. From the
 second frame on the trace reads last frame's output, and a decision that
 a float32 ulp moves (an SSR ray's direction bin or hit, a Poisson tap's
 nearest texel) changes a pixel's sample. GTAO adds one such decision a
@@ -47,7 +47,7 @@ H, W = 96, 160
 STEPS = analytic.still_then_step(0, 4, 2)   # [0, 0, 1, 1]
 TOL = 2e-3
 TOL_FRAC = 1e-3    # the pixels a GTAO sample's texel moves
-FLIP_TOL = 2e-2
+FLIP_TOL = 5e-3    # measured 3.6e-3
 MEAN_TOL = 1e-5
 PIX_TOL = 1e-4
 PIX_FRAC = 1e-2
@@ -120,7 +120,7 @@ def _check(got, want):
 def test_exports_match_jax_every_frame(jax_run):
     frames, jenv, images, _ = jax_run
     comp, cam = _port_composer(convert.env_from_numpy(jenv, "cpu"))
-    got = [g.numpy() for g in analytic.run_frames(comp, cam, frames, steps=STEPS)]
+    got = [g.numpy() for g in analytic.run_frames(comp, cam, frames, STEPS)]
     for g, want in zip(got, images):
         _check(g, want)
     # TAA: still frames blend, the step restarts the average
@@ -142,7 +142,7 @@ def test_state_carried_from_jax(jax_run):
     comp.set_state(convert.state_from_numpy(carried["state"], "cpu"),
                    carried["frame"], carried["cnmf"], carried["prev_world"],
                    carried["prev_proj"])
-    got = analytic.run_frames(comp, cam, frames[3:], steps=STEPS[3:])[0]
+    got = analytic.run_frames(comp, cam, frames[3:], STEPS[3:])[0]
     _check(got.numpy(), images[3])
 
 
@@ -151,7 +151,7 @@ def test_save_and_load_state_round_trip(jax_run, tmp_path):
     env = convert.env_from_numpy(jenv, "cpu")
     a, cam_a = _port_composer(env)
     b, cam_b = _port_composer(env)
-    analytic.run_frames(a, cam_a, frames[:2], steps=STEPS[:2])
+    analytic.run_frames(a, cam_a, frames[:2], STEPS[:2])
     a.save_state(str(tmp_path / "state.npz"))
     b.load_state(str(tmp_path / "state.npz"))
     hist_a, hist_b = a.state("ssr")["history"], b.state("ssr")["history"]
@@ -160,14 +160,14 @@ def test_save_and_load_state_round_trip(jax_run, tmp_path):
     assert torch.equal(a.state("taa")["accumulated"], b.state("taa")["accumulated"])
     assert b.camera_not_moved_frames == a.camera_not_moved_frames == 1
     np.testing.assert_array_equal(
-        analytic.run_frames(a, cam_a, frames[2:3], steps=STEPS[2:3])[0].numpy(),
-        analytic.run_frames(b, cam_b, frames[2:3], steps=STEPS[2:3])[0].numpy())
+        analytic.run_frames(a, cam_a, frames[2:3], STEPS[2:3])[0].numpy(),
+        analytic.run_frames(b, cam_b, frames[2:3], STEPS[2:3])[0].numpy())
 
 
 def test_cpu_run_never_launches_a_kernel(jax_run):
     frames, jenv, _, _ = jax_run
     comp, cam = _port_composer(convert.env_from_numpy(jenv, "cpu"))
-    analytic.run_frames(comp, cam, frames[:1], steps=STEPS[:1])
+    analytic.run_frames(comp, cam, frames[:1], STEPS[:1])
     assert warp.window_warp.launches == 0
     assert stencil.neighborhood_minmax.launches == 0
     assert hbao_kernel.hbao_fused.launches == 0

@@ -5,15 +5,16 @@ plain torch in the port, on the same depth (a seeded surface with a
 step, a slope and a background band) and camera.
 
 Tolerance: HBAO's port tolerance (``tests/test_torch_hbao.py``), atol
-2e-4 and rtol 1e-4, on all but at most 0.1% of the pixels, and a mean
-error of at most 1e-5. The depth-derived normals and the sample
-directions differ from XLA's by float32 ulps (about 1e-7); where a
+2e-4 and rtol 1e-4, on all but at most 0.1% of the pixels, those within
+1e-3, and a mean error of at most 1e-5. The depth-derived normals and the
+sample directions differ from XLA's by float32 ulps (about 1e-7); where a
 sample lands on a texel boundary, that ulp sends its nearest fetch to
-the next texel, which changes that one sample's term, at most 2 / spp
-(measured at spp 16: one pixel of 15360, 3.9e-4, on a sample at row
-84.0 exactly). ``GTAOEffect`` at half resolution (GTAO on the
+the next texel, which changes that one sample's term (measured at spp
+16: one pixel of 15360, 3.9e-4, on a sample at row 84.0 exactly; at spp
+8 none, max 6.6e-6). ``GTAOEffect`` at half resolution (GTAO on the
 nearest-halved G-buffer, then upsample, denoise and compose) is held to
-the same bound against the JAX effect applied op by op (measured 4.8e-7).
+HBAO's tolerance on every pixel against the JAX effect applied op by op
+(measured 4.8e-7).
 """
 
 import numpy as np
@@ -35,6 +36,7 @@ from realism_effects_tpu_torch.core.rng import vogel_disk
 from realism_effects_tpu_torch.ops import ao as tao
 
 H, W = 96, 160
+FLIP_TOL = 1e-3    # a pixel one of whose samples a float32 ulp moves
 _GB = ("diffuse", "normal", "roughness", "metalness", "emissive", "depth")
 
 
@@ -56,11 +58,13 @@ def _scene(h, w, seed=3):
     return depth.astype(np.float32), cams
 
 
-def _check(got, want, shape, flip_tol):
+def _check(got, want, shape, flip_frac):
+    """HBAO's tolerance on all but ``flip_frac`` of the pixels, those
+    within FLIP_TOL."""
     assert got.shape == shape and np.isfinite(got).all()
     err = np.abs(got - want)
-    assert (err > 2e-4 + 1e-4 * np.abs(want)).mean() <= 1e-3
-    assert err.max() <= flip_tol and err.mean() <= 1e-5
+    assert (err > 2e-4 + 1e-4 * np.abs(want)).mean() <= flip_frac
+    assert err.max() <= FLIP_TOL and err.mean() <= 1e-5
 
 
 def test_vogel_disk_matches_jax():
@@ -84,7 +88,7 @@ def test_gtao_matches_jax(spp, frame, distance):
                                jao.AOConfig(spp=spp, distance=distance)))
     got = tao.gtao(torch.from_numpy(depth), tcam, frame,
                    tao.AOConfig(spp=spp, distance=distance)).numpy()
-    _check(got, want, (H, W), 2.0 / spp)
+    _check(got, want, (H, W), 1e-3)
     assert (got[-H // 8:] == 1.0).all()      # background
     assert got[: -H // 8].min() < 0.95        # some occlusion
 
@@ -111,6 +115,6 @@ def test_gtao_effect_at_half_resolution_matches_jax():
                     scene_color=None, cam=tm, unjittered_cam=tm, prev_cam=tm,
                     frame_index=3, params=params)
     got, _ = tre.GTAOEffect(resolution_scale=0.5).apply(tctx, color, {})
-    _check(got.numpy(), np.asarray(want), (H, W, 3), 2.0 / 16)
+    _check(got.numpy(), np.asarray(want), (H, W, 3), 0.0)
     full, _ = tre.GTAOEffect().apply(tctx, color, {})
     assert not torch.equal(full, got)

@@ -170,18 +170,18 @@ def test_composer_bookkeeping_on_cpu():
     from realism_effects_tpu_torch import analytic
 
     comp, cam = analytic.hbao_traa_composer(27, 48, "cpu")
-    frames = analytic.frames_for(cam, 3, 27, 48, "cpu")
-    analytic.run_frames(comp, cam, frames[:2])
+    frames = analytic.frames_at(cam, range(3), 27, 48, "cpu")
+    analytic.run_frames(comp, cam, frames[:2], range(2))
     comp.reset()
     comp.collect_timings = True
-    out = analytic.run_frames(comp, cam, frames[2:], first=2)[0]
+    out = analytic.run_frames(comp, cam, frames[2:], [2])[0]
     assert set(comp.last_timings) == {"hbao", "traa"}
     assert all(v >= 0.0 for v in comp.last_timings.values())
     assert float(comp.state("traa")["history"][..., 3].abs().max()) == 0.0
     ao_only = tre.EffectComposer(None, tre.PerspectiveCamera(50, 48 / 27, 0.1, 100),
                                  48, 27, device="cpu")
     ao_only.add_effect(tre.HBAOEffect())
-    want = analytic.run_frames(ao_only, ao_only.camera, frames)[2]
+    want = analytic.run_frames(ao_only, ao_only.camera, frames, range(3))[2]
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
     comp.set_size(48, 24)
     assert comp.state("traa") is None and (comp.width, comp.height) == (48, 24)

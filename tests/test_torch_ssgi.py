@@ -64,8 +64,8 @@ def _frame(first):
     """Analytic buffers (plane, box, sphere) of orbit frame ``first`` and
     both packages' camera matrices."""
     tcam = tre.PerspectiveCamera(50, W / H, 0.1, 100)
-    gb, vel, color = analytic.frames_for(tcam, 1, H, W, "cpu", first=first,
-                                         sphere=True)[0]
+    gb, vel, color = analytic.frames_at(tcam, [first], H, W, "cpu",
+                                        sphere=True)[0]
     jcam = jre.PerspectiveCamera(50, W / H, 0.1, 100)
     analytic.orbit(jcam, first)
     return gb, vel, color, tcam.matrices(), jcam.matrices()

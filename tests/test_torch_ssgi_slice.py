@@ -59,7 +59,7 @@ def _one_torch_thread():
 
 def _frames():
     cam = tre.PerspectiveCamera(50, W / H, 0.1, 100)
-    return analytic.frames_for(cam, N_FRAMES, H, W, "cpu", sphere=True)
+    return analytic.frames_at(cam, range(N_FRAMES), H, W, "cpu", sphere=True)
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +117,7 @@ def _check(got, want):
 def test_slice_matches_jax_every_frame(jax_run):
     frames, jenv, images, _ = jax_run
     comp, cam = _port_composer(convert.env_from_numpy(jenv, "cpu"))
-    got = analytic.run_frames(comp, cam, frames)
+    got = analytic.run_frames(comp, cam, frames, range(N_FRAMES))
     for g, want in zip(got, images):
         _check(g.numpy(), want)
     np.testing.assert_allclose(got[0].numpy(), images[0], rtol=0, atol=2e-6)
@@ -134,7 +134,7 @@ def test_state_carried_from_jax(jax_run):
                    carried["frame"], carried["cnmf"], carried["prev_world"],
                    carried["prev_proj"])
     assert isinstance(comp.state("ssgi")["history"], list)
-    got = analytic.run_frames(comp, cam, frames[2:], first=2)[0]
+    got = analytic.run_frames(comp, cam, frames[2:], [2])[0]
     _check(got.numpy(), images[2])
 
 
@@ -143,20 +143,20 @@ def test_save_and_load_state_round_trip(jax_run, tmp_path):
     env = convert.env_from_numpy(jenv, "cpu")
     a, cam_a = _port_composer(env)
     b, cam_b = _port_composer(env)
-    analytic.run_frames(a, cam_a, frames[:1])
+    analytic.run_frames(a, cam_a, frames[:1], [0])
     a.save_state(str(tmp_path / "state.npz"))
     b.load_state(str(tmp_path / "state.npz"))
     for x, y in zip(a.state("ssgi")["history"], b.state("ssgi")["history"]):
         assert torch.equal(x, y)
     np.testing.assert_array_equal(
-        analytic.run_frames(a, cam_a, frames[1:2], first=1)[0].numpy(),
-        analytic.run_frames(b, cam_b, frames[1:2], first=1)[0].numpy())
+        analytic.run_frames(a, cam_a, frames[1:2], [1])[0].numpy(),
+        analytic.run_frames(b, cam_b, frames[1:2], [1])[0].numpy())
 
 
 def test_cpu_run_never_launches_a_kernel(jax_run):
     frames, jenv, _, _ = jax_run
     comp, cam = _port_composer(convert.env_from_numpy(jenv, "cpu"))
-    analytic.run_frames(comp, cam, frames[:1])
+    analytic.run_frames(comp, cam, frames[:1], [0])
     assert warp.window_warp.launches == 0
     assert stencil.neighborhood_minmax.launches == 0
     assert hbao_kernel.hbao_fused.launches == 0
@@ -195,13 +195,13 @@ def test_environment_resolution():
     EquirectEnv is used as it is; a cube map raises."""
     h, w = 12, 16
     cam = tre.PerspectiveCamera(50, w / h, 0.1, 100)
-    frames = analytic.frames_for(cam, 2, h, w, "cpu", sphere=True)
+    frames = analytic.frames_at(cam, range(2), h, w, "cpu", sphere=True)
     sky = tre.procedural_sky(16, 32)
     holder = tre.Scene()
     holder.environment = sky
     comp = tre.EffectComposer(holder, cam, w, h, device="cpu")
     comp.add_effect(tre.SSGIEffect())
-    analytic.run_frames(comp, cam, frames[:1])
+    analytic.run_frames(comp, cam, frames[:1], [0])
     built = comp._resolve_environment()
     assert isinstance(built, tre.EquirectEnv) and built.size == (16, 32)
     assert comp._resolve_environment() is built
@@ -223,7 +223,7 @@ def test_effect_options_on_cpu():
     selection modes and the options that wait for later slices."""
     h, w = 16, 24
     cam = tre.PerspectiveCamera(50, w / h, 0.1, 100)
-    frames = analytic.frames_for(cam, 2, h, w, "cpu", sphere=True)
+    frames = analytic.frames_at(cam, range(2), h, w, "cpu", sphere=True)
     env = tre.build_equirect_env(tre.procedural_sky(16, 32), device="cpu")
     outs = {}
     for key, kw in [("full", {}), ("diffuse", dict(output_texture="diffuse")),
@@ -233,7 +233,7 @@ def test_effect_options_on_cpu():
         scene.environment = env
         comp = tre.EffectComposer(scene, cam, w, h, device="cpu")
         comp.add_effect(tre.SSGIEffect(**kw))
-        outs[key] = analytic.run_frames(comp, cam, frames)[-1]
+        outs[key] = analytic.run_frames(comp, cam, frames, range(2))[-1]
     for key, img in outs.items():
         assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all()), key
     assert not torch.equal(outs["full"], outs["diffuse"])
