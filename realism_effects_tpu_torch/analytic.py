@@ -13,6 +13,10 @@ them, with the camera orbiting as the animated configurations of
   driven as a product viewer is: the camera still for a few frames (TAA
   accumulates), then one orbit step (TAA starts again)
   (:func:`still_then_step`);
+- the reference's per-pixel SSGI march under the reference demo's kind
+  of environment, a cube map, with SMAA (:func:`march_aa_composer`), and
+  SSR's march, HBAO and FXAA under an orthographic camera, a product
+  viewer's view (:func:`ortho_ssr_composer`), both through ``render``;
 - analytic input buffers for driving the effect chain through
   ``render_external`` without the rasterizer: a 20 x 20 ground plane at
   y = 0 with a unit box on it (the scene of the JAX package's
@@ -31,15 +35,17 @@ import numpy as np
 import torch
 
 from .composer import EffectComposer
-from .core.camera import PerspectiveCamera
-from .core.envmap import build_equirect_env, procedural_sky
+from .core.camera import OrthographicCamera, PerspectiveCamera
+from .core.envmap import build_equirect_env, equirect_to_cube, procedural_sky
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.math3d import uv_grid
 from .effects.ao import GTAOEffect, HBAOEffect
 from .effects.finishing import SharpnessEffect
+from .effects.fxaa import FXAAEffect
 from .effects.motion_blur import MotionBlurEffect
 from .effects.postfx import (BloomEffect, LUT3DEffect, ToneMappingEffect,
                              VignetteEffect)
+from .effects.smaa import SMAAEffect
 from .effects.ssgi import SSGIEffect, SSREffect
 from .effects.taa import TAAPass
 from .effects.traa import TRAAEffect
@@ -255,6 +261,40 @@ def reference_exports_composer(h: int, w: int, device):
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
     comp = EffectComposer(flagship_scene(device), cam, w, h, device=device)
     for effect in (SSREffect(), GTAOEffect(), TAAPass()):
+        comp.add_effect(effect)
+    return comp, cam
+
+
+def march_aa_composer(h: int, w: int, device):
+    """``EffectComposer.render`` of :func:`flagship_scene` under a cube
+    map, the six (64, 64, 3) faces of ``procedural_sky(64, 128)`` made by
+    ``equirect_to_cube`` (the composer turns them back into a 128 x 256
+    equirect with ``cube_to_equirect``), with ``SSGIEffect(trace="march")``
+    -> ``SMAAEffect()``; and its camera."""
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    scene = flagship_scene(device)
+    sky = torch.as_tensor(procedural_sky(64, 128), device=device)
+    scene.environment = equirect_to_cube(sky, 64)
+    comp = EffectComposer(scene, cam, w, h, device=device)
+    comp.add_effect(SSGIEffect(trace="march"))
+    comp.add_effect(SMAAEffect())
+    return comp, cam
+
+
+def ortho_camera(h: int, w: int) -> OrthographicCamera:
+    """An orthographic camera that frames the flagship scene from the
+    orbit: 4 x 4 world units high, the frame's aspect wide."""
+    half_w = 2.0 * w / h
+    return OrthographicCamera(-half_w, half_w, 2.0, -2.0, 0.1, 100)
+
+
+def ortho_ssr_composer(h: int, w: int, device):
+    """``EffectComposer.render`` of :func:`flagship_scene` under
+    :func:`ortho_camera` with ``SSREffect(trace="march")`` ->
+    ``HBAOEffect()`` -> ``FXAAEffect()``; and its camera."""
+    cam = ortho_camera(h, w)
+    comp = EffectComposer(flagship_scene(device), cam, w, h, device=device)
+    for effect in (SSREffect(trace="march"), HBAOEffect(), FXAAEffect()):
         comp.add_effect(effect)
     return comp, cam
 

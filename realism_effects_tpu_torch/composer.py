@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .core.camera import Camera, CameraMatrices
-from .core.envmap import EquirectEnv, build_equirect_env
+from .core.envmap import EquirectEnv, build_equirect_env, cube_to_equirect
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
 from .scene.shading import shade_direct
@@ -154,9 +154,12 @@ class EffectComposer:
     def _resolve_environment(self):
         """The frame's :class:`EquirectEnv` or None (`SSGIEffect.js:309-366`).
         ``scene.environment`` may be a prebuilt ``EquirectEnv`` (used as it
-        is) or a raw (H, W, 3) equirect map, built on this composer's
-        device when its identity changes; a rebuild resets the temporal
-        history."""
+        is), a raw (H, W, 3) equirect map or (6, S, S, 3) cube faces (an
+        array or a tensor). Cube faces become a (2S, 4S, 3) equirect by
+        ``cube_to_equirect`` on this composer's device
+        (`CubeToEquirectEnvPass.js:59-99`); the map is built on this
+        composer's device, its CDF tables on the host, when its identity
+        changes, and a rebuild resets the temporal history."""
         env = getattr(self.scene, "environment", None)
         if env is None:
             self._env_key = self._env_built = self._env_raw = None
@@ -167,12 +170,18 @@ class EffectComposer:
                                  f"on {self.device}")
             return env
         if self._env_key != id(env) or self._env_built is None:
-            arr = np.asarray(env, np.float32)
+            arr = env if isinstance(env, torch.Tensor) else np.asarray(env, np.float32)
+            if arr.ndim == 4 and arr.shape[0] == 6 and arr.shape[-1] == 3:
+                s = arr.shape[1]
+                arr = cube_to_equirect(
+                    torch.as_tensor(arr, dtype=torch.float32, device=self.device),
+                    2 * s, 4 * s)
             if arr.ndim != 3 or arr.shape[-1] != 3:
-                raise NotImplementedError(
-                    f"an environment of shape {arr.shape}: only (H, W, 3) "
-                    "equirect maps are ported; cube maps wait for "
-                    "cube_to_equirect (ROADMAP §1 (h))")
+                raise ValueError(
+                    f"an environment of shape {tuple(arr.shape)}: expected an "
+                    "(H, W, 3) equirect map or (6, S, S, 3) cube faces")
+            if isinstance(arr, torch.Tensor):  # the CDF tables build on the host
+                arr = arr.detach().to("cpu", torch.float32).numpy()
             self._env_built = build_equirect_env(arr, device=self.device)
             self._env_key = id(env)
             self._env_raw = env

@@ -1,7 +1,7 @@
 """Cameras producing the matrix set every pass consumes.
 
-Host-side numpy analog of three.js' ``PerspectiveCamera`` with the
-sub-pixel view-offset jitter that TRAA applies through
+Host-side numpy analog of three.js' ``PerspectiveCamera`` and
+``OrthographicCamera`` with the sub-pixel view-offset jitter that TRAA applies through
 ``camera.setViewOffset`` (`TAAUtils.js:5-11`). The camera keeps float64;
 each frame it is snapshotted into a :class:`CameraMatrices` of float32
 host arrays, the values the device arithmetic reads as scalars.
@@ -161,5 +161,34 @@ class PerspectiveCamera(Camera):
         m[2, 2] = -(f + n) / (f - n)
         m[2, 3] = -2 * f * n / (f - n)
         m[3, 2] = -1.0
+        self.projection_matrix = m
+        self._base_projection = None
+
+
+class OrthographicCamera(Camera):
+    """three.js ``OrthographicCamera``: the frustum box (left, right,
+    top, bottom) at [near, far]; clip w is 1 (``P[3, 2] == 0``), which
+    ``math3d.depth_to_view_z`` reads to pick the orthographic depth law."""
+
+    is_perspective_camera = False
+
+    def __init__(self, left: float = -1.0, right: float = 1.0,
+                 top: float = 1.0, bottom: float = -1.0, near: float = 0.1,
+                 far: float = 1000.0):
+        super().__init__(near, far)
+        self.left, self.right = float(left), float(right)
+        self.top, self.bottom = float(top), float(bottom)
+        self.update_projection_matrix()
+
+    def update_projection_matrix(self):
+        l, r, t, b = self.left, self.right, self.top, self.bottom
+        n, f = self.near, self.far
+        m = np.eye(4)
+        m[0, 0] = 2 / (r - l)
+        m[0, 3] = -(r + l) / (r - l)
+        m[1, 1] = 2 / (t - b)
+        m[1, 3] = -(t + b) / (t - b)
+        m[2, 2] = -2 / (f - n)
+        m[2, 3] = -(f + n) / (f - n)
         self.projection_matrix = m
         self._base_projection = None

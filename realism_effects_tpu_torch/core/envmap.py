@@ -5,9 +5,11 @@ sampling CDF tables (the JAX package's ``core/envmap.py``).
 - the luminance inverse-CDF tables the reference builds in a Web Worker
   (`EquirectHdrInfoUniform.js:149-245`): built on the host, by the C++
   library in ``native/`` or by numpy, then copied to the device once;
-- the mip atlas for blurred fetches (``envBlur``, `ssgi.frag:322-327`).
-
-Cube maps, the GGX prefilter and ``blur_env`` are not ported yet.
+- the mip atlas for blurred fetches (``envBlur``, `ssgi.frag:322-327`);
+- cube maps (``CubeToEquirectEnvPass``), the GGX-prefiltered pyramid and
+  ``blur_env`` (the reference demo's ``BlurredEnvMapGenerator``), which
+  compute on the device of their tensor argument (a numpy argument goes
+  to ``cuda`` unless another device is asked for).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from .math3d import luminance
 from .sampling import (MipAtlas, build_mip_atlas, build_mip_chain,
-                       sample_bilinear, sample_mip_atlas)
+                       sample_bilinear, sample_bilinear_mip, sample_mip_atlas)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +80,14 @@ def sample_equirect_color(env: EquirectEnv, direction: torch.Tensor, lod,
     mip atlas; ``quantize`` rounds the lod to the nearest level."""
     uv = direction_to_equirect_uv(direction)
     return sample_mip_atlas(env.atlas, uv, lod, quantize=quantize)
+
+
+def equirect_direction_pdf(direction: torch.Tensor) -> torch.Tensor:
+    """Solid-angle pdf of an equirect texel (`ssgi_utils.frag:196-205`)."""
+    uv = direction_to_equirect_uv(direction)
+    sin_theta = torch.sin(uv[..., 1] * math.pi)
+    pdf = 1.0 / (2.0 * math.pi * math.pi * torch.clamp(sin_theta, min=1e-8))
+    return torch.where(sin_theta == 0.0, 0.0, pdf)
 
 
 def sample_equirect_probability(env: EquirectEnv, noise2: torch.Tensor,
@@ -206,6 +216,222 @@ def build_equirect_env(data: np.ndarray, max_mip_levels: int | None = None,
         cdf_packed=torch.from_numpy(_build_cdf_packed(
             data, np.asarray(marginal), np.asarray(conditional))).to(dev),
     )
+
+
+def _on_device(x, device=None) -> torch.Tensor:
+    """A float32 tensor of ``x``: a tensor stays on its device, anything
+    else goes to ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    from ..composer import resolve_device
+
+    return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
+
+
+#: (major axis, u axis, v axis) of each cube face, in GL order
+_CUBE_AXES = (
+    ((1, 0, 0), (0, 0, -1), (0, -1, 0)),   # +x
+    ((-1, 0, 0), (0, 0, 1), (0, -1, 0)),   # -x
+    ((0, 1, 0), (1, 0, 0), (0, 0, 1)),     # +y
+    ((0, -1, 0), (1, 0, 0), (0, 0, -1)),   # -y
+    ((0, 0, 1), (1, 0, 0), (0, -1, 0)),    # +z
+    ((0, 0, -1), (-1, 0, 0), (0, -1, 0)),  # -z
+)
+
+
+def math3d_dot_const(d, c):
+    """``d . c`` of (..., 3) directions and a constant 3-vector."""
+    return d[..., 0] * c[0] + d[..., 1] * c[1] + d[..., 2] * c[2]
+
+
+def _equirect_directions(height: int, width: int, device) -> torch.Tensor:
+    """The direction of each texel centre of a (height, width) equirect."""
+    v = (torch.arange(height, device=device) + 0.5) / height
+    u = (torch.arange(width, device=device) + 0.5) / width
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    return equirect_uv_to_direction(torch.stack([uu, vv], dim=-1))
+
+
+def equirect_to_cube(equirect, size: int) -> torch.Tensor:
+    """A (6, size, size, 3) cube map rendered from an (H, W, 3) equirect;
+    the face directions are built in float64 and rounded once."""
+    equirect = _on_device(equirect)
+    s = (np.arange(size) + 0.5) / size * 2.0 - 1.0
+    sv, su = np.meshgrid(s, s, indexing="ij")
+    faces = []
+    for fwd, u_ax, v_ax in _CUBE_AXES:
+        d = (np.asarray(fwd, np.float32)[None, None]
+             + su[..., None] * np.asarray(u_ax, np.float32)
+             + sv[..., None] * np.asarray(v_ax, np.float32))
+        d = torch.as_tensor((d / np.linalg.norm(d, axis=-1, keepdims=True))
+                            .astype(np.float32), device=equirect.device)
+        faces.append(sample_bilinear(equirect, direction_to_equirect_uv(d)))
+    return torch.stack(faces)
+
+
+def cube_to_equirect(faces, height: int, width: int) -> torch.Tensor:
+    """A (height, width, 3) equirect from (6, S, S, 3) cube faces
+    (``CubeToEquirectEnvPass``, `CubeToEquirectEnvPass.js:59-99`): each
+    texel reads the bilinear texel of its direction's major face."""
+    faces = _on_device(faces)
+    d = _equirect_directions(height, width, faces.device)
+    ax, ay, az = d[..., 0].abs(), d[..., 1].abs(), d[..., 2].abs()
+    out = torch.zeros((height, width, 3), dtype=faces.dtype, device=faces.device)
+    for idx, (fwd, u_ax, v_ax) in enumerate(_CUBE_AXES):
+        ma = math3d_dot_const(d, [float(c) for c in fwd])
+        if fwd[0] != 0:
+            is_major = (ax >= ay) & (ax >= az) & (ma > 0)
+        elif fwd[1] != 0:
+            is_major = (ay > ax) & (ay >= az) & (ma > 0)
+        else:
+            is_major = (az > ax) & (az > ay) & (ma > 0)
+        safe_ma = torch.where(ma.abs() > 1e-8, ma, 1e-8)
+        fu = math3d_dot_const(d, [float(c) for c in u_ax]) / safe_ma
+        fv = math3d_dot_const(d, [float(c) for c in v_ax]) / safe_ma
+        face_uv = torch.stack([fu, fv], dim=-1) * 0.5 + 0.5
+        col = sample_bilinear(faces[idx], face_uv)
+        out = torch.where(is_major[..., None], col, out)
+    return out
+
+
+def _ggx_sample_table(roughness: float, samples: int,
+                      base_h: int, base_w: int) -> np.ndarray:
+    """Tangent-space GGX-NDF importance samples of the split-sum
+    prefilter (n = v) over an R2 set, built in float64: (samples, 5)
+    float32 rows ``(lx, ly, lz, weight n.l, source lod)``, the lod from
+    the sample's solid angle (filtered importance sampling)."""
+    a = max(roughness, 1e-3) ** 2
+    i = np.arange(samples, dtype=np.float64)
+    g = 1.3247179572447460
+    xi1 = np.mod((i + 1) / g, 1.0)
+    xi2 = np.mod((i + 1) / (g * g), 1.0)
+    phi = 2.0 * np.pi * xi1
+    cos_t = np.sqrt((1.0 - xi2) / (1.0 + (a * a - 1.0) * xi2))
+    sin_t = np.sqrt(np.maximum(1.0 - cos_t * cos_t, 0.0))
+    h = np.stack([sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t], -1)
+    l = 2.0 * h[:, 2:3] * h - np.array([0.0, 0.0, 1.0])
+    w = np.maximum(l[:, 2], 0.0)
+    d_ggx = a * a / (np.pi * ((a * a - 1.0) * cos_t ** 2 + 1.0) ** 2)
+    pdf = np.maximum(d_ggx * cos_t / np.maximum(4.0 * cos_t, 1e-8), 1e-12)
+    omega_s = 1.0 / (samples * pdf)
+    omega_p = 4.0 * np.pi / (base_h * base_w)
+    lod = np.maximum(0.5 * np.log2(omega_s / omega_p), 0.0)
+    return np.concatenate([l, w[:, None], lod[:, None]], -1).astype(np.float32)
+
+
+def _cross(a, b):
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _ggx_filter_level(box_mips, h: int, w: int, roughness: float,
+                      samples: int) -> torch.Tensor:
+    """An (h, w, 3) level of the box chain convolved with the GGX lobe of
+    ``roughness``: the table's samples in order, summed as they come."""
+    dev = box_mips[0].device
+    n = _equirect_directions(h, w, dev)
+    y_up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    x_up = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    up = torch.where(n[..., 1:2].abs() < 0.999, y_up, x_up)
+    t = _cross(up, n)
+    t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-8)
+    b = _cross(n, t)
+    base_h, base_w = box_mips[0].shape[:2]
+    table = torch.as_tensor(_ggx_sample_table(roughness, samples, base_h, base_w),
+                            device=dev)
+    acc = torch.zeros((h, w, 3), dtype=box_mips[0].dtype, device=dev)
+    wsum = torch.zeros((), device=dev)
+    for row in table:
+        l = row[0] * t + row[1] * b + row[2] * n
+        col = sample_bilinear_mip(box_mips, direction_to_equirect_uv(l), row[4])
+        acc = acc + col * row[3]
+        wsum = wsum + row[3]
+    return acc / torch.clamp(wsum, min=1e-8)
+
+
+def ggx_prefilter_mips(equirect, max_levels: int | None = None,
+                       samples: int = 96) -> tuple:
+    """The roughness-indexed GGX-prefiltered equirect pyramid (three.js
+    ``PMREMGenerator`` as the reference demo uses it,
+    `BlurredEnvMapGenerator.js:310-358`): level 0 is the map, level L the
+    box mip of its size convolved with the GGX lobe of roughness
+    L / (levels - 1)."""
+    box = build_mip_chain(_on_device(equirect), max_levels=max_levels)
+    n_levels = len(box)
+    out = [box[0]]
+    for lvl in range(1, n_levels):
+        h, w = box[lvl].shape[:2]
+        out.append(_ggx_filter_level(box, h, w, lvl / (n_levels - 1), samples))
+    return tuple(out)
+
+
+#: directions of blur_env's scatter set (the copy shader's ``mix(dir,
+#: randomDir, blur)``, `BlurredEnvMapGenerator.js:253-261`, an R3 set)
+_BLUR_SCATTER_SAMPLES = 32
+
+
+def blur_env(equirect, blur: float, samples: int = 96) -> torch.Tensor:
+    """An (H, W, 3) equirect blurred by ``blur`` in [0, 1]
+    (``BlurredEnvMapGenerator.generate``): the mean over the scatter set
+    of the GGX pyramid fetched at ``mix(dir, scatter, blur)``, lod
+    ``blur * (levels - 1)``. ``blur <= 0`` returns the map as it is."""
+    blur = float(blur)
+    if blur <= 0.0:
+        return equirect
+    equirect = _on_device(equirect)
+    mips = ggx_prefilter_mips(equirect, samples=samples)
+    h, w = equirect.shape[0], equirect.shape[1]
+    d = _equirect_directions(h, w, equirect.device)
+    lod = float(np.float32(blur) * np.float32(len(mips) - 1))
+    i = np.arange(_BLUR_SCATTER_SAMPLES, dtype=np.float64) + 1.0
+    g = 1.2207440846057596
+    r = np.stack([np.mod(i / g, 1.0), np.mod(i / g ** 2, 1.0),
+                  np.mod(i / g ** 3, 1.0)], -1) * 2.0 - 1.0
+    r /= np.maximum(np.linalg.norm(r, axis=-1, keepdims=True), 1e-8)
+    acc = torch.zeros_like(equirect)
+    for rd in torch.as_tensor(r.astype(np.float32), device=equirect.device):
+        md = d * (1.0 - blur) + rd * blur
+        md = md / torch.clamp(torch.linalg.vector_norm(md, dim=-1, keepdim=True),
+                              min=1e-8)
+        acc = acc + sample_bilinear_mip(mips, direction_to_equirect_uv(md), lod)
+    return acc / _BLUR_SCATTER_SAMPLES
+
+
+#: GL cube-face file order, the three.js ``CubeTextureLoader`` layout
+CUBE_FACE_NAMES = ("posx", "negx", "posy", "negy", "posz", "negz")
+
+
+def load_cubemap(path: str, height: int | None = None, ext: str | None = None,
+                 device=None) -> torch.Tensor:
+    """A directory of ``posx/negx/posy/negy/posz/negz`` images (the
+    reference demo's cube maps) as an (H, 2H, 3) linear-light equirect on
+    ``device`` (``cuda`` unless another device is asked for). Faces keep
+    their file row order (three.js cube textures are not flipped);
+    ``height`` defaults to the face size rounded up to a power of two
+    (`CubeToEquirectEnvPass.js:63-72`). Needs PIL."""
+    import os
+
+    from PIL import Image
+
+    faces = []
+    for name in CUBE_FACE_NAMES:
+        file = None
+        for e in ([ext] if ext else ("jpg", "png", "jpeg", "webp")):
+            cand = os.path.join(path, f"{name}.{e}")
+            if os.path.exists(cand):
+                file = cand
+                break
+        if file is None:
+            raise FileNotFoundError(f"cube face {name}.* not in {path}")
+        img = np.asarray(Image.open(file).convert("RGB"), np.float32) / 255.0
+        faces.append(np.where(img <= 0.04045, img / 12.92,
+                              ((img + 0.055) / 1.055) ** 2.4))
+    size = faces[0].shape[0]
+    if height is None:
+        height = 1 << int(np.ceil(np.log2(size)))
+    return cube_to_equirect(_on_device(np.stack(faces), device), height, 2 * height)
 
 
 def procedural_sky(height: int = 64, width: int = 128, sun_dir=(0.5, 0.6, 0.3),

@@ -39,7 +39,11 @@ class GBuffer:
 
     @classmethod
     def background(cls, height: int, width: int, device=None) -> "GBuffer":
-        """Empty G-buffer: depth 1 everywhere (background)."""
+        """Empty G-buffer: depth 1 everywhere (background), on ``device``
+        (``cuda`` unless another device is asked for)."""
+        from ..composer import resolve_device
+
+        device = resolve_device(device)
         z = lambda *s: torch.zeros((height, width) + s, device=device)
         return cls(
             diffuse=z(4), normal=z(3),
@@ -69,6 +73,11 @@ class VelocityBuffer:
 
     @classmethod
     def zeros(cls, height: int, width: int, device=None) -> "VelocityBuffer":
+        """No motion, depth 1, on ``device`` (``cuda`` unless another
+        device is asked for)."""
+        from ..composer import resolve_device
+
+        device = resolve_device(device)
         return cls(
             velocity=torch.zeros((height, width, 2), device=device),
             normal=torch.zeros((height, width, 3), device=device),

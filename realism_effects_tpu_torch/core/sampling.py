@@ -4,6 +4,10 @@ uv conventions of the JAX package's ``core/sampling.py``.
 - :func:`sample_nearest`  -- ``texelFetch`` / NearestFilter
 - :func:`sample_bilinear` -- ``textureLod(tex, uv, 0.)`` with LinearFilter
   (a float16 texture is read as an rgba16f target)
+- :func:`sample_catmull_rom_5tap` -- the temporal history filter
+  (`reproject.frag:212-255`) as five bilinear taps
+- :func:`sample_bilinear_mip` -- trilinear fetch from an explicit mip
+  chain (the GGX prefilter's reads)
 - :func:`sample_mip_atlas` -- ``textureLod`` with a per-pixel lod from a
   :class:`MipAtlas` (the environment's mips, `ssgi_utils.frag:90-92`)
 """
@@ -60,6 +64,66 @@ def sample_bilinear(tex: torch.Tensor, uv: torch.Tensor,
     bot = c10 + (c11 - c10) * fx
     out = top + (bot - top) * fy
     return out[..., 0] if tex.ndim == 2 else out
+
+
+def sample_catmull_rom_5tap(tex: torch.Tensor, uv: torch.Tensor,
+                            half: bool = False) -> torch.Tensor:
+    """5-tap bicubic Catmull-Rom (`reproject.frag:212-255`), clamped at
+    >= 0; ``half`` reads the texture as an rgba16f target. The window
+    warp's catrom5 mode (``ops/warp.py``) computes the same filter inside
+    its window; this is the unbounded form."""
+    h, w = tex.shape[0], tex.shape[1]
+    size = torch.tensor([float(w), float(h)], device=uv.device)
+    inv_size = 1.0 / size
+    pix = uv * size
+    tc = torch.floor(pix - 0.5) + 0.5
+    f = pix - tc
+    f2 = f * f
+    f3 = f2 * f
+    w0 = f2 - 0.5 * (f3 + f)
+    w1 = 1.5 * f3 - 2.5 * f2 + 1.0
+    w3 = 0.5 * (f3 - f2)
+    w2 = 1.0 - w0 - w1 - w3
+    weight1 = w1 + w2
+    sample0 = (tc - 1.0) * inv_size
+    sample1 = (tc + w2 / weight1) * inv_size
+    sample2 = (tc + 2.0) * inv_size
+    sw0 = weight1[..., 0] * w0[..., 1]
+    sw1 = w0[..., 0] * weight1[..., 1]
+    sw2 = weight1[..., 0] * weight1[..., 1]
+    sw3 = w3[..., 0] * weight1[..., 1]
+    sw4 = weight1[..., 0] * w3[..., 1]
+
+    def tap(ux, uy):
+        return sample_bilinear(tex, torch.stack([ux, uy], dim=-1), half=half)
+
+    expand = (lambda a: a[..., None]) if tex.ndim == 3 else (lambda a: a)
+    acc = tap(sample1[..., 0], sample0[..., 1]) * expand(sw0)
+    acc = acc + tap(sample0[..., 0], sample1[..., 1]) * expand(sw1)
+    acc = acc + tap(sample1[..., 0], sample1[..., 1]) * expand(sw2)
+    acc = acc + tap(sample2[..., 0], sample1[..., 1]) * expand(sw3)
+    acc = acc + tap(sample1[..., 0], sample2[..., 1]) * expand(sw4)
+    total = sw0 + sw1 + sw2 + sw3 + sw4
+    return torch.clamp(acc * expand(1.0 / total), min=0.0)
+
+
+def sample_bilinear_mip(mips, uv: torch.Tensor, lod) -> torch.Tensor:
+    """Trilinear fetch from an explicit mip chain at the fractional
+    ``lod`` (a float or a tensor broadcastable to ``uv[..., 0]``): every
+    level is fetched and blended by its weight, 0 for all but two."""
+    n = len(mips)
+    lod = torch.clamp(torch.as_tensor(lod, dtype=torch.float32, device=uv.device),
+                      0.0, n - 1)
+    lod0 = torch.floor(lod)
+    frac = lod - lod0
+    expand = (lambda a: a[..., None]) if mips[0].ndim == 3 else (lambda a: a)
+    out = None
+    for i, mip in enumerate(mips):
+        wgt = torch.where(lod0 == i, 1.0 - frac,
+                          torch.where(lod0 == i - 1, frac, 0.0))
+        contrib = sample_bilinear(mip, uv) * expand(wgt)
+        out = contrib if out is None else out + contrib
+    return out
 
 
 def build_mip_chain(tex: torch.Tensor, max_levels: int | None = None):

@@ -89,10 +89,7 @@ class SSGIEffect(Effect):
             resolution_scale = p.get("resolution_scale", resolution_scale)
         if selection not in ("mask", "rerender"):
             raise ValueError("selection must be 'mask' or 'rerender'")
-        if trace == "march":
-            raise NotImplementedError(
-                "trace='march' is not ported yet (ROADMAP §1 (g))")
-        if trace != "sweep":
+        if trace not in ("march", "sweep"):
             raise ValueError("trace must be 'march' or 'sweep'")
         self.distance = distance
         self.thickness = thickness

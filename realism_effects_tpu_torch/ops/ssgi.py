@@ -1,10 +1,14 @@
 """SSGI: stochastic screen-space GI (`ssgi.frag`, `ssgi_utils.frag`), the
-JAX package's ``ops/ssgi.py`` with ``trace="sweep"``.
+JAX package's ``ops/ssgi.py``.
 
 Per pixel: one GGX-VNDF, cosine-hemisphere or environment-CDF sample,
-both rays (specular, diffuse) traced by the sweep march
-(``ops/ssgi_sweep.py``), radiance from last frame's composed output
-prewarped by its velocity, environment fallback with MIS.
+both rays (specular, diffuse) traced, radiance from last frame's
+composed output reprojected by its velocity, environment fallback with
+MIS. ``trace="sweep"`` traces with the direction-binned sweep
+(``ops/ssgi_sweep.py``) and reads the radiance prewarped; ``"march"`` is
+the reference's per-pixel march (:func:`view_space_ray_march`), which
+fetches the velocity and the radiance at each hit, the exact
+environment CDF chain and the trilinear environment fetch.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..core.framebuffers import GBuffer, VelocityBuffer
 from ..core.math3d import (dot, luminance, mix, normalize, smoothstep,
                            transform_dir_transpose, uv_grid)
 from ..core.rng import blue_noise_image, blue_noise_transform
+from ..core.sampling import sample_bilinear, sample_nearest
 from .ssgi_sweep import sweep_ray_march
 from .warp import bilinear_window
 
@@ -35,7 +40,8 @@ class SSGIConfig:
     mode: str = "ssgi"               # "ssgi" | "ssr"
     steps: int = 20
     refine_steps: int = 5
-    #: "sweep" (the direction-binned march); "march" is not ported yet
+    #: "sweep" (the direction-binned march) or "march" (the reference's
+    #: per-pixel march, `ssgi.frag:441-503`)
     trace: str = "sweep"
     sweep_dirs: int = 16
     sweep_steps: int = 32
@@ -46,9 +52,57 @@ class SSGIConfig:
     use_direct_light: bool = True
     #: box-projected env parallax correction: ((sx, sy, sz), (px, py, pz))
     env_box: tuple | None = None
-    #: each stride x stride pixel quad shares one environment fetch a
-    #: frame, the fetched member rotating with the frame
+    #: sweep trace: each stride x stride pixel quad shares one
+    #: environment fetch a frame, the fetched member rotating with the
+    #: frame (the march fetches per pixel)
     env_fetch_stride: int = 2
+
+
+def view_space_ray_march(view_pos, l, depth_tex, cam, random_b, thickness,
+                         ray_distance, cfg: SSGIConfig):
+    """RayMarch + BinarySearch (`ssgi.frag:441-503`), every lane
+    ``cfg.steps - 1`` steps of ``l * ray_distance / steps`` eased by
+    ``1 - exp(-0.25 (i + random_b - 0.5)^2)``; a hit is the first
+    ``0 <= diff < thickness`` against the nearest depth texel, refined by
+    ``cfg.refine_steps`` bisections from half a step back. Returns (uv,
+    hit_pos (view), missed); missed lanes hold hit_pos = 1e9, the
+    reference's sentinel. ``view_space_ray_march.calls`` counts calls."""
+    view_space_ray_march.calls += 1
+    p = cam.projection_matrix
+    step_dir = l * (ray_distance / float(cfg.steps))
+    hit = torch.zeros(view_pos.shape[:-1], dtype=torch.bool, device=view_pos.device)
+    hit_pos = view_pos
+    uv = math3d.view_to_screen(view_pos, p)
+    for i in range(1, cfg.steps):
+        x = float(i) + random_b - 0.5
+        cs = 1.0 - torch.exp(-0.25 * (x * x))
+        advanced = hit_pos + step_dir * cs[..., None]
+        cur_pos = torch.where(hit[..., None], hit_pos, advanced)
+        cur_uv = math3d.view_to_screen(cur_pos, p)
+        z = math3d.depth_to_view_z(sample_nearest(depth_tex, cur_uv), cam)
+        diff = z - cur_pos[..., 2]
+        newly_hit = (~hit) & (diff >= 0.0) & (diff < thickness)
+        uv = torch.where(hit[..., None], uv, cur_uv)
+        hit = hit | newly_hit
+        hit_pos = cur_pos
+
+    if cfg.refine_steps > 0:
+        bdir = (step_dir * 0.5).expand_as(hit_pos)
+        bpos = hit_pos - bdir
+        for _ in range(cfg.refine_steps):
+            b_uv = math3d.view_to_screen(bpos, p)
+            z = math3d.depth_to_view_z(sample_nearest(depth_tex, b_uv), cam)
+            diff = z - bpos[..., 2]
+            bdir = bdir * 0.5
+            bpos = bpos + torch.where((diff >= 0.0)[..., None], -bdir, bdir)
+        uv = torch.where(hit[..., None], math3d.view_to_screen(bpos, p), uv)
+        hit_pos = torch.where(hit[..., None], bpos, hit_pos)
+
+    missed = ~hit
+    return uv, torch.where(missed[..., None], 1.0e9, hit_pos), missed
+
+
+view_space_ray_march.calls = 0
 
 
 def _parallax_correct(reflected_ws, world_pos, cfg: SSGIConfig):
@@ -86,9 +140,10 @@ def _env_fetch_strided(env, dirs_ws, lod, stride: int, frame: int,
 def _get_env_color(env: EquirectEnv | None, l_view, view_matrix, roughness,
                    is_diffuse, is_env_sample, env_blur, cfg: SSGIConfig,
                    world_pos=None, frame: int | None = None):
-    """`ssgi.frag:311-346`: equirect fetch at a roughness-scaled mip, the
-    lod rounded to a level and the fetch shared by stride x stride quads,
-    luminance-clamped."""
+    """`ssgi.frag:311-346`: equirect fetch at a roughness-scaled mip,
+    luminance-clamped; the sweep trace rounds the lod to a level and
+    shares the fetch among stride x stride quads, the march fetches
+    trilinear per pixel."""
     if env is None:
         return torch.zeros(l_view.shape[:-1] + (3,), device=l_view.device)
     reflected_ws = normalize(transform_dir_transpose(view_matrix, l_view))
@@ -98,11 +153,12 @@ def _get_env_color(env: EquirectEnv | None, l_view, view_matrix, roughness,
     mip_scale = torch.where((~is_diffuse) & (roughness < 0.15),
                             roughness / 0.15, 1.0)
     lod = (mip * mip_scale).expand(l_view.shape[:-1])
-    if cfg.env_fetch_stride > 1 and frame is not None:
+    sweep = cfg.trace == "sweep"
+    if sweep and cfg.env_fetch_stride > 1 and frame is not None:
         sample = _env_fetch_strided(env, reflected_ws, lod,
                                     cfg.env_fetch_stride, frame, quantize=True)
     else:
-        sample = sample_equirect_color(env, reflected_ws, lod, quantize=True)
+        sample = sample_equirect_color(env, reflected_ws, lod, quantize=sweep)
     if cfg.env_lum_clamp:
         max_env_lum = torch.where(is_env_sample, 100.0, 25.0)
         env_lum = luminance(sample)
@@ -129,10 +185,9 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
     Returns (g_diffuse (H, W, 4) = (diffuseGI | -1, roughness),
     g_specular (H, W, 4) = (specularGI, rayLength)) as `ssgi.frag:274-308`
     packs them."""
-    if cfg.trace != "sweep":
-        raise NotImplementedError(
-            f"trace={cfg.trace!r} is not ported yet (ROADMAP §1 (g)); "
-            "the port traces with trace='sweep'")
+    if cfg.trace not in ("sweep", "march"):
+        raise ValueError("trace must be 'march' or 'sweep'")
+    sweep = cfg.trace == "sweep"
     h, w = gbuffer.depth.shape
     dev = gbuffer.depth.device
     uv = uv_grid(h, w, dev)
@@ -192,7 +247,7 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
     if cfg.importance_sampling and env is not None:
         def cdf_on_tile(t):
             pdf_t, dir_t = sample_equirect_probability(env, t[..., :2],
-                                                       fast=True)
+                                                       fast=sweep)
             return torch.cat([pdf_t[..., None], dir_t], dim=-1)
 
         packed_env = blue_noise_transform(h, w, frame, cdf_on_tile, device=dev)
@@ -212,25 +267,29 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
     diffuse_ray = torch.where(is_env_sample[..., None], env_mis_dir, cos_hemi)
     specular_ray = torch.where(is_env_sample[..., None], env_mis_dir, l_view)
 
-    # Prewarped accumulated radiance A'(q) = acc(q - vel(q)) through the
-    # bilinear window warp, with a validity channel; the march reads it at
-    # each ray's hit texel
-    acc16 = accumulated[..., :3].to(torch.float16).to(torch.float32)
-    pre_uv = uv - velocity.velocity
-    warped_acc, in_win = bilinear_window(acc16.contiguous(), pre_uv, ky=8, kx=30)
-    pre_ok = ((pre_uv[..., 0] >= 0.0) & (pre_uv[..., 0] <= 1.0)
-              & (pre_uv[..., 1] >= 0.0) & (pre_uv[..., 1] <= 1.0) & in_win)
-    prewarped = torch.cat([warped_acc, pre_ok.to(torch.float32)[..., None]],
-                          dim=-1).to(torch.float16)
-
-    # stochastic bin rounding: a second blue-noise image, independent of
-    # r1-r4
-    bin_noise = blue_noise_image(h, w, frame + 2048, device=dev)[..., 0]
     rays = [specular_ray] + ([diffuse_ray] if cfg.mode == "ssgi" else [])
-    traces = sweep_ray_march(
-        view_pos, rays, depth, cam, frame, thickness, ray_distance,
-        dirs=cfg.sweep_dirs, steps=cfg.sweep_steps, bin_noise=bin_noise,
-        radiance=prewarped, miss_radiance=cfg.missed_rays)
+    if sweep:
+        # Prewarped accumulated radiance A'(q) = acc(q - vel(q)) through
+        # the bilinear window warp, with a validity channel; the march
+        # reads it at each ray's hit texel
+        acc16 = accumulated[..., :3].to(torch.float16).to(torch.float32)
+        pre_uv = uv - velocity.velocity
+        warped_acc, in_win = bilinear_window(acc16.contiguous(), pre_uv,
+                                             ky=8, kx=30)
+        pre_ok = ((pre_uv[..., 0] >= 0.0) & (pre_uv[..., 0] <= 1.0)
+                  & (pre_uv[..., 1] >= 0.0) & (pre_uv[..., 1] <= 1.0) & in_win)
+        prewarped = torch.cat([warped_acc, pre_ok.to(torch.float32)[..., None]],
+                              dim=-1).to(torch.float16)
+        # stochastic bin rounding: a second blue-noise image, independent
+        # of r1-r4
+        bin_noise = blue_noise_image(h, w, frame + 2048, device=dev)[..., 0]
+        traces = sweep_ray_march(
+            view_pos, rays, depth, cam, frame, thickness, ray_distance,
+            dirs=cfg.sweep_dirs, steps=cfg.sweep_steps, bin_noise=bin_noise,
+            radiance=prewarped, miss_radiance=cfg.missed_rays)
+    else:
+        traces = [view_space_ray_march(view_pos, ray, depth, cam, r3, thickness,
+                                       ray_distance, cfg) for ray in rays]
 
     sat_desat = (1.0 - roughness) * _saturation(diffuse) * 0.4
 
@@ -248,14 +307,22 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
                           min=EPS)
         brdf_val = brdf_val * cos_theta
 
-        coords, hit_pos, missed, trace_gi = trace
+        coords, hit_pos, missed = trace[:3]
         env_color = _get_env_color(
             env, l, cam.view_matrix, roughness, is_diffuse_mask,
             is_env_sample, env_blur, cfg, world_pos=world_pos, frame=frame)
 
-        # the prewarped radiance (+ validity) read at the hit texel
-        reproj_gi = trace_gi[..., :3]
-        in_bounds = trace_gi[..., 3] > 0.5
+        if sweep:
+            # the prewarped radiance (+ validity) read at the hit texel
+            reproj_gi = trace[3][..., :3]
+            in_bounds = trace[3][..., 3] > 0.5
+        else:
+            # the velocity (NearestFilter) at the hit, then last frame's
+            # output there (an rgba16f LinearFilter target)
+            reproj_uv = coords - sample_nearest(velocity.velocity, coords)
+            in_bounds = ((reproj_uv[..., 0] >= 0.0) & (reproj_uv[..., 0] <= 1.0)
+                         & (reproj_uv[..., 1] >= 0.0) & (reproj_uv[..., 1] <= 1.0))
+            reproj_gi = sample_bilinear(accumulated[..., :3], reproj_uv, half=True)
         reproj_gi = mix(reproj_gi, luminance(reproj_gi)[..., None],
                         sat_desat[..., None])
 

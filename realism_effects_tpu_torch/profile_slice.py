@@ -2,7 +2,7 @@
 
     python -m realism_effects_tpu_torch.profile_slice [--frames 24]
         [--width 1920] [--height 1080]
-        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused|ssr_gtao_taa]
+        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused|ssr_gtao_taa|march_aa|ortho_ssr]
 
 Renders the analytic scene (``analytic.py``) through
 ``EffectComposer.render_external`` with ``HBAOEffect()`` +
@@ -16,7 +16,10 @@ motion blur and TRAA (path ``flagship``) or the reference demo's stack,
 SSGI, tone mapping, TRAA, sharpness, vignette, bloom and a grading LUT
 (path ``demo_stack``), or the reference's other three exports, SSR,
 GTAO and TAA, with the camera still and then one orbit step half way
-through the host-timed frames (path ``ssr_gtao_taa``). After 4 warm-up
+through the host-timed frames (path ``ssr_gtao_taa``), or SSGI with the
+per-pixel march and SMAA under a cube-map environment (path
+``march_aa``), or SSR with the march, HBAO and FXAA under an
+orthographic camera (path ``ortho_ssr``). After 4 warm-up
 frames, ``--frames`` frames timed on the host clock (synchronised at the
 end), 4 frames with ``collect_timings``, then ``--frames`` frames under
 ``torch.profiler``. Prints one JSON line a path: host ms/frame, each
@@ -50,16 +53,18 @@ PORT_KERNELS = ("warp_kernel", "warp_multi_kernel", "minmax_kernel",
                 "poisson_kernel",
                 "taps_kernel", "sweep_kernel", "zscan_kernel", "lookup_kernel")
 PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship", "demo_stack",
-         "hbao_traa_unfused", "ssr_gtao_taa")
+         "hbao_traa_unfused", "ssr_gtao_taa", "march_aa", "ortho_ssr")
 WARM = 4
 
 
 def _driver(path: str, h: int, w: int, n: int):
     """``drive(first, count)``: render frames first .. first + count - 1
     of ``path``'s composer on the card; and the composer."""
-    if path in ("flagship", "demo_stack"):
+    if path in ("flagship", "demo_stack", "march_aa", "ortho_ssr"):
         make = {"flagship": analytic.flagship_composer,
-                "demo_stack": analytic.demo_stack_composer}[path]
+                "demo_stack": analytic.demo_stack_composer,
+                "march_aa": analytic.march_aa_composer,
+                "ortho_ssr": analytic.ortho_ssr_composer}[path]
         comp, cam = make(h, w, "cuda")
         return (lambda first, count: analytic.render_frames(
             comp, cam, range(first, first + count))), comp

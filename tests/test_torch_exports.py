@@ -186,8 +186,10 @@ def _fields(cfg):
 
 def test_exports_and_configuration():
     """The three names are exported, with the JAX package's defaults and
-    routing: SSR traces, reprojects and denoises one specular texture;
-    GTAO takes 16 samples; TAA asks for the jittered camera."""
+    routing: SSR traces, reprojects and denoises one specular texture (by
+    the sweep or the march); GTAO takes 16 samples; TAA asks for the
+    jittered camera. The port exports every name of the JAX package's
+    but the glTF and animation loaders."""
     for name in ("SSREffect", "GTAOEffect", "TAAPass"):
         assert name in tre.__all__ and getattr(tre, name) is not None
     ssr, jssr = tre.SSREffect(), jre.SSREffect()
@@ -198,5 +200,10 @@ def test_exports_and_configuration():
     gtao, jgtao = tre.GTAOEffect(), jre.GTAOEffect()
     assert (gtao.name, gtao.kind, gtao.cfg.spp) == (jgtao.name, jgtao.kind, jgtao.cfg.spp)
     assert tre.TAAPass.needs_jitter and tre.TAAPass.name == jre.TAAPass.name == "taa"
-    with pytest.raises(NotImplementedError, match=r"§1 \(g\)"):
-        tre.SSREffect(trace="march")
+    ssr_march = tre.SSREffect(trace="march")
+    assert (ssr_march.cfg.trace, ssr_march.cfg.mode) == ("march", "ssr")
+    # every export of the JAX package but the glTF and animation loaders
+    later = {"load_gltf", "load_gltf_asset", "GltfAsset", "write_glb",
+             "AnimationMixer", "AnimationClip"}
+    assert set(jre.__all__) - set(tre.__all__) == later
+    assert tre.SSGI_PRESETS == jre.SSGI_PRESETS

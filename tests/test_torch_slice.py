@@ -149,9 +149,10 @@ def test_render_needs_the_raster_slice():
 
 
 def test_package_imports_without_jax():
-    code = ("import sys, realism_effects_tpu_torch; "
+    code = ("import sys, realism_effects_tpu_torch, realism_effects_tpu_torch.analytic; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'realism_effects_tpu' not in sys.modules")
+            "assert 'realism_effects_tpu' not in sys.modules; "
+            "assert 'PIL' not in sys.modules, 'PIL imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
     banned = re.compile(

@@ -170,10 +170,19 @@ def test_ssgi_matches_jax(jax_ssgi, jax_env, frame):
 
 
 def test_ssgi_march_trace_waits():
+    """``trace="march"`` runs (it waited for a later slice until the
+    per-pixel march was ported; ``tests/test_torch_march.py`` holds it
+    against the JAX package); an unknown trace raises."""
     gb, vel, color, tcam, _ = _frame(0)
-    with pytest.raises(NotImplementedError, match=r"§1 \(g\)"):
+    calls = tssgi.view_space_ray_march.calls
+    out = tssgi.ssgi(gb, vel, torch.zeros(H, W, 3), color, None, tcam, 0,
+                     tssgi.SSGIConfig(trace="march"))
+    assert tssgi.view_space_ray_march.calls == calls + 2
+    for g in out:
+        assert g.shape == (H, W, 4) and bool(torch.isfinite(g).all())
+    with pytest.raises(ValueError, match="trace"):
         tssgi.ssgi(gb, vel, torch.zeros(H, W, 3), color, None, tcam, 0,
-                   tssgi.SSGIConfig(trace="march"))
+                   tssgi.SSGIConfig(trace="binned"))
 
 
 def _env_arrays(env):

@@ -192,7 +192,8 @@ def test_convert_round_trips_list_state():
 def test_environment_resolution():
     """A raw map is built once and rebuilt (with a history reset) only
     when its identity changes or on refresh_environment(); a prebuilt
-    EquirectEnv is used as it is; a cube map raises."""
+    EquirectEnv is used as it is; (6, S, S, 3) cube faces become a
+    (2S, 4S) equirect; any other shape raises."""
     h, w = 12, 16
     cam = tre.PerspectiveCamera(50, w / h, 0.1, 100)
     frames = analytic.frames_at(cam, range(2), h, w, "cpu", sphere=True)
@@ -213,14 +214,18 @@ def test_environment_resolution():
     assert rebuilt is not built
     holder.environment = tre.build_equirect_env(sky, device="cpu")
     assert comp._resolve_environment() is holder.environment
-    holder.environment = np.zeros((6, 8, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="cube"):
+    holder.environment = np.ones((6, 8, 8, 3), np.float32)
+    cube = comp._resolve_environment()
+    assert cube.size == (16, 32) and comp._reset_pending
+    np.testing.assert_allclose(cube.map.float().numpy(), 1.0)
+    holder.environment = np.zeros((5, 8, 8, 3), np.float32)
+    with pytest.raises(ValueError, match="cube"):
         comp._resolve_environment()
 
 
 def test_effect_options_on_cpu():
     """Debug routing, the low preset (half-resolution trace), the
-    selection modes and the options that wait for later slices."""
+    per-pixel march and the selection modes."""
     h, w = 16, 24
     cam = tre.PerspectiveCamera(50, w / h, 0.1, 100)
     frames = analytic.frames_at(cam, range(2), h, w, "cpu", sphere=True)
@@ -228,7 +233,8 @@ def test_effect_options_on_cpu():
     outs = {}
     for key, kw in [("full", {}), ("diffuse", dict(output_texture="diffuse")),
                     ("low", dict(preset="low")),
-                    ("temporal", dict(denoise_mode="temporal"))]:
+                    ("temporal", dict(denoise_mode="temporal")),
+                    ("march", dict(trace="march"))]:
         scene = tre.Scene()
         scene.environment = env
         comp = tre.EffectComposer(scene, cam, w, h, device="cpu")
@@ -238,8 +244,10 @@ def test_effect_options_on_cpu():
         assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all()), key
     assert not torch.equal(outs["full"], outs["diffuse"])
     assert not torch.equal(outs["full"], outs["low"])
+    assert not torch.equal(outs["full"], outs["march"])
     assert tre.SSGIEffect(selection="rerender").selection == "rerender"
     with pytest.raises(ValueError, match="selection"):
         tre.SSGIEffect(selection="layers")
-    with pytest.raises(NotImplementedError, match=r"§1 \(g\)"):
-        tre.SSGIEffect(trace="march")
+    assert tre.SSGIEffect(trace="march").cfg.trace == "march"
+    with pytest.raises(ValueError, match="trace"):
+        tre.SSGIEffect(trace="binned")
