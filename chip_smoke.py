@@ -33,11 +33,16 @@ Phases (any failure raises and the script exits non-zero):
    the G-buffer's (the entry's numbers) and the velocity's, each exact
    and timed with its library call; the sweep over a 32 x 128 table (in
    shared memory through the opt-in) and a 64 x 304 one (above the
-   opt-in limit, read from device memory), both exact. Then the
+   opt-in limit, read from device memory), both exact; the z-scan's
+   alpha variant on the 3840 x 2160 raster of frame 5 of the glTF alpha
+   + MSAA path, its first pass (no exclusion plane, the entry's numbers)
+   and its third (two planes), each bit for bit, then three passes over
+   the tie-heavy table at 1080p (exclusion by id: an excluded winner's
+   duplicate must win the next pass). Then the
    cube-map routines, which have no kernel of their own
    (``cube_to_equirect``, ``ggx_prefilter_mips``, ``blur_env(..., 0.5)``
    at a 128 x 256 map), on the card against the CPU with their ms.
-3. Run the eight paths at 1920x1080. Through
+3. Run the nine paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
    ray-cast per pixel on the card with the camera orbiting):
@@ -60,7 +65,15 @@ Phases (any failure raises and the script exits non-zero):
    ``SMAAEffect()`` on the flagship scene under a cube map (the six faces
    of the flagship's sky, which the composer turns into an equirect),
    and ``SSREffect(trace="march")`` -> ``HBAOEffect()`` -> ``FXAAEffect()``
-   under an orthographic camera, 12 frames each. The launch counters
+   under an orthographic camera, 12 frames each. Then a loaded asset
+   (``analytic.gltf_alpha_msaa_composer``): the flagship scene with a
+   box of material alpha 0.5 and a cutout quad under a checker alpha
+   map, written by ``write_glb``, read back by ``load_gltf_asset``, the
+   box animated by an ``AnimationMixer``, rendered through ``render`` by
+   ``EffectComposer(..., msaa=2, alpha_peels=3)`` with ``HBAOEffect()``
+   -> ``TRAAEffect()``, the camera still and then one orbit step, over
+   12 frames; it must launch the z-scan's alpha variant (6 a frame) and
+   never the opaque z-scan. The launch counters
    (and the march's call counter) are set to 0 just before each path
    and read just after: each path must have launched each of its
    kernels (and the unfused path neither the fused HBAO nor the fused AO
@@ -69,7 +82,9 @@ Phases (any failure raises and the script exits non-zero):
    prewarp, the first six paths no march, and no path HBAO's noise-table
    kernel, whose table is built once per setting), and every kernel in
    the ``kernels`` line launches on at least one path. Then a 3-frame run
-   of each path at 270x480 must agree with the same composer on the CPU.
+   of each path at 270x480 must agree with the same composer on the CPU,
+   and SMAA and FXAA alone on the card must agree with the CPU over the
+   CPU paths' own pre-AA frames (SMAA_ALONE_MAX_TOL, FXAA_ALONE_MAX_TOL).
 4. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
@@ -139,6 +154,16 @@ UNFUSED_SLICE_MAX_TOL = 1e-2
 # share over 1e-2 1.9e-3), so that path gets its own three bounds.
 AA_SLICE_MAX_TOL = 0.5
 ORTHO_FXAA_MAX_TOL = 1.0
+# Beside those: each AA pass alone on the card over the CPU path's own
+# pre-AA frame, so that a fault in the pass shows on its own. Measured on
+# an H100 at 700 W: SMAA alone equal to the CPU; FXAA alone max 6.2e-5
+# (ATen's card and CPU bilinear blends round the HDR colour apart) and,
+# in an earlier run, one flipped search a frame (up to 0.12). So: SMAA
+# every pixel within 1e-5; FXAA every pixel within 1e-3 but at most 2
+# pixels a frame.
+SMAA_ALONE_MAX_TOL = 1e-5
+FXAA_ALONE_MAX_TOL = 1e-3
+FXAA_ALONE_FLIPS = 2
 ORTHO_FXAA_MEAN_TOL = 2e-4
 ORTHO_FXAA_PIX_FRAC = 1e-2
 
@@ -870,6 +895,102 @@ def check_raster_kernels(torch, analytic, timer, results):
     results[-1]["records"] = records
 
 
+def _zscan_alpha_bytes(tab, h, w, n_excl):
+    """Bytes the alpha variant must move: the table and the alpha (4 B a
+    triangle), the dither, the exclusion planes and the two outputs."""
+    return tab.nbytes + 4 * tab.shape[0] + h * w * (4 + 4 * n_excl + 8)
+
+
+def check_alpha_kernels(torch, analytic, timer, results):
+    """The z-scan's alpha variant on the inputs of frame SWEEP_FRAME of
+    the glTF alpha + MSAA path at 1920 x 1080 (a 3840 x 2160 raster; the
+    camera still since frame 0, so the soft law): the G-buffer raster's
+    first pass (no exclusion planes, the entry's numbers) and its third
+    (two), each held to the plain version (winner flips and z) and timed
+    with it; then three passes over the tie-heavy table at 1080p, where
+    an excluded winner's duplicate ties its z and must win the next pass
+    (exclusion is by id)."""
+    from realism_effects_tpu_torch.ops import raster_kernel
+    from realism_effects_tpu_torch.scene import rasterizer
+
+    comp, cam, mixer = analytic.gltf_alpha_msaa_composer(HEIGHT, WIDTH, "cuda")
+    steps = analytic.still_then_step(0, SWEEP_FRAME + 1, SWEEP_FRAME + 1)
+    analytic.render_frames(comp, cam, steps[:SWEEP_FRAME], mixer)
+    captured = []
+    real = rasterizer.zscan_alpha
+
+    def record(tab, h, w, alpha, dither, cnmf, exclude=None):
+        excl = (exclude.clone() if exclude is not None else
+                torch.empty((0, h, w), dtype=torch.int32, device=tab.device))
+        captured.append((tab, h, w, alpha, dither, cnmf, excl))
+        return real(tab, h, w, alpha, dither, cnmf, exclude)
+
+    rasterizer.zscan_alpha = record
+    try:
+        analytic.render_frames(comp, cam, steps[SWEEP_FRAME:], mixer)
+    finally:
+        rasterizer.zscan_alpha = real
+    del comp
+    print(f"[kernel] zscan_alpha: {len(captured)} passes in frame {SWEEP_FRAME} "
+          f"(G-buffer and velocity rasters, cnmf {captured[0][5]})", flush=True)
+    passes = []
+    for tab, h, w, alpha, dither, cnmf, excl in (captured[0], captured[2]):
+        plain_excl = excl if len(excl) else None
+        ids_k, z_k = raster_kernel._launch_alpha(tab, h, w, alpha, dither, cnmf, excl)
+        ids_p, z_p = raster_kernel.zscan_plain(tab, h, w, alpha, dither, cnmf, plain_excl)
+        flips = int((ids_k != ids_p).sum())
+        both = (ids_k == ids_p) & (ids_k >= 0)
+        err = _maxerr(torch, torch.where(both, z_k, 0.0), torch.where(both, z_p, 0.0))
+        bound_ms, bound_by = _bound(_zscan_alpha_bytes(tab, h, w, len(excl)),
+                                    _zscan_ops(tab, h, w))
+        rec = dict(exclusion_planes=len(excl), raster=[h, w], triangles=tab.shape[0],
+                   winner_flips=flips, max_abs_err=err,
+                   ms=timer(lambda: raster_kernel._launch_alpha(
+                       tab, h, w, alpha, dither, cnmf, excl)),
+                   plain_ms=timer(lambda: raster_kernel.zscan_plain(
+                       tab, h, w, alpha, dither, cnmf, plain_excl), iters=5, warmup=1),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   covered=int((ids_k >= 0).sum()))
+        print(f"[kernel] zscan_alpha, {len(excl)} exclusion planes: {json.dumps(rec)}",
+              flush=True)
+        if flips or err != 0.0:
+            raise AssertionError(f"zscan_alpha with {len(excl)} exclusion planes "
+                                 f"disagrees with its plain version")
+        passes.append(rec)
+
+    h, w = HEIGHT, WIDTH
+    tie = tie_table(torch, h, w)
+    # alpha 0.4 on a third of the triangles, drawn from the row's bits, so
+    # a triangle and its duplicate share it
+    pick = tie.view(torch.int32)[:, :9].sum(1).remainder(3)
+    alpha = torch.where(pick == 0, 0.4, 1.0)
+    dither = torch.rand((h, w), generator=torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    excl, tie_flips = [], 0
+    for p in range(3):
+        stack = (torch.stack(excl) if excl else
+                 torch.empty((0, h, w), dtype=torch.int32, device="cuda"))
+        ids_k, z_k = raster_kernel._launch_alpha(tie, h, w, alpha, dither, 3.0, stack)
+        ids_p, z_p = raster_kernel.zscan_plain(tie, h, w, alpha, dither, 3.0,
+                                               stack if excl else None)
+        tie_flips += int((ids_k != ids_p).sum())
+        tie_flips += int((torch.where(ids_p >= 0, z_k, 0.0)
+                          != torch.where(ids_p >= 0, z_p, 0.0)).sum())
+        excl.append(ids_p)
+    dup_wins = int(((excl[1] >= 1500) & (excl[1] < 3000)).sum())
+    print(f"[check] zscan_alpha on the tie-heavy table, 3 passes at cnmf 3: "
+          f"pixels off {tie_flips}, second pass won by a duplicate {dup_wins}",
+          flush=True)
+    if tie_flips or dup_wins == 0:
+        raise AssertionError("zscan_alpha disagrees with its plain version on "
+                             "the tie-heavy table")
+    g = passes[0]
+    results.add("zscan_alpha", "raster.cu", "realism_effects_tpu/ops/pallas/raster.py:67",
+                g["max_abs_err"], 0.0, g["ms"], g["plain_ms"],
+                _zscan_alpha_bytes(*captured[0][:3], 0), _zscan_ops(*captured[0][:3]))
+    results[-1]["passes"] = passes
+
+
 def counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
                                                poisson_taps, raster_kernel,
@@ -889,6 +1010,7 @@ def counters():
         "sweep": rays.get(2, 0),
         "sweep_1ray": rays.get(1, 0),
         "zscan": raster_kernel.zscan.launches,
+        "zscan_alpha": raster_kernel.zscan_alpha.launches,
         "lookup": table_kernel.face_lookup.launches,
         "warp_multi": warp.window_warp_multi.launches,
         "poisson_taps": poisson_taps.poisson_taps.launches,
@@ -916,6 +1038,7 @@ def reset_counters():
     sweep_kernel.sweep_march.launches = 0
     sweep_kernel.sweep_march.ray_launches.clear()
     raster_kernel.zscan.launches = 0
+    raster_kernel.zscan_alpha.launches = 0
     table_kernel.face_lookup.launches = 0
     warp.window_warp_multi.launches = 0
     poisson_taps.poisson_taps.launches = 0
@@ -959,12 +1082,13 @@ def check_env_extras(torch):
             raise AssertionError(f"{name}: card and CPU disagree, {err} > 1e-3")
 
 
-def exports_driver(analytic, comp, cam, still):
-    """``drive(first, count)`` of the SSR + GTAO + TAA composer through
-    render(): the camera still for the frames before ``still``, then one
-    orbit step (``analytic.still_then_step``)."""
+def exports_driver(analytic, comp, cam, still, mixer=None):
+    """``drive(first, count)`` of a composer through render() (the SSR +
+    GTAO + TAA one, the glTF alpha + MSAA one with its ``mixer``): the
+    camera still for the frames before ``still``, then one orbit step
+    (``analytic.still_then_step``)."""
     return lambda first, n: analytic.render_frames(
-        comp, cam, analytic.still_then_step(first, n, still))
+        comp, cam, analytic.still_then_step(first, n, still), mixer)
 
 
 def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
@@ -1008,18 +1132,25 @@ def run_path(torch, comp, drive, name, n, kernels, smi, forbidden=()):
     return launches
 
 
-def card_vs_cpu(torch, analytic, make, sphere, steps=range(3)):
+def card_vs_cpu(torch, analytic, make, sphere, steps=range(3), capture=None):
     """3 frames at 270x480 on the card and on the CPU through the same
     composer, the camera at orbit indices ``steps`` (``sphere`` None:
     ``make``'s scene through render()); returns per frame
-    (max, mean, share of pixels > 1e-2, pixels > 1e-3)."""
+    (max, mean, share of pixels > 1e-2, pixels > 1e-3). ``capture``:
+    (effect name, list): the CPU composer's input to that effect, each
+    frame, is appended to the list."""
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
 
-    gpu_comp, gpu_cam = make(270, 480, "cuda")
-    cpu_comp, cpu_cam = make(270, 480, "cpu")
+    gpu_comp, gpu_cam, *gpu_mixer = make(270, 480, "cuda")
+    cpu_comp, cpu_cam, *cpu_mixer = make(270, 480, "cpu")
+    if capture is not None:
+        effect = next(e for e in cpu_comp.effects if e.name == capture[0])
+        apply = effect.apply
+        effect.apply = lambda ctx, color, state: (
+            capture[1].append(color.clone()) or apply(ctx, color, state))
     if sphere is None:
-        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, steps)
-        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, steps)
+        gpu_imgs = analytic.render_frames(gpu_comp, gpu_cam, steps, *gpu_mixer)
+        cpu_imgs = analytic.render_frames(cpu_comp, cpu_cam, steps, *cpu_mixer)
     else:
         small_cam = PerspectiveCamera(50, 480 / 270, 0.1, 100)
         small = analytic.frames_at(small_cam, steps, 270, 480, "cuda", sphere=sphere)
@@ -1038,6 +1169,31 @@ def card_vs_cpu(torch, analytic, make, sphere, steps=range(3)):
                     float((d.amax(-1) > SSGI_SLICE_PIX_TOL).float().mean()),
                     int((d.amax(-1) > 1e-3).sum())))
     return out
+
+
+def aa_alone(torch, smaa_in, fxaa_in):
+    """SMAA and FXAA alone on the card over the CPU paths' own pre-AA
+    frames (270x480, 3 frames each), against the same pass on the CPU:
+    SMAA within SMAA_ALONE_MAX_TOL everywhere, FXAA within
+    FXAA_ALONE_MAX_TOL but at most FXAA_ALONE_FLIPS pixels a frame (a
+    search that ends one texel earlier or later)."""
+    from realism_effects_tpu_torch.effects.fxaa import fxaa
+    from realism_effects_tpu_torch.effects.smaa import smaa
+
+    for name, fn, inputs, tol, flips in (
+            ("SMAA", smaa, smaa_in, SMAA_ALONE_MAX_TOL, 0),
+            ("FXAA", fxaa, fxaa_in, FXAA_ALONE_MAX_TOL, FXAA_ALONE_FLIPS)):
+        if not inputs:
+            raise AssertionError(f"{name}: no pre-AA frame captured")
+        for i, img in enumerate(inputs):
+            d = (fn(img.cuda()).cpu() - fn(img)).abs().amax(-1)
+            n_off = int((d > tol).sum())
+            print(f"[path] {name} alone on the CPU path's pre-AA frame {i} "
+                  f"(270x480): card vs CPU max {float(d.max())} mean "
+                  f"{float(d.mean())}, pixels > {tol}: {n_off}", flush=True)
+            if n_off > flips:
+                raise AssertionError(f"{name} alone: {n_off} pixels off by more "
+                                     f"than {tol} in frame {i}")
 
 
 def main() -> int:
@@ -1088,6 +1244,7 @@ def main() -> int:
     check_kernels(torch, analytic, timer, frames, kernels)
     check_ssgi_kernels(torch, analytic, timer, sph_frames, kernels)
     check_raster_kernels(torch, analytic, timer, kernels)
+    check_alpha_kernels(torch, analytic, timer, kernels)
     check_unfused_kernels(torch, analytic, timer, frames, kernels)
     check_ssr_kernels(torch, analytic, timer, kernels)
     check_env_extras(torch)
@@ -1105,7 +1262,7 @@ def main() -> int:
 
     names = [k["name"] for k in kernels]
     new_kernels = ("warp_multi", "poisson_taps", "sharpness", "sweep_1ray",
-                   "poisson_1tex")
+                   "poisson_1tex", "zscan_alpha")
     by_path = {}
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa"] = run_path(
@@ -1166,11 +1323,21 @@ def main() -> int:
          "zscan", "lookup"), smi,
         forbidden=("sweep", "sweep_1ray", "poisson_2tex", "warp_bilinear"))
     del comp
+    comp, cam, mixer = analytic.gltf_alpha_msaa_composer(HEIGHT, WIDTH, "cuda")
+    by_path["gltf_alpha_msaa"] = run_path(
+        torch, comp, exports_driver(analytic, comp, cam, WARMUP + HBAO_TRAA_FRAMES // 2,
+                                    mixer),
+        "glTF alpha + MSAA 2x", HBAO_TRAA_FRAMES,
+        ("zscan_alpha", "lookup", "hbao", "poisson", "minmax", "warp_catrom5",
+         "warp_nearest"), smi, forbidden=("zscan", "sweep", "sweep_1ray", "march"))
+    print(f"[path] glTF alpha + MSAA 2x: zscan_alpha launches a frame "
+          f"{by_path['gltf_alpha_msaa']['zscan_alpha'] / HBAO_TRAA_FRAMES}", flush=True)
+    del comp
     # each kernel's launches on its own path: the flagship's, the demo
     # stack's for sharpness, the unfused route's for its two kernels
     home = {"sharpness": "demo_stack", "warp_multi": "hbao_traa_unfused",
             "poisson_taps": "hbao_traa_unfused", "sweep_1ray": "ssr_gtao_taa",
-            "poisson_1tex": "ssr_gtao_taa"}
+            "poisson_1tex": "ssr_gtao_taa", "zscan_alpha": "gltf_alpha_msaa"}
     for kern in kernels:
         path = home.get(kern["name"], "flagship")
         kern["launches"] = by_path[path][kern["name"]]
@@ -1207,12 +1374,20 @@ def main() -> int:
     check("SSR+GTAO+TAA", card_vs_cpu(torch, analytic, analytic.reference_exports_composer,
                                       None, steps=analytic.still_then_step(0, 3, 2)),
           SSGI_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
+    smaa_in, fxaa_in = [], []
     check("SSGI march+SMAA under a cube map",
-          card_vs_cpu(torch, analytic, analytic.march_aa_composer, None),
+          card_vs_cpu(torch, analytic, analytic.march_aa_composer, None,
+                      capture=("smaa", smaa_in)),
           AA_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
     check("ortho SSR march+HBAO+FXAA",
-          card_vs_cpu(torch, analytic, analytic.ortho_ssr_composer, None),
+          card_vs_cpu(torch, analytic, analytic.ortho_ssr_composer, None,
+                      capture=("fxaa", fxaa_in)),
           ORTHO_FXAA_MAX_TOL, ORTHO_FXAA_MEAN_TOL, ORTHO_FXAA_PIX_FRAC)
+    aa_alone(torch, smaa_in, fxaa_in)
+    check("glTF alpha + MSAA 2x",
+          card_vs_cpu(torch, analytic, analytic.gltf_alpha_msaa_composer, None,
+                      steps=analytic.still_then_step(0, 3, 2)),
+          SSGI_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,10 @@ layout, option names and tensor layouts, with each TPU kernel rewritten
 as a CUDA C++ kernel (``csrc/``) that is built with ``nvcc`` at first use.
 Every kernel's wrapper runs a plain PyTorch version of the same function
 for tensors on the CPU. ``EffectComposer.render`` rasterizes a
-``Scene`` (opaque meshes) seen by a ``PerspectiveCamera`` or an
+``Scene`` (built in code or loaded from glTF by ``load_gltf`` /
+``load_gltf_asset``, Draco meshes included, and animated by an
+``AnimationMixer``; stochastic alpha with ``alpha_peels`` depth peels,
+supersampled with ``msaa``) seen by a ``PerspectiveCamera`` or an
 ``OrthographicCamera``, shades it and runs ``SSGIEffect`` and
 ``SSREffect`` (traced by the direction-binned sweep or, with
 ``trace="march"``, the reference's per-pixel march), ``HBAOEffect``,
@@ -42,8 +45,10 @@ from .effects.traa import TRAAEffect
 from .ops.ao import AOConfig
 from .ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise
 from .ops.temporal_reproject import TemporalReprojectConfig, temporal_reproject
+from .scene.animation import AnimationClip, AnimationMixer
 from .scene.geometry import (Material, Mesh, make_box, make_plane, make_sphere,
                              rotation_x, rotation_y, scale, translation)
+from .scene.gltf import GltfAsset, load_gltf, load_gltf_asset, write_glb
 from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
 from .scene.scene import PackedScene, Scene
 from .scene.shading import shade_direct
@@ -52,11 +57,11 @@ from .utils.image_io import save_frame, write_png
 
 __all__ = [
     "EffectComposer", "FrameContext", "Effect", "AOEffect", "HBAOEffect",
-    "TRAAEffect", "Camera", "CameraMatrices", "PerspectiveCamera", "GBuffer",
-    "VelocityBuffer", "AOConfig", "PoissonDenoiseConfig", "poisson_denoise",
+    "TRAAEffect", "CameraMatrices", "PerspectiveCamera", "GBuffer",
+    "VelocityBuffer", "PoissonDenoiseConfig", "poisson_denoise",
     "TemporalReprojectConfig", "temporal_reproject", "SSGIEffect",
     "EquirectEnv", "build_equirect_env", "procedural_sky", "MotionBlurEffect",
-    "Scene", "PackedScene", "Material", "Mesh", "make_plane", "make_box",
+    "Scene", "Material", "Mesh", "make_plane", "make_box",
     "make_sphere", "translation", "rotation_y", "rasterize_gbuffer",
     "rasterize_velocity", "shade_direct", "SharpnessEffect",
     "LensDistortionEffect", "SparkleEffect", "GradualBackgroundEffect",
@@ -65,5 +70,6 @@ __all__ = [
     "OrthographicCamera", "FXAAEffect", "SMAAEffect", "equirect_to_cube",
     "cube_to_equirect", "blur_env", "load_cubemap", "rotation_x", "scale",
     "SSGI_PRESETS", "visualize_gbuffer", "visualize_velocity", "save_frame",
-    "write_png",
+    "write_png", "load_gltf", "load_gltf_asset", "GltfAsset", "AnimationMixer",
+    "AnimationClip", "write_glb",
 ]

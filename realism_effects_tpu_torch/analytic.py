@@ -17,6 +17,12 @@ them, with the camera orbiting as the animated configurations of
   of environment, a cube map, with SMAA (:func:`march_aa_composer`), and
   SSR's march, HBAO and FXAA under an orthographic camera, a product
   viewer's view (:func:`ortho_ssr_composer`), both through ``render``;
+- a loaded asset through ``render``: the flagship scene with a box of
+  material alpha 0.5 and a cutout quad under a checker alpha map,
+  written to a GLB and loaded back, the alpha box animated by an
+  ``AnimationMixer``, rendered with ``msaa=2`` and three alpha peels
+  under HBAO and TRAA, the camera still and then one orbit step
+  (:func:`gltf_alpha_msaa_composer`);
 - analytic input buffers for driving the effect chain through
   ``render_external`` without the rasterizer: a 20 x 20 ground plane at
   y = 0 with a unit box on it (the scene of the JAX package's
@@ -30,6 +36,8 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -49,7 +57,10 @@ from .effects.smaa import SMAAEffect
 from .effects.ssgi import SSGIEffect, SSREffect
 from .effects.taa import TAAPass
 from .effects.traa import TRAAEffect
-from .scene.geometry import Material, make_box, make_plane, make_sphere, translation
+from .scene.animation import AnimationChannel, AnimationClip, AnimationMixer
+from .scene.geometry import (Material, make_box, make_plane, make_sphere,
+                             rotation_x, rotation_y, translation)
+from .scene.gltf import load_gltf_asset, write_glb
 from .scene.scene import Scene
 
 #: the flagship's sphere (``bench.py:193-197``): centre, radius, albedo,
@@ -242,13 +253,17 @@ def flagship_composer(h: int, w: int, device):
     return comp, cam
 
 
-def render_frames(comp, cam, steps):
+def render_frames(comp, cam, steps, mixer=None):
     """``comp.render(dt=1/60)`` of a frame at each orbit index of
     ``steps`` (``range(first, first + n)`` or :func:`still_then_step`);
-    returns the images."""
+    returns the images. ``mixer``, an ``AnimationMixer`` (that of
+    :func:`gltf_alpha_msaa_composer`), is advanced by 1/60 s before each
+    frame."""
     images = []
     for f in steps:
         orbit(cam, f)
+        if mixer is not None:
+            mixer.update(1 / 60)
         images.append(comp.render(dt=1 / 60))
     return images
 
@@ -279,6 +294,69 @@ def march_aa_composer(h: int, w: int, device):
     comp.add_effect(SSGIEffect(trace="march"))
     comp.add_effect(SMAAEffect())
     return comp, cam
+
+
+#: the alpha box's keyframes: it slides along x and back in 2 s
+ALPHA_BOX_TRACK = ((0.0, 1.0, 2.0), ((-1.2, 0.5, 1.2), (-0.4, 0.5, 1.2),
+                                     (-1.2, 0.5, 1.2)))
+
+
+def alpha_asset_meshes():
+    """The meshes of :func:`gltf_alpha_msaa_composer`'s asset: the
+    flagship's plane, box and sphere, a box of material alpha 0.5 (with
+    a white base map and an alpha map of ones, so ``write_glb`` writes
+    it ``BLEND``) and a 1.2 x 1.2 quad standing in front of it whose
+    alpha map is a 64 x 64 checker of 0 and 1 (8-texel squares) in the
+    green channel, under a white base map of the same size."""
+    meshes = list(flagship_scene("cpu").meshes)
+    white = np.ones((8, 8, 4), np.float32)
+    box = make_box((0.8, 0.8, 0.8), Material(diffuse=(0.3, 0.6, 0.9, 0.5),
+                                             map=white, alpha_map=white))
+    box.set_matrix(translation(*ALPHA_BOX_TRACK[1][0]))
+    checker = np.ones((64, 64, 4), np.float32)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker[..., 1] = ((yy // 8 + xx // 8) % 2).astype(np.float32)
+    quad = make_plane(1.2, Material(diffuse=(0.9, 0.8, 0.3, 1.0),
+                                    map=np.ones_like(checker), alpha_map=checker,
+                                    roughness=0.6))
+    quad.set_matrix(translation(0.6, 0.8, 1.6) @ rotation_y(0.6)
+                    @ rotation_x(math.pi / 2))
+    return meshes + [box, quad]
+
+
+def gltf_alpha_msaa_composer(h: int, w: int, device):
+    """``EffectComposer.render`` of a loaded, animated asset with
+    stochastic alpha and MSAA: :func:`alpha_asset_meshes` written by
+    ``write_glb`` to a temporary GLB and read back by
+    ``load_gltf_asset``; a clip built in code, one ``translation``
+    channel on the alpha box's node (:data:`ALPHA_BOX_TRACK`), appended
+    to ``asset.animations`` and played by an ``AnimationMixer``; the
+    scene under ``procedural_sky(64, 128)``, in an
+    ``EffectComposer(..., msaa=2, alpha_peels=3)`` with ``HBAOEffect()``
+    -> ``TRAAEffect()``. Returns the composer, its camera and the mixer:
+    drive them with ``render_frames(comp, cam, steps, mixer)`` over
+    :func:`still_then_step`, whose still frames ramp the alpha law's
+    cnmf and whose step gives the first still frame's hard cut."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "alpha_asset.glb")
+        write_glb(alpha_asset_meshes(), path)
+        asset = load_gltf_asset(path)
+    node = len(asset.meshes) - 2          # write_glb: a node a mesh, in order
+    times, values = ALPHA_BOX_TRACK
+    asset.animations.append(AnimationClip(name="slide", channels=[AnimationChannel(
+        node=node, path="translation", times=np.asarray(times, np.float64),
+        values=np.asarray(values, np.float64))]))
+    mixer = AnimationMixer(asset)
+    mixer.clip_action(asset.animations[-1]).play()
+    scene = Scene()
+    scene.environment = build_equirect_env(procedural_sky(64, 128), device=device)
+    for mesh in asset.meshes:
+        scene.add(mesh)
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    comp = EffectComposer(scene, cam, w, h, device=device, msaa=2, alpha_peels=3)
+    comp.add_effect(HBAOEffect())
+    comp.add_effect(TRAAEffect())
+    return comp, cam, mixer
 
 
 def ortho_camera(h: int, w: int) -> OrthographicCamera:

@@ -20,6 +20,7 @@ and morph weights (a few KB) are copied to the device each frame.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 from .core.camera import Camera, CameraMatrices
 from .core.envmap import EquirectEnv, build_equirect_env, cube_to_equirect
 from .core.framebuffers import GBuffer, VelocityBuffer
+from .core.rng import blue_noise_image
 from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
 from .scene.shading import shade_direct
 
@@ -66,6 +68,14 @@ def _camera(camera: Camera, world, projection) -> CameraMatrices:
                                     camera.far, view=_rigid_inverse(world))
 
 
+def _map_planes(buf, fn):
+    """``buf`` (a G-buffer or velocity buffer) with ``fn`` applied to each
+    of its tensors."""
+    return dataclasses.replace(buf, **{
+        f.name: fn(getattr(buf, f.name)) for f in dataclasses.fields(buf)
+        if isinstance(getattr(buf, f.name), torch.Tensor)})
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller asks for another device; raises when
     CUDA is absent and the CPU was not asked for."""
@@ -89,15 +99,23 @@ class EffectComposer:
     environment."""
 
     def __init__(self, scene, camera: Camera, width: int, height: int,
-                 device=None, msaa: int = 1):
+                 device=None, alpha_peels: int = 3, msaa: int = 1):
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera
         self.width = int(width)
         self.height = int(height)
-        #: supersampled raster (the JAX package's ``msaa``); not ported
-        #: yet: render() raises for msaa > 1
+        #: geometric-edge anti-aliasing by supersampled raster: ``msaa=s``
+        #: rasterizes and shades at s*s the display resolution and
+        #: box-resolves the colour (the reference demo's ``multisampling``
+        #: composer branch, `example/main.js:116-154`, as true SSAA); the
+        #: G-buffer and velocity planes the effects read resolve by
+        #: picking each block's centre sample
         self.msaa = max(1, int(msaa))
+        #: depth-peel passes bounding alpha-map transparency depth
+        #: (scene/rasterizer._visibility); each peel is one more z-scan
+        #: pass of the G-buffer and of the velocity raster
+        self.alpha_peels = int(alpha_peels)
         #: resolve visibility once per frame: the velocity pass reuses the
         #: G-buffer scan's winner ids (off by default: under TRAA the
         #: G-buffer scan is jittered, see the JAX package's composer)
@@ -217,10 +235,6 @@ class EffectComposer:
             raise ValueError("render() rasterizes the composer's Scene; "
                              "without one, drive the effects with "
                              "render_external()")
-        if self.msaa > 1:
-            raise NotImplementedError(
-                "msaa > 1 (the supersampled raster) is not ported yet "
-                "(ROADMAP §1 (c))")
         return self._render_frame(None, dt)
 
     def render_external(self, gbuffer: GBuffer, velocity: VelocityBuffer,
@@ -238,15 +252,17 @@ class EffectComposer:
                              f"composer of {(self.height, self.width)}")
         return self._render_frame((gbuffer, velocity, scene_color), dt)
 
-    def _raster(self, cam, unjit, prev, env):
+    def _raster(self, cam, unjit, prev, env, frame_index):
         """The frame's (G-buffer, velocity, lit colour, restricted
-        G-buffer or None) from the scene."""
+        G-buffer or None) from the scene, rasterized and shaded at
+        ``msaa`` times the frame's size and resolved to it."""
         scene, dev = self.scene, self.device
         if self._packed is None:
             self._packed = scene.pack(dev)
         if self._lighting is None:
             self._lighting = scene.lighting_params(dev)
-        packed, h, w = self._packed, self.height, self.width
+        ss = self.msaa
+        packed, h, w = self._packed, self.height * ss, self.width * ss
         t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
         if scene.meshes:
             mm, pmm = t(scene.model_matrices()), t(scene.prev_model_matrices())
@@ -258,9 +274,18 @@ class EffectComposer:
         if scene.max_morph_targets() > 0:
             morph = t(scene.morph_weight_matrix())
             prev_morph = t(scene.morph_weight_matrix(prev=True))
+        dither = None
+        cnmf = float(self.camera_not_moved_frames)
+        if any(m.material.diffuse[3] < 1.0 or m.material.alpha_map is not None
+               for m in scene.meshes):
+            # the dither, animated by the still-frame counter so TRAA/TAA
+            # converge transparency (`GBufferPass.js:59,78-82`)
+            dither = blue_noise_image(h, w, self.camera_not_moved_frames
+                                      + frame_index, device=dev)[..., 0]
+        alpha = dict(dither=dither, cnmf=cnmf, alpha_peels=self.alpha_peels)
         gbuffer = rasterize_gbuffer(packed, mm, cam.projection_view_matrix, h, w,
                                     bones=bones, morph_weights=morph,
-                                    return_ids=self.share_visibility)
+                                    return_ids=self.share_visibility, **alpha)
         ids = None
         if self.share_visibility:
             gbuffer, ids = gbuffer
@@ -268,7 +293,7 @@ class EffectComposer:
             packed, mm, pmm, unjit.projection_view_matrix,
             prev.projection_view_matrix, h, w, bones=bones,
             prev_bones=prev_bones, morph_weights=morph,
-            prev_morph_weights=prev_morph, share_ids=ids)
+            prev_morph_weights=prev_morph, share_ids=ids, **alpha)
         color = shade_direct(gbuffer, cam, self._lighting, env)
         gi_gbuffer = None
         excluded = scene.gi_mask() < 0.5
@@ -279,7 +304,17 @@ class EffectComposer:
             face_keep = ~torch.as_tensor(excluded, device=dev)[packed.face_mesh]
             gi_gbuffer = rasterize_gbuffer(
                 packed, mm, cam.projection_view_matrix, h, w, bones=bones,
-                morph_weights=morph, face_keep=face_keep)
+                morph_weights=morph, face_keep=face_keep, **alpha)
+        if ss > 1:
+            # the resolve: the box average of each ss x ss block of the
+            # shaded colour; the centre sample of the planes the effects
+            # read (depth, normals and ids do not average)
+            color = color.reshape(self.height, ss, self.width, ss, 3).mean((1, 3))
+            pick = lambda buf: _map_planes(
+                buf, lambda a: a[ss // 2::ss, ss // 2::ss].contiguous())
+            gbuffer, velocity = pick(gbuffer), pick(velocity)
+            if gi_gbuffer is not None:
+                gi_gbuffer = pick(gi_gbuffer)
         return gbuffer, velocity, color, gi_gbuffer
 
     def _render_frame(self, external, dt):
@@ -333,7 +368,7 @@ class EffectComposer:
                 timer.start("raster")
             with torch.profiler.record_function("stage:raster"):
                 gbuffer, velocity, color, gi_gbuffer = self._raster(
-                    cam, unjit, prev_cam, env)
+                    cam, unjit, prev_cam, env, self.frame % 4096)
             if timer:
                 timer.stop()
         else:
@@ -417,6 +452,25 @@ class EffectComposer:
         self._prev_proj = np.asarray(prev_proj, np.float64)
         self._last_world = self._prev_world
         self._reset_pending = False
+
+    # ------------------------------------------------------------------
+    def profile(self, trace_dir: str, frames: int = 3):
+        """Render ``frames`` frames under ``torch.profiler`` (CPU and, on
+        the card, CUDA activity) and write a Chrome trace into
+        ``trace_dir`` (the JAX package's ``jax.profiler`` trace); returns
+        the trace's path."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(frames):
+                self.render()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        path = os.path.join(trace_dir, f"frames-{self.frame}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
 
 
 class _StageTimer:

@@ -192,3 +192,14 @@ class OrthographicCamera(Camera):
         m[2, 3] = -(f + n) / (f - n)
         self.projection_matrix = m
         self._base_projection = None
+
+
+def did_camera_move(prev: CameraMatrices | None, cur: CameraMatrices,
+                    eps: float = 1e-6) -> bool:
+    """Host-side analog of ``didCameraMove`` (`SceneUtils.js:17-43`):
+    whether the camera's world matrix moved by more than ``eps``."""
+    if prev is None:
+        return True
+    a = np.asarray(prev.camera_matrix_world)
+    b = np.asarray(cur.camera_matrix_world)
+    return bool(np.abs(a - b).max() > eps)

@@ -74,6 +74,12 @@ def view_to_screen(view_pos, projection_matrix):
     return xyz[..., :2] / w[..., None] * 0.5 + 0.5
 
 
+def world_to_screen(world_pos, view_matrix, projection_matrix):
+    """World position -> screen uv (`hbao.frag:30-32`)."""
+    return view_to_screen(transform_point(view_matrix, world_pos),
+                          projection_matrix)
+
+
 def get_view_position(uv, view_z, projection_matrix, projection_matrix_inverse):
     """View-space position from (uv, viewZ) (``getViewPosition``,
     `ssgi_utils.frag:17-24`): the clip position at the depth implied by
@@ -120,6 +126,14 @@ def perspective_depth_to_view_z(depth, near, far):
     nf = float(np.float32(near) * np.float32(far))
     fmn = float(np.float32(far) - np.float32(near))
     return rdiv(nf, fmn * depth - float(far))
+
+
+def view_z_to_perspective_depth(view_z, near, far):
+    """Inverse of :func:`perspective_depth_to_view_z`: ((near far) / viewZ
+    + far) / (far - near), each scalar rounded once to float32."""
+    near, far = float(near), float(far)
+    nf, fmn = float(np.float32(near * far)), float(np.float32(far - near))
+    return (rdiv(nf, view_z) + float(np.float32(far))) / fmn
 
 
 def orthographic_depth_to_view_z(depth, near, far):

@@ -43,6 +43,39 @@ def r2_sequence(count: int) -> np.ndarray:
     return np.stack([(_BASE + _A1 * n) % 1.0, (_BASE + _A2 * n) % 1.0], axis=-1)
 
 
+def r3_sequence_point(n: int) -> tuple[float, float, float]:
+    """n-th point of the R3 sequence in [0,1)^3."""
+    g = 1.2207440846057596
+    a1, a2, a3 = 1.0 / g, 1.0 / (g * g), 1.0 / (g * g * g)
+    return ((_BASE + a1 * n) % 1.0, (_BASE + a2 * n) % 1.0, (_BASE + a3 * n) % 1.0)
+
+
+def _generate_blue_noise_channel(rng: np.random.Generator, size: int) -> np.ndarray:
+    """One blue-noise channel: FFT high-pass of white noise, then a
+    rank-order normalization to an exactly uniform histogram in [0, 1)."""
+    white = rng.standard_normal((size, size))
+    fy = np.fft.fftfreq(size)[:, None]
+    fx = np.fft.fftfreq(size)[None, :]
+    radius = np.sqrt(fx * fx + fy * fy)
+    filt = radius ** 1.5          # high-pass ramp: a blue spectrum
+    filt[0, 0] = 0.0
+    shaped = np.real(np.fft.ifft2(np.fft.fft2(white) * filt))
+    flat = shaped.ravel()
+    ranks = np.empty_like(flat)
+    ranks[np.argsort(flat, kind="stable")] = np.arange(flat.size)
+    return ((ranks + 0.5) / flat.size).reshape(size, size)
+
+
+def generate_blue_noise(size: int = BLUE_NOISE_SIZE, channels: int = 4,
+                        seed: int = 0x5EED) -> np.ndarray:
+    """A (size, size, channels) float32 blue-noise tile made from ``seed``
+    (the recipe of the committed ``assets/`` tile)."""
+    rng = np.random.default_rng(seed)
+    return np.stack(
+        [_generate_blue_noise_channel(rng, size) for _ in range(channels)], axis=-1
+    ).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=1)
 def blue_noise_tile() -> np.ndarray:
     """The (128, 128, 4) float32 blue-noise tile in [0, 1) from

@@ -18,16 +18,29 @@ On the H100 a kernel in which every thread tests every triangle's bbox
 is bound by instruction issue, not by the output write that bounds the
 z-scan; the kernel bins triangles per 16 x 32 tile in triangle order
 and each thread walks only its tile's list. See the source.
+
+The alpha variant (:func:`zscan_alpha`, ``re_zscan_alpha``) is one
+depth-peel pass of ``_visibility``'s stochastic-alpha scan, which the
+JAX package runs as an XLA scan and not through its Pallas kernel: the
+same walk with the material-alpha law (a hard 0.5 cut on the first still
+frame, a dither against the convergence law's soft alpha later) and the
+exclusion of the earlier passes' winners, by id. The law's two sums
+``cnmf * 0.1 + 1`` and ``a + (a_step - a) * ramp`` are fused
+multiply-adds, as XLA's CPU backend contracts them in the scan's body.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.math3d import fma
 from . import cuda_build
 
 NQ = 24  # floats per triangle row (23 used)
+#: the plain version's tile (pixels a side): it evaluates only the
+#: triangles whose bbox reaches a tile, which changes no result
+PLAIN_TILE = 128
 
 
 def _dot3(c, a):
@@ -60,35 +73,88 @@ def zscan_table(coeffs, tri_z, tri_w, sgn, valid, tri_bbox) -> torch.Tensor:
     ], -1).float().contiguous()
 
 
-def zscan_plain(tab: torch.Tensor, height: int, width: int):
-    """The kernel's function in PyTorch: triangles in chunks against
-    every pixel, the first minimum of a chunk against the carried z with
+def soft_alpha(alpha: torch.Tensor, cnmf: float):
+    """(keep_all bool, a_soft float32, hard) of the convergence law
+    (`GBufferMaterial.js:63-79`) for alpha ``alpha`` (any shape) at
+    ``cnmf`` still frames: an alpha passes where keep_all, else where
+    dither < a_soft, unless ``hard`` (the first still frame, cnmf < 0.5).
+    ``ramp = 1 / fma(cnmf, 0.1, 1)`` and ``a_soft = fma(a_step - a, ramp,
+    a)``, the fused form XLA's CPU backend compiles the law to."""
+    c = np.float32(cnmf)
+    ramp = np.float32(1.0) / np.float32(np.float64(c) * np.float64(np.float32(0.1)) + 1.0)
+    a_step = (alpha >= 0.5).float()
+    a_soft = fma(a_step - alpha, torch.full_like(alpha, float(ramp)), alpha)
+    hard = bool(c < 0.5)
+    return (alpha >= 0.5) if hard else (alpha >= 0.9999), a_soft, hard
+
+
+def zscan_plain(tab: torch.Tensor, height: int, width: int,
+                alpha: torch.Tensor | None = None,
+                dither: torch.Tensor | None = None, cnmf: float = 0.0,
+                exclude: torch.Tensor | None = None):
+    """The kernel's function in PyTorch: per tile of ``PLAIN_TILE``
+    pixels, the triangles whose bbox reaches the tile (the others cover
+    none of its pixels), in id order and in chunks against each pixel of
+    the tile, the first minimum of a chunk against the carried z with
     strict <. Returns (ids (H, W) int32, z_ndc (H, W) float32, +inf where
-    no triangle covers the pixel)."""
+    no triangle covers the pixel). With ``alpha`` (F,) the alpha
+    variant's: the material-alpha law against ``dither`` (H, W) at
+    ``cnmf`` still frames, and no triangle wins a pixel it won in a pass
+    of ``exclude`` (P, H, W) int32. The tiles' triangle lists are built
+    together, so a call reads back from the device twice, not once a
+    tile."""
     dev = tab.device
-    n = tab.shape[0]
-    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
-    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None, None]
     zbuf = torch.full((height, width), float("inf"), device=dev)
     ids = torch.full((height, width), -1, dtype=torch.int32, device=dev)
-    chunk = max(1, min(n, (1 << 24) // (height * width)))
-    plane = lambda q, i: q[:, i] * px + q[:, i + 1] * py + q[:, i + 2]
-    for base in range(0, n, chunk):
-        q = tab[base: base + chunk]
-        s = q[:, 18]
-        e0, e1, e2 = plane(q, 0), plane(q, 3), plane(q, 6)
-        covered = (e0 * s >= 0.0) & (e1 * s >= 0.0) & (e2 * s >= 0.0)
-        covered &= ((px >= q[:, 21]) & (px <= q[:, 22])
-                    & (py >= q[:, 19]) & (py <= q[:, 20]))
-        zw, zc, se = plane(q, 9), plane(q, 12), plane(q, 15)
-        se_safe = torch.where(se.abs() > 1e-20, se, 1e-20)
-        covered &= zw / se_safe > 1e-6
-        z_ndc = zc / torch.where(zw.abs() > 1e-20, zw, 1e-20)
-        covered &= (z_ndc >= -1.0) & (z_ndc <= 1.0)
-        z_best, k_best = torch.where(covered, z_ndc, float("inf")).min(-1)
-        better = z_best < zbuf
-        zbuf = torch.where(better, z_best, zbuf)
-        ids = torch.where(better, (k_best + base).to(torch.int32), ids)
+    if alpha is not None:
+        keep_all, a_soft, hard = soft_alpha(alpha, cnmf)
+    t = PLAIN_TILE
+    y0s, x0s = range(0, height, t), range(0, width, t)
+    ty0 = torch.tensor(y0s, dtype=torch.float32, device=dev)[:, None, None]
+    tx0 = torch.tensor(x0s, dtype=torch.float32, device=dev)[None, :, None]
+    ty1, tx1 = torch.clamp(ty0 + t, max=height), torch.clamp(tx0 + t, max=width)
+    reach = ((tab[:, 19] <= ty1 - 0.5) & (tab[:, 20] >= ty0 + 0.5)
+             & (tab[:, 21] <= tx1 - 0.5) & (tab[:, 22] >= tx0 + 0.5))
+    counts = reach.sum(-1).flatten().tolist()
+    lists = iter(reach.flatten(0, 1).nonzero()[:, 1].split(counts))
+    for y0 in y0s:
+        for x0 in x0s:
+            y1, x1 = min(y0 + t, height), min(x0 + t, width)
+            sel = next(lists)
+            if sel.numel() == 0:
+                continue
+            px = (torch.arange(x0, x1, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
+            py = (torch.arange(y0, y1, dtype=torch.float32, device=dev) + 0.5)[:, None, None]
+            zt, it = zbuf[y0:y1, x0:x1], ids[y0:y1, x0:x1]
+            chunk = max(1, (1 << 24) // ((y1 - y0) * (x1 - x0)))
+            plane = lambda q, i: q[:, i] * px + q[:, i + 1] * py + q[:, i + 2]
+            for base in range(0, sel.numel(), chunk):
+                tid = sel[base: base + chunk]
+                q = tab[tid]
+                s = q[:, 18]
+                e0, e1, e2 = plane(q, 0), plane(q, 3), plane(q, 6)
+                covered = (e0 * s >= 0.0) & (e1 * s >= 0.0) & (e2 * s >= 0.0)
+                covered &= ((px >= q[:, 21]) & (px <= q[:, 22])
+                            & (py >= q[:, 19]) & (py <= q[:, 20]))
+                zw, zc, se = plane(q, 9), plane(q, 12), plane(q, 15)
+                se_safe = torch.where(se.abs() > 1e-20, se, 1e-20)
+                covered &= zw / se_safe > 1e-6
+                z_ndc = zc / torch.where(zw.abs() > 1e-20, zw, 1e-20)
+                covered &= (z_ndc >= -1.0) & (z_ndc <= 1.0)
+                if alpha is not None:
+                    passes = keep_all[tid]
+                    if not hard:
+                        passes = passes | (dither[y0:y1, x0:x1, None] < a_soft[tid])
+                    covered &= passes
+                    if exclude is not None:
+                        for prev in exclude:
+                            covered &= tid.to(torch.int32) != prev[y0:y1, x0:x1, None]
+                z_best, k_best = torch.where(covered, z_ndc, float("inf")).min(-1)
+                better = z_best < zt
+                zt = torch.where(better, z_best, zt)
+                it = torch.where(better, tid[k_best].to(torch.int32), it)
+            zbuf[y0:y1, x0:x1] = zt
+            ids[y0:y1, x0:x1] = it
     return ids, zbuf
 
 
@@ -127,4 +193,47 @@ def _launch(tab, height, width):
     err = fn(tab.data_ptr(), z.data_ptr(), ids.data_ptr(), tab.shape[0],
              height, width, cuda_build.stream_ptr(tab))
     cuda_build.check(err, "z-scan kernel")
+    return ids, z
+
+
+def zscan_alpha(tab: torch.Tensor, height: int, width: int, alpha: torch.Tensor,
+                dither: torch.Tensor, cnmf: float,
+                exclude: torch.Tensor | None = None):
+    """(ids, z_ndc) of one depth-peel pass of the stochastic-alpha scan
+    (see :func:`zscan_plain`): ``alpha`` (F,) material alpha, ``dither``
+    (H, W), ``cnmf`` the camera's still-frame count, ``exclude`` the
+    earlier passes' winner planes (P, H, W) int32. CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
+    if tab.device.type == "cpu":
+        return zscan_plain(tab, height, width, alpha, dither, cnmf, exclude)
+    if exclude is None:
+        exclude = torch.empty((0, height, width), dtype=torch.int32, device=tab.device)
+    out = _launch_alpha(tab, height, width, alpha, dither, cnmf, exclude)
+    zscan_alpha.launches += 1
+    return out
+
+
+zscan_alpha.launches = 0
+
+
+def _launch_alpha(tab, height, width, alpha, dither, cnmf, excl):
+    if tab.ndim != 2 or tab.shape[1] != NQ or tab.dtype != torch.float32:
+        raise ValueError(f"the z-scan table must be (F, {NQ}) float32, not "
+                         f"{tuple(tab.shape)} {tab.dtype}")
+    if alpha.shape != (tab.shape[0],) or tuple(dither.shape) != (height, width) \
+            or tuple(excl.shape[1:]) != (height, width):
+        raise ValueError("alpha (F,), dither (H, W) and exclusion planes "
+                         "(P, H, W) must match the table and the frame")
+    tab, alpha = tab.contiguous(), alpha.float().contiguous()
+    dither, excl = dither.float().contiguous(), excl.to(torch.int32).contiguous()
+    cuda_build.require_cuda(tab, alpha, dither, excl)
+    z = torch.empty((height, width), dtype=torch.float32, device=tab.device)
+    ids = torch.empty((height, width), dtype=torch.int32, device=tab.device)
+    host = np.array([cnmf], np.float32)
+    fn = cuda_build.bind("raster", "re_zscan_alpha", 6, 4, 1)
+    err = fn(tab.data_ptr(), alpha.data_ptr(), dither.data_ptr(),
+             excl.data_ptr() if excl.numel() else None, z.data_ptr(),
+             ids.data_ptr(), tab.shape[0], height, width, excl.shape[0],
+             host.ctypes.data, cuda_build.stream_ptr(tab))
+    cuda_build.check(err, "z-scan kernel (alpha)")
     return ids, z

@@ -2,7 +2,7 @@
 
     python -m realism_effects_tpu_torch.profile_slice [--frames 24]
         [--width 1920] [--height 1080]
-        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused|ssr_gtao_taa|march_aa|ortho_ssr]
+        [--path all|hbao_traa|ssgi_hbao_traa|flagship|demo_stack|hbao_traa_unfused|ssr_gtao_taa|march_aa|ortho_ssr|gltf_alpha_msaa]
 
 Renders the analytic scene (``analytic.py``) through
 ``EffectComposer.render_external`` with ``HBAOEffect()`` +
@@ -19,7 +19,11 @@ GTAO and TAA, with the camera still and then one orbit step half way
 through the host-timed frames (path ``ssr_gtao_taa``), or SSGI with the
 per-pixel march and SMAA under a cube-map environment (path
 ``march_aa``), or SSR with the march, HBAO and FXAA under an
-orthographic camera (path ``ortho_ssr``). After 4 warm-up
+orthographic camera (path ``ortho_ssr``), or a GLB written and loaded
+back, with a box of material alpha and a cutout quad, the box animated,
+rendered with ``msaa=2`` and three alpha peels under HBAO and TRAA, the
+camera still and then one step as on ``ssr_gtao_taa`` (path
+``gltf_alpha_msaa``). After 4 warm-up
 frames, ``--frames`` frames timed on the host clock (synchronised at the
 end), 4 frames with ``collect_timings``, then ``--frames`` frames under
 ``torch.profiler``. Prints one JSON line a path: host ms/frame, each
@@ -53,7 +57,8 @@ PORT_KERNELS = ("warp_kernel", "warp_multi_kernel", "minmax_kernel",
                 "poisson_kernel",
                 "taps_kernel", "sweep_kernel", "zscan_kernel", "lookup_kernel")
 PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship", "demo_stack",
-         "hbao_traa_unfused", "ssr_gtao_taa", "march_aa", "ortho_ssr")
+         "hbao_traa_unfused", "ssr_gtao_taa", "march_aa", "ortho_ssr",
+         "gltf_alpha_msaa")
 WARM = 4
 
 
@@ -68,11 +73,13 @@ def _driver(path: str, h: int, w: int, n: int):
         comp, cam = make(h, w, "cuda")
         return (lambda first, count: analytic.render_frames(
             comp, cam, range(first, first + count))), comp
-    if path == "ssr_gtao_taa":
-        comp, cam = analytic.reference_exports_composer(h, w, "cuda")
+    if path in ("ssr_gtao_taa", "gltf_alpha_msaa"):
+        make = (analytic.reference_exports_composer if path == "ssr_gtao_taa"
+                else analytic.gltf_alpha_msaa_composer)
+        comp, cam, *mixer = make(h, w, "cuda")
         still = WARM + (n - WARM) // 4
         return (lambda first, count: analytic.render_frames(
-            comp, cam, analytic.still_then_step(first, count, still))), comp
+            comp, cam, analytic.still_then_step(first, count, still), *mixer)), comp
     make, sphere = {"hbao_traa": (analytic.hbao_traa_composer, False),
                     "hbao_traa_unfused": (analytic.hbao_traa_composer, False),
                     "ssgi_hbao_traa": (analytic.ssgi_hbao_traa_composer, True)}[path]

@@ -16,12 +16,14 @@ Entry points:
 - :func:`rasterize_velocity`  -> :class:`VelocityBuffer` (K17 semantics:
   dual-matrix transform, per-object previous model matrices)
 
-Only opaque scenes: stochastic alpha (the dither and the depth peels of
-the JAX package's ``_visibility``) is not ported yet, and a scene with a
-material alpha below 1 or an alpha map raises. All arithmetic is written
-out as float32 products and sums in a fixed order, the order XLA's CPU
-backend gives the JAX package's products (no matmul, so no TF32 on the
-card).
+Stochastic alpha (a ``dither`` plane and ``cnmf``, the camera's
+still-frame count) runs the z-scan's alpha variant: the material-alpha
+convergence law in the scan, then, where the scene has texture pages,
+depth peels that test each pass's winning texel of the alpha map and
+exclude earlier winners (`GBufferMaterial.js:57-79`). All arithmetic is
+written out as float32 products and sums in a fixed order, the order
+XLA's CPU backend gives the JAX package's products (no matmul, so no
+TF32 on the card).
 """
 
 from __future__ import annotations
@@ -32,11 +34,15 @@ import torch
 from ..core.brdf import cross
 from ..core.framebuffers import GBuffer, VelocityBuffer
 from ..core.math3d import fma, length
-from ..ops.raster_kernel import zscan_visibility
+from ..ops.raster_kernel import soft_alpha, zscan_alpha, zscan_table, zscan_visibility
 from ..ops.table_kernel import LANES, face_lookup
 from .scene import PackedScene
 
 _INF = float("inf")
+#: default depth-peel passes for alpha-map transparency (the JAX
+#: package's ``_ALPHA_PEELS``): pixels whose first ``alpha_peels``
+#: candidate layers all dither out become background
+ALPHA_PEELS = 3
 
 
 def _as_device(a, dev) -> torch.Tensor | None:
@@ -130,9 +136,23 @@ def _scaled_tri_verts(clip, faces, height, width):
 
 
 def _visibility(clip: torch.Tensor, faces: torch.Tensor, height: int,
-                width: int, face_keep: torch.Tensor | None = None):
-    """Z-buffer visibility of opaque triangles: winning triangle id per
-    pixel (-1 = none) and depth01 in [0, 1] (1 = background)."""
+                width: int, face_keep: torch.Tensor | None = None,
+                tri_alpha: torch.Tensor | None = None,
+                dither: torch.Tensor | None = None, cnmf: float = 0.0,
+                alpha_tex: tuple | None = None,
+                alpha_peels: int = ALPHA_PEELS):
+    """Z-buffer visibility: winning triangle id per pixel (-1 = none) and
+    depth01 in [0, 1] (1 = background).
+
+    ``tri_alpha`` (F,) / ``dither`` (H, W) / ``cnmf``: stochastic alpha
+    with the reference's convergence law (`GBufferMaterial.js:57-79`):
+    on the first still frame (cnmf < 0.5) a hard 0.5 cut, later a dither
+    against ``mix(a, step(0.5, a), 1 / (cnmf * 0.1 + 1))``. ``alpha_tex``
+    (pages (F,), uvs (V, 2), atlas (N, S, S, 4)): texel alpha (the
+    nearest texel's green channel) by depth peeling: each of
+    ``alpha_peels`` passes excludes the earlier passes' winners per pixel
+    and tests the law on its winner's texel; a pixel whose first
+    ``alpha_peels`` layers all dither out becomes background."""
     faces = faces.long()
     tri_h, scale = _scaled_tri_verts(clip, faces, height, width)
     tri_z = clip[faces][..., 2] * scale                # scaled z_clip
@@ -160,9 +180,62 @@ def _visibility(clip: torch.Tensor, faces: torch.Tensor, height: int,
         torch.where(w_pos, py_v.amax(1) + 1.0, _INF),
     ], -1)
     sgn = torch.where(det >= 0.0, 1.0, -1.0)
-    ids, zbuf = zscan_visibility(coeffs, tri_z, tri_w, sgn, valid, tri_bbox,
-                                 height, width)
-    return ids, torch.where(ids >= 0, zbuf * 0.5 + 0.5, 1.0)
+    depth01 = lambda i, z: torch.where(i >= 0, z * 0.5 + 0.5, 1.0)
+    if tri_alpha is None:
+        ids, zbuf = zscan_visibility(coeffs, tri_z, tri_w, sgn, valid,
+                                     tri_bbox, height, width)
+        return ids, depth01(ids, zbuf)
+
+    tab = zscan_table(coeffs, tri_z, tri_w, sgn, valid, tri_bbox)
+    ids, zbuf = zscan_alpha(tab, height, width, tri_alpha, dither, cnmf)
+    if alpha_tex is None:
+        return ids, depth01(ids, zbuf)
+
+    # --- texel-alpha depth peeling
+    pages, uvs, atlas = alpha_tex
+    size = atlas.shape[1]
+    table = _pack_face_table([
+        _face_edge_coeffs(clip, faces, height, width),   # 0..8
+        uvs[faces].reshape(-1, 6),                       # 9..14
+        pages.float(),                                   # 15
+        tri_alpha,                                       # 16
+    ])
+
+    def winner_keeps(win_ids):
+        """The law on each pixel's winning texel: material alpha times
+        the nearest texel's *green* channel (`GBufferMaterial.js:60`)."""
+        rec = _fetch_face_table(table, win_ids)
+        wts = _weights_from_coeffs(rec[..., 0:9], height, width)
+        uvv = rec[..., 9:15]
+        uv = (uvv[..., 0:2] * wts[..., 0:1] + uvv[..., 2:4] * wts[..., 1:2]
+              + uvv[..., 4:6] * wts[..., 2:3])
+        page = rec[..., 15].to(torch.int32)
+        iu = (torch.remainder(uv[..., 0], 1.0) * size).to(torch.int32) % size
+        iv = (torch.remainder(uv[..., 1], 1.0) * size).to(torch.int32) % size
+        tex_a = atlas[torch.clamp(page, min=0).long(), iv.long(), iu.long(), 1]
+        a = rec[..., 16] * torch.where(page >= 0, tex_a, 1.0)
+        keep_all, a_soft, hard = soft_alpha(a, cnmf)
+        keep = keep_all if hard else keep_all | (dither < a_soft)
+        return keep | (win_ids < 0)   # background resolves trivially
+
+    keep = winner_keeps(ids)
+    final_ids = torch.where(keep, ids, -1)
+    final_z = torch.where(keep, zbuf, _INF)
+    resolved = keep
+    # pass p excludes the winners of passes 0 .. p-1, slots 0 .. p-1
+    exclude = torch.empty((max(alpha_peels - 1, 0), height, width),
+                          dtype=torch.int32, device=ids.device)
+    idp = ids
+    for p in range(1, alpha_peels):
+        exclude[p - 1] = idp
+        idp, zb = zscan_alpha(tab, height, width, tri_alpha, dither, cnmf,
+                              exclude[:p])
+        kp = winner_keeps(idp)
+        take = ~resolved & kp
+        final_ids = torch.where(take, idp, final_ids)
+        final_z = torch.where(take, zb, final_z)
+        resolved = resolved | kp
+    return final_ids, depth01(final_ids, final_z)
 
 
 # --- per-face packed records ------------------------------------------------
@@ -224,6 +297,18 @@ def _pack_face_table(cols) -> torch.Tensor:
 def _fetch_face_table(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(H, W) face ids -> (H, W, K) packed record."""
     return face_lookup(table, ids)
+
+
+def _weights_from_coeffs(coeffs: torch.Tensor, height: int, width: int):
+    """Per-pixel perspective-correct weights (H, W, 3) from the fetched
+    (H, W, 9) edge-coefficient record: e_i / sum(e)."""
+    dev = coeffs.device
+    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    e = torch.stack([coeffs[..., 3 * i] * px + coeffs[..., 3 * i + 1] * py
+                     + coeffs[..., 3 * i + 2] for i in range(3)], -1)
+    se = e[..., 0:1] + e[..., 1:2] + e[..., 2:3]
+    return e / torch.where(se.abs() > 1e-20, se, 1e-20)
 
 
 def _sample_atlas(atlas: torch.Tensor, page: torch.Tensor, uv: torch.Tensor):
@@ -288,33 +373,49 @@ def _perturb_normal(n, world_pos, uv, map_rgb, scale):
     return torch.where(norm > 1e-8, out / torch.clamp(norm, min=1e-20), n)
 
 
-def _opaque_only(packed: PackedScene):
-    if packed.has_alpha:
-        raise NotImplementedError(
-            "stochastic alpha (a material alpha below 1 or an alpha map: "
-            "the dither and the depth peels) is not ported yet; see ROADMAP.md")
+def _alpha_inputs(packed: PackedScene, dither):
+    """(tri_alpha, alpha_tex) for stochastic transparency, or Nones
+    without a ``dither``. The texel peels run wherever the scene has
+    texture pages (an alpha map or not), as in the JAX package."""
+    if dither is None:
+        return None, None
+    face_mesh = packed.face_mesh
+    tri_alpha = packed.materials[face_mesh, 3].contiguous()
+    alpha_tex = None
+    if packed.map_atlas.shape[0] > 0:
+        alpha_tex = (packed.alpha_map_index[face_mesh], packed.uvs,
+                     packed.map_atlas)
+    return tri_alpha, alpha_tex
 
 
 def rasterize_gbuffer(packed: PackedScene, model_mats, view_proj,
-                      height: int, width: int, bones=None, morph_weights=None,
+                      height: int, width: int, bones=None, dither=None,
+                      cnmf: float = 0.0, morph_weights=None,
+                      alpha_peels: int = ALPHA_PEELS,
                       face_keep: torch.Tensor | None = None,
                       return_ids: bool = False):
-    """Render the G-buffer (K16 semantics: optional morph targets and
-    skinning). ``model_mats`` (M, 4, 4), ``bones`` (B, 4, 4) and
-    ``morph_weights`` (M, T) are host arrays or tensors (copied to the
-    scene's device); ``view_proj`` is a host (4, 4) float32 matrix.
-    ``face_keep`` (F,) bool drops faces from the render entirely (the
-    camera-layer re-render of exact SSGI Selection, `SSGIPass.js:71-79`).
-    ``return_ids``: also return the (H, W) int32 winner-face ids, to share
-    the visibility scan with :func:`rasterize_velocity`. A scene with
-    stochastic alpha raises."""
-    _opaque_only(packed)
+    """Render the G-buffer (K16 semantics: optional morph targets,
+    skinning, and stochastic-alpha transparency by ``dither`` (H, W)
+    noise on the scene's device and ``cnmf`` = cameraNotMovedFrames for
+    the convergence law; ``alpha_peels`` bounds alpha-map depth, each
+    peel one more pass of the z-scan). ``model_mats`` (M, 4, 4),
+    ``bones`` (B, 4, 4) and ``morph_weights`` (M, T) are host arrays or
+    tensors (copied to the scene's device); ``view_proj`` is a host
+    (4, 4) float32 matrix. ``face_keep`` (F,) bool drops faces from the
+    render entirely (the camera-layer re-render of exact SSGI Selection,
+    `SSGIPass.js:71-79`). ``return_ids``: also return the (H, W) int32
+    winner-face ids, to share the visibility scan with
+    :func:`rasterize_velocity`. Without a ``dither`` every surface is
+    opaque."""
     dev = packed.device
     world_pos, world_nrm = _world_transform(
         packed, _as_device(model_mats, dev), _as_device(bones, dev),
         _as_device(morph_weights, dev))
     clip = _clip_positions(world_pos, view_proj)
-    ids, depth01 = _visibility(clip, packed.faces, height, width, face_keep)
+    tri_alpha, alpha_tex = _alpha_inputs(packed, dither)
+    ids, depth01 = _visibility(clip, packed.faces, height, width, face_keep,
+                               tri_alpha, dither, float(cnmf), alpha_tex,
+                               alpha_peels)
     valid = ids >= 0
     faces = packed.faces.long()
     textured = packed.map_atlas.shape[0] > 0
@@ -393,8 +494,10 @@ def rasterize_gbuffer(packed: PackedScene, model_mats, view_proj,
 
 def rasterize_velocity(packed: PackedScene, model_mats, prev_model_mats,
                        view_proj, prev_view_proj, height: int, width: int,
-                       bones=None, prev_bones=None, morph_weights=None,
+                       bones=None, prev_bones=None, dither=None,
+                       cnmf: float = 0.0, morph_weights=None,
                        prev_morph_weights=None,
+                       alpha_peels: int = ALPHA_PEELS,
                        share_ids: torch.Tensor | None = None) -> VelocityBuffer:
     """Render velocity/depth/normal (K17 semantics). Both view-proj
     matrices must be UNJITTERED (`VelocityDepthNormalPass.js:166-171`).
@@ -404,8 +507,8 @@ def rasterize_velocity(packed: PackedScene, model_mats, prev_model_mats,
 
     ``share_ids``: (H, W) winner ids of an already-run visibility scan
     (the G-buffer's); depth then comes from the winner's unjittered clip
-    planes. None runs this pass's own scan."""
-    _opaque_only(packed)
+    planes. None runs this pass's own scan, with the stochastic alpha of
+    ``dither``, ``cnmf`` and ``alpha_peels`` as :func:`rasterize_gbuffer`."""
     dev = packed.device
     world_pos, world_nrm = _world_transform(
         packed, _as_device(model_mats, dev), _as_device(bones, dev),
@@ -418,7 +521,10 @@ def rasterize_velocity(packed: PackedScene, model_mats, prev_model_mats,
     prev_clip = _clip_positions(prev_world_pos, prev_view_proj)
 
     if share_ids is None:
-        ids, depth01 = _visibility(clip, packed.faces, height, width)
+        tri_alpha, alpha_tex = _alpha_inputs(packed, dither)
+        ids, depth01 = _visibility(clip, packed.faces, height, width, None,
+                                   tri_alpha, dither, float(cnmf), alpha_tex,
+                                   alpha_peels)
     else:
         ids, depth01 = share_ids, None
     valid = ids >= 0

@@ -186,3 +186,84 @@ def test_ao_compose_matches():
     np.testing.assert_array_equal(
         t_compose(*map(torch.from_numpy, (color, ao, depth)), **args).numpy(),
         np.asarray(j_compose(*map(jnp.asarray, (color, ao, depth)), **args)))
+
+
+# --- the reference's codecs and the remaining helpers -----------------------
+
+@pytest.mark.parametrize("codec", ["color", "rgbe8", "vec4"])
+def test_codecs_match(codec):
+    """The colour codecs of `gbuffer_packing.glsl` on the JAX tests'
+    inputs (``tests/test_core.py``): the encoding bit for bit where it is
+    integer arithmetic (colour, vec4), to 1e-6 relative where it takes a
+    log2 and an exp2 (RGBE8, whose exponent a log2 ulp could move at an
+    exact power of 2: none here), and each round trip within the JAX
+    tests' bounds (1/255; RGBE8 2% relative)."""
+    seed, lo, hi, ch = {"color": (6, 0, 1, 3), "rgbe8": (7, 0, 50, 3),
+                        "vec4": (8, 0, 1, 4)}[codec]
+    x = np.random.default_rng(seed).uniform(lo, hi, size=(64, ch)).astype(np.float32)
+    enc, dec = {"color": ("color2float", "float2color"),
+                "rgbe8": ("encode_rgbe8", "decode_rgbe8"),
+                "vec4": ("vec4_to_float", "float_to_vec4")}[codec]
+    got = getattr(tp, enc)(torch.from_numpy(x))
+    want = getattr(jp, enc)(jnp.asarray(x))
+    back = getattr(tp, dec)(got).numpy()
+    jback = np.asarray(getattr(jp, dec)(want))
+    if codec == "rgbe8":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(back, jback, rtol=1e-6, atol=0)
+        assert (np.abs(back - x) / (x + 1e-3)).max() < 0.02
+    else:
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+        np.testing.assert_array_equal(back, jback)
+        assert np.abs(back - x).max() < 1.0 / 255.0
+
+
+def test_view_z_depth_and_world_to_screen_match():
+    """``view_z_to_perspective_depth`` round-trips ``perspective_depth_to_
+    view_z`` to the JAX test's 1e-5 and equals the JAX function to 1e-6;
+    ``world_to_screen`` of the jittered camera to 1e-6 (float32 in the
+    same order)."""
+    near, far = 0.1, 100.0
+    depth = np.linspace(0.01, 0.999, 32, dtype=np.float32)
+    vz = tm.perspective_depth_to_view_z(torch.from_numpy(depth), near, far)
+    back = tm.view_z_to_perspective_depth(vz, near, far).numpy()
+    np.testing.assert_allclose(back, depth, atol=1e-5)
+    jvz = jnp.asarray(vz.numpy())
+    np.testing.assert_allclose(
+        back, np.asarray(jm.view_z_to_perspective_depth(jvz, near, far)),
+        rtol=0, atol=1e-6)
+    jc, tc = _cameras()
+    jmat, tmat = jc.matrices(), tc.matrices()
+    p = np.random.default_rng(9).uniform(-2, 2, (40, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tm.world_to_screen(torch.from_numpy(p), tmat.view_matrix,
+                           tmat.projection_matrix).numpy(),
+        np.asarray(jm.world_to_screen(jnp.asarray(p), jmat.view_matrix,
+                                      jmat.projection_matrix)),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_r3_and_blue_noise_generation_match():
+    """The R3 sequence and the blue-noise generator equal the JAX
+    package's, and the generator's default tile is the committed asset."""
+    for n in (0, 1, 17, 1000):
+        assert tr.r3_sequence_point(n) == jr.r3_sequence_point(n)
+    np.testing.assert_array_equal(tr.generate_blue_noise(32, 2, seed=3),
+                                  jr.generate_blue_noise(32, 2, seed=3))
+    np.testing.assert_array_equal(
+        tr._generate_blue_noise_channel(np.random.default_rng(1), 16),
+        jr._generate_blue_noise_channel(np.random.default_rng(1), 16))
+    np.testing.assert_array_equal(tr.generate_blue_noise(), tr.blue_noise_tile())
+
+
+def test_did_camera_move_matches():
+    jc, tc = _cameras()
+    assert tcam.did_camera_move(None, tc.matrices()) is True
+    before_t, before_j = tc.matrices(), jc.matrices()
+    assert tcam.did_camera_move(before_t, tc.matrices()) is False
+    for c in (jc, tc):
+        c.set_position(3, 2.5, 4.01)
+    for prev_t, prev_j, eps in ((before_t, before_j, 1e-6), (before_t, before_j, 1.0)):
+        assert tcam.did_camera_move(prev_t, tc.matrices(), eps) == \
+            jcam.did_camera_move(prev_j, jc.matrices(), eps)
+    assert tcam.did_camera_move(before_t, tc.matrices()) is True

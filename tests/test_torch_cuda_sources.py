@@ -651,6 +651,47 @@ def test_zscan_source_binning(host_kernels, case):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("case,cnmf,passes", [
+    ("flagship", 0.0, 3), ("flagship", 3.0, 3), ("many", 20.0, 2),
+    ("ties", 3.0, 3), ("scrambled", 0.0, 2), ("overflow", 20.0, 3)])
+def test_zscan_alpha_source(host_kernels, case, cnmf, passes):
+    """The z-scan's alpha variant against the plain version, bit for bit,
+    over ``passes`` depth-peel passes, each excluding the earlier passes'
+    winners: material alpha drawn from 1, 0.9999, 0.7, 0.5, 0.3 and 0.1
+    (opaque, the opaque cut, both sides of the hard cut), a dither of
+    uniform noise, and cnmf 0 (the hard cut), 3 and 20 (the soft law,
+    ``fmaf`` in the kernel and the float64 fma of ``core.math3d.fma`` in
+    the plain version). On the tie-heavy table the second pass must hand
+    each pixel its excluded winner's duplicate: exclusion is by id."""
+    h, w = 45, 83
+    if case == "flagship":
+        tab = _flagship_table(h, w, (3.0, 2.5, 4.0), (0, 0.5, 0))
+    else:
+        tab = _synthetic_table(case, h, w)
+    rng = np.random.default_rng(int(cnmf) + passes)
+    n = tab.shape[0]
+    # drawn from the row's bits, so a triangle and its duplicate share it
+    pick = tab.contiguous().view(torch.int32)[:, :9].sum(1).remainder(6)
+    alpha = torch.tensor([1.0, 0.9999, 0.7, 0.5, 0.3, 0.1])[pick]
+    dither = torch.tensor(rng.random((h, w)), dtype=torch.float32)
+    exclude = []
+    for p in range(passes):
+        excl = (torch.stack(exclude) if exclude
+                else torch.empty((0, h, w), dtype=torch.int32))
+        got = raster_kernel._launch_alpha(tab, h, w, alpha, dither, cnmf, excl)
+        want = raster_kernel.zscan_plain(tab, h, w, alpha, dither, cnmf,
+                                         excl if exclude else None)
+        assert bool((want[0] >= 0).any())
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        for prev in exclude:
+            assert not bool(((want[0] == prev) & (prev >= 0)).any())
+        if case == "ties" and p == 1:
+            won = want[0][want[0] >= 0]
+            assert bool((won >= n // 2).float().mean() > 0.5)
+        exclude.append(want[0])
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("k", [1, 11, 24, 30, 33])
 def test_lookup_source(host_kernels, k, offset):

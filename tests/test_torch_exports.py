@@ -188,8 +188,8 @@ def test_exports_and_configuration():
     """The three names are exported, with the JAX package's defaults and
     routing: SSR traces, reprojects and denoises one specular texture (by
     the sweep or the march); GTAO takes 16 samples; TAA asks for the
-    jittered camera. The port exports every name of the JAX package's
-    but the glTF and animation loaders."""
+    jittered camera. The port exports every name of the JAX package's,
+    the glTF and animation loaders included."""
     for name in ("SSREffect", "GTAOEffect", "TAAPass"):
         assert name in tre.__all__ and getattr(tre, name) is not None
     ssr, jssr = tre.SSREffect(), jre.SSREffect()
@@ -202,8 +202,7 @@ def test_exports_and_configuration():
     assert tre.TAAPass.needs_jitter and tre.TAAPass.name == jre.TAAPass.name == "taa"
     ssr_march = tre.SSREffect(trace="march")
     assert (ssr_march.cfg.trace, ssr_march.cfg.mode) == ("march", "ssr")
-    # every export of the JAX package but the glTF and animation loaders
-    later = {"load_gltf", "load_gltf_asset", "GltfAsset", "write_glb",
-             "AnimationMixer", "AnimationClip"}
-    assert set(jre.__all__) - set(tre.__all__) == later
+    # every export of the JAX package, and no other
+    assert set(tre.__all__) == set(jre.__all__)
+    assert all(getattr(tre, name) is not None for name in tre.__all__)
     assert tre.SSGI_PRESETS == jre.SSGI_PRESETS

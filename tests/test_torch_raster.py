@@ -293,10 +293,24 @@ def test_rasterizers_match_jax(case):
 
 
 def test_alpha_scene_raises():
-    scene = _flagship(tre)
-    scene.meshes[1].material.diffuse = (0.9, 0.3, 0.2, 0.5)
-    with pytest.raises(NotImplementedError, match="alpha"):
-        tr.rasterize_gbuffer(scene.pack("cpu"), scene.model_matrices(),
-                             _view_proj(ORBIT), H, W)
+    """An alpha scene no longer raises: without a ``dither`` it rasterizes
+    opaque, as the JAX package's does (the same winners); with one it
+    takes the stochastic-alpha route (``tests/test_torch_alpha.py``), and
+    on a hard-cut frame (cnmf 0) the box of alpha 0.4 drops out. The
+    flag that routes it is set at packing."""
+    jscene, tscene = _flagship(jre), _flagship(tre)
+    for s in (jscene, tscene):
+        s.meshes[1].material.diffuse = (0.9, 0.3, 0.2, 0.4)
+    vp = _view_proj(ORBIT)
+    tpacked = tscene.pack("cpu")
+    assert tpacked.has_alpha
+    opaque = tr.rasterize_gbuffer(tpacked, tscene.model_matrices(), vp, H, W)
+    jgb = jr.rasterize_gbuffer(jscene.pack(), jscene.model_matrices(), vp, H, W)
+    same = opaque.mesh_id.numpy() == np.asarray(jgb.mesh_id)
+    assert (~same).mean() <= FLIP_FRAC and bool((opaque.mesh_id == 1).any())
+    dither = torch.zeros((H, W))
+    cut = tr.rasterize_gbuffer(tpacked, tscene.model_matrices(), vp, H, W,
+                               dither=dither, cnmf=0.0)
+    assert not bool((cut.mesh_id == 1).any())
     assert convert.packed_scene_from_numpy(
         _flagship(jre).pack(), "cpu").has_alpha is False

@@ -114,8 +114,10 @@ def test_render_matches_jax_and_golden(jax_run):
 
 
 def test_render_options_on_cpu():
-    """share_visibility and collect_timings; alpha scenes and msaa > 1
-    raise."""
+    """share_visibility and collect_timings; an alpha scene and msaa > 1
+    render (``tests/test_torch_msaa.py`` holds them to the JAX package):
+    the msaa = 2 frame keeps the frame's size and moves the box's
+    silhouette."""
     env = tre.build_equirect_env(tre.procedural_sky(16, 32), device="cpu")
     scene, cam = _scene(tre, env)
     comp = tre.EffectComposer(scene, cam, 32, 32, device="cpu")
@@ -131,7 +133,8 @@ def test_render_options_on_cpu():
     scene.meshes[1].material.diffuse = (0.9, 0.3, 0.2, 0.5)
     glass = tre.EffectComposer(scene, cam, 32, 32, device="cpu")
     glass.add_effect(tre.TRAAEffect())
-    with pytest.raises(NotImplementedError, match="alpha"):
-        glass.render()
-    with pytest.raises(NotImplementedError, match="msaa"):
-        tre.EffectComposer(scene, cam, 32, 32, device="cpu", msaa=2).render()
+    assert bool(torch.isfinite(glass.render()).all())
+    one = tre.EffectComposer(scene, cam, 32, 32, device="cpu").render(dt=1 / 60)
+    two = tre.EffectComposer(scene, cam, 32, 32, device="cpu", msaa=2).render(dt=1 / 60)
+    assert two.shape == (32, 32, 3) and bool(torch.isfinite(two).all())
+    assert int(((one - two).abs().amax(-1) > 0.01).sum()) > 4
