@@ -34,11 +34,13 @@ Phases (any failure raises and the script exits non-zero):
    and timed with its library call; the sweep over a 32 x 128 table (in
    shared memory through the opt-in) and a 64 x 304 one (above the
    opt-in limit, read from device memory), both exact; the z-scan's
-   alpha variant on the 3840 x 2160 raster of frame 5 of the glTF alpha
-   + MSAA path, its first pass (no exclusion plane, the entry's numbers)
-   and its third (two planes), each bit for bit, then three passes over
-   the tie-heavy table at 1080p (exclusion by id: an excluded winner's
-   duplicate must win the next pass). Then the
+   alpha variant, every depth-peel pass in one launch, on the 3840 x
+   2160 raster of frame 5 of the glTF alpha + MSAA path at its 3 passes
+   (the entry's numbers) and at 6 (two chunks, the second after the
+   first's floor), each against as many passes of the plain version bit
+   for bit, then 3 and 6 passes over the tie-heavy table at 1080p
+   (exclusion by id: an excluded winner's duplicate must win the next
+   pass). Then the
    cube-map routines, which have no kernel of their own
    (``cube_to_equirect``, ``ggx_prefilter_mips``, ``blur_env(..., 0.5)``
    at a 128 x 256 map), on the card against the CPU with their ms.
@@ -72,8 +74,8 @@ Phases (any failure raises and the script exits non-zero):
    box animated by an ``AnimationMixer``, rendered through ``render`` by
    ``EffectComposer(..., msaa=2, alpha_peels=3)`` with ``HBAOEffect()``
    -> ``TRAAEffect()``, the camera still and then one orbit step, over
-   12 frames; it must launch the z-scan's alpha variant (6 a frame) and
-   never the opaque z-scan. The launch counters
+   12 frames; it must launch the z-scan's alpha variant 2 times a frame
+   (one a raster, every peel in it) and never the opaque z-scan. The launch counters
    (and the march's call counter) are set to 0 just before each path
    and read just after: each path must have launched each of its
    kernels (and the unfused path neither the fused HBAO nor the fused AO
@@ -895,21 +897,35 @@ def check_raster_kernels(torch, analytic, timer, results):
     results[-1]["records"] = records
 
 
-def _zscan_alpha_bytes(tab, h, w, n_excl):
+def _zscan_peels_bytes(tab, h, w, passes):
     """Bytes the alpha variant must move: the table and the alpha (4 B a
-    triangle), the dither, the exclusion planes and the two outputs."""
-    return tab.nbytes + 4 * tab.shape[0] + h * w * (4 + 4 * n_excl + 8)
+    triangle), the dither (4 B a pixel) and the ``passes`` planes of ids
+    and z (8 B a pixel each)."""
+    return tab.nbytes + 4 * tab.shape[0] + h * w * (4 + 8 * passes)
+
+
+def _peels_off(torch, got, want):
+    """(winner flips, max abs z error where the plain version has a
+    winner, z values whose bits differ) of the alpha variant's planes
+    against the plain ones."""
+    (ids_k, z_k), (ids_p, z_p) = got, want
+    flips = int((ids_k != ids_p).sum())
+    won = ids_p >= 0
+    err = _maxerr(torch, torch.where(won, z_k, 0.0), torch.where(won, z_p, 0.0))
+    return flips, err, int((z_k.view(torch.int32) != z_p.view(torch.int32)).sum())
 
 
 def check_alpha_kernels(torch, analytic, timer, results):
-    """The z-scan's alpha variant on the inputs of frame SWEEP_FRAME of
-    the glTF alpha + MSAA path at 1920 x 1080 (a 3840 x 2160 raster; the
-    camera still since frame 0, so the soft law): the G-buffer raster's
-    first pass (no exclusion planes, the entry's numbers) and its third
-    (two), each held to the plain version (winner flips and z) and timed
-    with it; then three passes over the tie-heavy table at 1080p, where
-    an excluded winner's duplicate ties its z and must win the next pass
-    (exclusion is by id)."""
+    """The z-scan's alpha variant, every peel pass in one launch, on the
+    inputs of frame SWEEP_FRAME of the glTF alpha + MSAA path at 1920 x
+    1080 (a 3840 x 2160 raster; the camera still since frame 0, so the
+    soft law): the G-buffer raster's call with its 3 passes (the entry's
+    numbers) and the same inputs at 6 passes (two chunks, the second
+    after the first's floor), each held to as many passes of the plain
+    version (winner flips and z) and timed with it; then 3 and 6 passes
+    over the tie-heavy table at 1080p, where an excluded winner's
+    duplicate ties its z and must win the next pass (exclusion is by
+    id)."""
     from realism_effects_tpu_torch.ops import raster_kernel
     from realism_effects_tpu_torch.scene import rasterizer
 
@@ -917,78 +933,69 @@ def check_alpha_kernels(torch, analytic, timer, results):
     steps = analytic.still_then_step(0, SWEEP_FRAME + 1, SWEEP_FRAME + 1)
     analytic.render_frames(comp, cam, steps[:SWEEP_FRAME], mixer)
     captured = []
-    real = rasterizer.zscan_alpha
+    real = rasterizer.zscan_alpha_peels
 
-    def record(tab, h, w, alpha, dither, cnmf, exclude=None):
-        excl = (exclude.clone() if exclude is not None else
-                torch.empty((0, h, w), dtype=torch.int32, device=tab.device))
-        captured.append((tab, h, w, alpha, dither, cnmf, excl))
-        return real(tab, h, w, alpha, dither, cnmf, exclude)
+    def record(*args):
+        captured.append(args)
+        return real(*args)
 
-    rasterizer.zscan_alpha = record
+    rasterizer.zscan_alpha_peels = record
     try:
         analytic.render_frames(comp, cam, steps[SWEEP_FRAME:], mixer)
     finally:
-        rasterizer.zscan_alpha = real
+        rasterizer.zscan_alpha_peels = real
     del comp
-    print(f"[kernel] zscan_alpha: {len(captured)} passes in frame {SWEEP_FRAME} "
-          f"(G-buffer and velocity rasters, cnmf {captured[0][5]})", flush=True)
-    passes = []
-    for tab, h, w, alpha, dither, cnmf, excl in (captured[0], captured[2]):
-        plain_excl = excl if len(excl) else None
-        ids_k, z_k = raster_kernel._launch_alpha(tab, h, w, alpha, dither, cnmf, excl)
-        ids_p, z_p = raster_kernel.zscan_plain(tab, h, w, alpha, dither, cnmf, plain_excl)
-        flips = int((ids_k != ids_p).sum())
-        both = (ids_k == ids_p) & (ids_k >= 0)
-        err = _maxerr(torch, torch.where(both, z_k, 0.0), torch.where(both, z_p, 0.0))
-        bound_ms, bound_by = _bound(_zscan_alpha_bytes(tab, h, w, len(excl)),
-                                    _zscan_ops(tab, h, w))
-        rec = dict(exclusion_planes=len(excl), raster=[h, w], triangles=tab.shape[0],
-                   winner_flips=flips, max_abs_err=err,
-                   ms=timer(lambda: raster_kernel._launch_alpha(
-                       tab, h, w, alpha, dither, cnmf, excl)),
-                   plain_ms=timer(lambda: raster_kernel.zscan_plain(
-                       tab, h, w, alpha, dither, cnmf, plain_excl), iters=5, warmup=1),
+    tab, h, w, alpha, dither, cnmf, passes = captured[0]
+    print(f"[kernel] zscan_peels: {len(captured)} calls in frame {SWEEP_FRAME} "
+          f"(G-buffer and velocity rasters), {passes} passes, cnmf {cnmf}", flush=True)
+    runs = []
+    for p in (passes, 6):
+        got = raster_kernel._launch_peels(tab, h, w, alpha, dither, cnmf, p)
+        want = raster_kernel.zscan_alpha_peels_plain(tab, h, w, alpha, dither, cnmf, p)
+        flips, err, bits = _peels_off(torch, got, want)
+        bound_ms, bound_by = _bound(_zscan_peels_bytes(tab, h, w, p), _zscan_ops(tab, h, w))
+        rec = dict(passes=p, raster=[h, w], triangles=tab.shape[0], winner_flips=flips,
+                   max_abs_err=err, z_bits_off=bits,
+                   ms=timer(lambda: raster_kernel._launch_peels(
+                       tab, h, w, alpha, dither, cnmf, p)),
+                   plain_ms=(timer(lambda: raster_kernel.zscan_alpha_peels_plain(
+                       tab, h, w, alpha, dither, cnmf, p), iters=5, warmup=1)
+                       if p == passes else None),
                    bound_ms=bound_ms, bound_by=bound_by,
-                   covered=int((ids_k >= 0).sum()))
-        print(f"[kernel] zscan_alpha, {len(excl)} exclusion planes: {json.dumps(rec)}",
-              flush=True)
-        if flips or err != 0.0:
-            raise AssertionError(f"zscan_alpha with {len(excl)} exclusion planes "
-                                 f"disagrees with its plain version")
-        passes.append(rec)
+                   covered_by_plane=[int((want[0][i] >= 0).sum()) for i in range(p)])
+        print(f"[kernel] zscan_peels, {p} passes: {json.dumps(rec)}", flush=True)
+        if flips or err != 0.0 or bits:
+            raise AssertionError(f"zscan_peels with {p} passes disagrees with "
+                                 f"{p} passes of the plain version")
+        runs.append(rec)
+        del got, want
 
-    h, w = HEIGHT, WIDTH
-    tie = tie_table(torch, h, w)
+    th, tw = HEIGHT, WIDTH
+    tie = tie_table(torch, th, tw)
     # alpha 0.4 on a third of the triangles, drawn from the row's bits, so
     # a triangle and its duplicate share it
     pick = tie.view(torch.int32)[:, :9].sum(1).remainder(3)
-    alpha = torch.where(pick == 0, 0.4, 1.0)
-    dither = torch.rand((h, w), generator=torch.Generator("cuda").manual_seed(0),
-                        device="cuda")
-    excl, tie_flips = [], 0
-    for p in range(3):
-        stack = (torch.stack(excl) if excl else
-                 torch.empty((0, h, w), dtype=torch.int32, device="cuda"))
-        ids_k, z_k = raster_kernel._launch_alpha(tie, h, w, alpha, dither, 3.0, stack)
-        ids_p, z_p = raster_kernel.zscan_plain(tie, h, w, alpha, dither, 3.0,
-                                               stack if excl else None)
-        tie_flips += int((ids_k != ids_p).sum())
-        tie_flips += int((torch.where(ids_p >= 0, z_k, 0.0)
-                          != torch.where(ids_p >= 0, z_p, 0.0)).sum())
-        excl.append(ids_p)
-    dup_wins = int(((excl[1] >= 1500) & (excl[1] < 3000)).sum())
-    print(f"[check] zscan_alpha on the tie-heavy table, 3 passes at cnmf 3: "
-          f"pixels off {tie_flips}, second pass won by a duplicate {dup_wins}",
-          flush=True)
-    if tie_flips or dup_wins == 0:
-        raise AssertionError("zscan_alpha disagrees with its plain version on "
-                             "the tie-heavy table")
-    g = passes[0]
-    results.add("zscan_alpha", "raster.cu", "realism_effects_tpu/ops/pallas/raster.py:67",
+    tie_alpha = torch.where(pick == 0, 0.4, 1.0)
+    tie_dither = torch.rand((th, tw), generator=torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    for p in (3, 6):
+        got = raster_kernel._launch_peels(tie, th, tw, tie_alpha, tie_dither, 3.0, p)
+        want = raster_kernel.zscan_alpha_peels_plain(tie, th, tw, tie_alpha, tie_dither,
+                                                     3.0, p)
+        flips, err, bits = _peels_off(torch, got, want)
+        dup_wins = int(((want[0][1] >= 1500) & (want[0][1] < 3000)).sum())
+        print(f"[check] zscan_peels on the tie-heavy table, {p} passes at cnmf 3: "
+              f"winner flips {flips}, max z error {err}, z values off {bits}, "
+              f"second pass won by a duplicate {dup_wins}", flush=True)
+        if flips or err != 0.0 or bits or dup_wins == 0:
+            raise AssertionError(f"zscan_peels with {p} passes disagrees with its "
+                                 "plain version on the tie-heavy table")
+    g = runs[0]
+    results.add("zscan_peels", "raster.cu",
+                "realism_effects_tpu/scene/rasterizer.py:232-295,334-345",
                 g["max_abs_err"], 0.0, g["ms"], g["plain_ms"],
-                _zscan_alpha_bytes(*captured[0][:3], 0), _zscan_ops(*captured[0][:3]))
-    results[-1]["passes"] = passes
+                _zscan_peels_bytes(tab, h, w, passes), _zscan_ops(tab, h, w))
+    results[-1]["runs"] = runs
 
 
 def counters():
@@ -1010,7 +1017,7 @@ def counters():
         "sweep": rays.get(2, 0),
         "sweep_1ray": rays.get(1, 0),
         "zscan": raster_kernel.zscan.launches,
-        "zscan_alpha": raster_kernel.zscan_alpha.launches,
+        "zscan_peels": raster_kernel.zscan_alpha_peels.launches,
         "lookup": table_kernel.face_lookup.launches,
         "warp_multi": warp.window_warp_multi.launches,
         "poisson_taps": poisson_taps.poisson_taps.launches,
@@ -1038,7 +1045,7 @@ def reset_counters():
     sweep_kernel.sweep_march.launches = 0
     sweep_kernel.sweep_march.ray_launches.clear()
     raster_kernel.zscan.launches = 0
-    raster_kernel.zscan_alpha.launches = 0
+    raster_kernel.zscan_alpha_peels.launches = 0
     table_kernel.face_lookup.launches = 0
     warp.window_warp_multi.launches = 0
     poisson_taps.poisson_taps.launches = 0
@@ -1262,7 +1269,7 @@ def main() -> int:
 
     names = [k["name"] for k in kernels]
     new_kernels = ("warp_multi", "poisson_taps", "sharpness", "sweep_1ray",
-                   "poisson_1tex", "zscan_alpha")
+                   "poisson_1tex", "zscan_peels")
     by_path = {}
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa"] = run_path(
@@ -1328,16 +1335,19 @@ def main() -> int:
         torch, comp, exports_driver(analytic, comp, cam, WARMUP + HBAO_TRAA_FRAMES // 2,
                                     mixer),
         "glTF alpha + MSAA 2x", HBAO_TRAA_FRAMES,
-        ("zscan_alpha", "lookup", "hbao", "poisson", "minmax", "warp_catrom5",
+        ("zscan_peels", "lookup", "hbao", "poisson", "minmax", "warp_catrom5",
          "warp_nearest"), smi, forbidden=("zscan", "sweep", "sweep_1ray", "march"))
-    print(f"[path] glTF alpha + MSAA 2x: zscan_alpha launches a frame "
-          f"{by_path['gltf_alpha_msaa']['zscan_alpha'] / HBAO_TRAA_FRAMES}", flush=True)
+    per_frame = by_path["gltf_alpha_msaa"]["zscan_peels"] / HBAO_TRAA_FRAMES
+    print(f"[path] glTF alpha + MSAA 2x: zscan_peels launches a frame {per_frame}",
+          flush=True)
+    if per_frame != 2:   # one a raster: the G-buffer's and the velocity's
+        raise AssertionError(f"zscan_peels launched {per_frame} times a frame, not 2")
     del comp
     # each kernel's launches on its own path: the flagship's, the demo
     # stack's for sharpness, the unfused route's for its two kernels
     home = {"sharpness": "demo_stack", "warp_multi": "hbao_traa_unfused",
             "poisson_taps": "hbao_traa_unfused", "sweep_1ray": "ssr_gtao_taa",
-            "poisson_1tex": "ssr_gtao_taa", "zscan_alpha": "gltf_alpha_msaa"}
+            "poisson_1tex": "ssr_gtao_taa", "zscan_peels": "gltf_alpha_msaa"}
     for kern in kernels:
         path = home.get(kern["name"], "flagship")
         kern["launches"] = by_path[path][kern["name"]]

@@ -29,7 +29,7 @@ import torch
 from .core.camera import Camera, CameraMatrices
 from .core.envmap import EquirectEnv, build_equirect_env, cube_to_equirect
 from .core.framebuffers import GBuffer, VelocityBuffer
-from .core.rng import blue_noise_image
+from .core.rng import blue_noise_transform
 from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
 from .scene.shading import shade_direct
 
@@ -113,8 +113,8 @@ class EffectComposer:
         #: picking each block's centre sample
         self.msaa = max(1, int(msaa))
         #: depth-peel passes bounding alpha-map transparency depth
-        #: (scene/rasterizer._visibility); each peel is one more z-scan
-        #: pass of the G-buffer and of the velocity raster
+        #: (scene/rasterizer._visibility); each peel is one more plane of
+        #: the G-buffer's and the velocity raster's alpha z-scan
         self.alpha_peels = int(alpha_peels)
         #: resolve visibility once per frame: the velocity pass reuses the
         #: G-buffer scan's winner ids (off by default: under TRAA the
@@ -279,9 +279,12 @@ class EffectComposer:
         if any(m.material.diffuse[3] < 1.0 or m.material.alpha_map is not None
                for m in scene.meshes):
             # the dither, animated by the still-frame counter so TRAA/TAA
-            # converge transparency (`GBufferPass.js:59,78-82`)
-            dither = blue_noise_image(h, w, self.camera_not_moved_frames
-                                      + frame_index, device=dev)[..., 0]
+            # converge transparency (`GBufferPass.js:59,78-82`): the blue
+            # noise's first channel, taken on the tile before it is tiled
+            # out, so the z-scan reads a plane with unit x stride
+            dither = blue_noise_transform(h, w, self.camera_not_moved_frames
+                                          + frame_index, lambda t: t[..., :1],
+                                          device=dev)[..., 0]
         alpha = dict(dither=dither, cnmf=cnmf, alpha_peels=self.alpha_peels)
         gbuffer = rasterize_gbuffer(packed, mm, cam.projection_view_matrix, h, w,
                                     bones=bones, morph_weights=morph,

@@ -162,6 +162,67 @@ __device__ __forceinline__ int block_compact(int begin, int end, int cap,
   next = min(pos, end);
   return count;
 }
+
+// block_compact with k consecutive indices a thread, so a round tests
+// k block-widths: thread t tests begin + t k .. begin + t k + k - 1, a
+// shuffle scan over the warp and a prefix over the block's warps give
+// each kept index its slot in index order. Same contract, result and
+// `next` as block_compact; fewer rounds, so fewer barriers, and each
+// thread's k loads are independent.
+template <int K, class Keep, class Store>
+__device__ __forceinline__ int block_compact_wide(int begin, int end, int cap,
+                                                  Keep keep, Store store,
+                                                  int& next) {
+  __shared__ int s_warp[32];
+  __shared__ int s_next;
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int count = 0;
+  int pos = begin;
+  while (pos < end && count < cap) {
+    const int i0 = pos + tid * K;
+    unsigned int hits = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      hits |= (i0 + k < end && keep(i0 + k)) ? 1u << k : 0u;
+    }
+    const int c = __popc(hits);
+    int incl = c;  // inclusive scan of c over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      incl += lane >= d ? v : 0;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();  // also: every thread is done reading the last round
+    int before = 0, total = 0;
+    for (int k = 0; k < (nt >> 5); ++k) {
+      const int cw = s_warp[k];
+      before += k < warp ? cw : 0;
+      total += cw;
+    }
+    int slot = count + before + incl - c;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if ((hits >> k) & 1u) {
+        if (slot < cap) store(slot, i0 + k);
+        if (slot == cap) s_next = i0 + k;  // the first index that did not fit
+        ++slot;
+      }
+    }
+    __syncthreads();
+    if (count + total > cap) {
+      next = s_next;
+      return cap;
+    }
+    count += total;
+    pos += nt * K;
+  }
+  next = min(pos, end);
+  return count;
+}
 #else
 // Threads run one after another in the host build of the sources: the
 // block's first thread fills it all, the others find it filled.
@@ -198,6 +259,12 @@ inline int block_compact(int begin, int end, int cap, Keep keep, Store store,
   }
   next = end;
   return count;
+}
+
+template <int K, class Keep, class Store>
+inline int block_compact_wide(int begin, int end, int cap, Keep keep,
+                              Store store, int& next) {
+  return block_compact(begin, end, cap, keep, store, next);
 }
 #endif
 

@@ -19,13 +19,17 @@ is bound by instruction issue, not by the output write that bounds the
 z-scan; the kernel bins triangles per 16 x 32 tile in triangle order
 and each thread walks only its tile's list. See the source.
 
-The alpha variant (:func:`zscan_alpha`, ``re_zscan_alpha``) is one
-depth-peel pass of ``_visibility``'s stochastic-alpha scan, which the
-JAX package runs as an XLA scan and not through its Pallas kernel: the
-same walk with the material-alpha law (a hard 0.5 cut on the first still
-frame, a dither against the convergence law's soft alpha later) and the
-exclusion of the earlier passes' winners, by id. The law's two sums
-``cnmf * 0.1 + 1`` and ``a + (a_step - a) * ramp`` are fused
+The alpha variant (:func:`zscan_alpha_peels`, ``re_zscan_peels``) runs
+every depth-peel pass of ``_visibility``'s stochastic-alpha scan, which
+the JAX package runs as an XLA scan (``scene/rasterizer.py:232-295``)
+and a peel loop (``:334-345``), not through its Pallas kernel: the
+material-alpha law (a hard 0.5 cut on the first still frame, a dither
+against the convergence law's soft alpha later) and, in pass p, the
+exclusion of the earlier passes' winners by id. Pass p's winner is the
+(p+1)-th smallest (z, id) of the triangles that pass, so one launch
+keeps each pixel's P smallest and returns the P planes; its plain twin
+is P passes of :func:`zscan_plain` with the exclusion stack. The law's
+two sums ``cnmf * 0.1 + 1`` and ``a + (a_step - a) * ramp`` are fused
 multiply-adds, as XLA's CPU backend contracts them in the scan's body.
 """
 
@@ -196,44 +200,62 @@ def _launch(tab, height, width):
     return ids, z
 
 
-def zscan_alpha(tab: torch.Tensor, height: int, width: int, alpha: torch.Tensor,
-                dither: torch.Tensor, cnmf: float,
-                exclude: torch.Tensor | None = None):
-    """(ids, z_ndc) of one depth-peel pass of the stochastic-alpha scan
-    (see :func:`zscan_plain`): ``alpha`` (F,) material alpha, ``dither``
-    (H, W), ``cnmf`` the camera's still-frame count, ``exclude`` the
-    earlier passes' winner planes (P, H, W) int32. CUDA tensors launch
-    the kernel; CPU tensors take the plain version."""
+def zscan_alpha_peels_plain(tab: torch.Tensor, height: int, width: int,
+                            alpha: torch.Tensor, dither: torch.Tensor,
+                            cnmf: float, passes: int):
+    """The alpha variant's function in PyTorch: ``passes`` passes of
+    :func:`zscan_plain`, pass p excluding the winners of passes 0 .. p-1.
+    Returns (ids (P, H, W) int32, z_ndc (P, H, W) float32)."""
+    ids = torch.empty((passes, height, width), dtype=torch.int32, device=tab.device)
+    z = torch.empty((passes, height, width), dtype=torch.float32, device=tab.device)
+    for p in range(passes):
+        ids[p], z[p] = zscan_plain(tab, height, width, alpha, dither, cnmf,
+                                   ids[:p] if p else None)
+    return ids, z
+
+
+def zscan_alpha_peels(tab: torch.Tensor, height: int, width: int,
+                      alpha: torch.Tensor, dither: torch.Tensor, cnmf: float,
+                      passes: int):
+    """(ids, z_ndc), each (P, H, W), of the ``passes`` depth-peel passes
+    of the stochastic-alpha scan (see :func:`zscan_alpha_peels_plain`):
+    ``alpha`` (F,) material alpha, ``dither`` (H, W), ``cnmf`` the
+    camera's still-frame count; plane p is pass p's winner (-1 and +inf
+    for none). CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
     if tab.device.type == "cpu":
-        return zscan_plain(tab, height, width, alpha, dither, cnmf, exclude)
-    if exclude is None:
-        exclude = torch.empty((0, height, width), dtype=torch.int32, device=tab.device)
-    out = _launch_alpha(tab, height, width, alpha, dither, cnmf, exclude)
-    zscan_alpha.launches += 1
+        return zscan_alpha_peels_plain(tab, height, width, alpha, dither, cnmf, passes)
+    out = _launch_peels(tab, height, width, alpha, dither, cnmf, passes)
+    zscan_alpha_peels.launches += 1
     return out
 
 
-zscan_alpha.launches = 0
+zscan_alpha_peels.launches = 0
 
 
-def _launch_alpha(tab, height, width, alpha, dither, cnmf, excl):
+def _launch_peels(tab, height, width, alpha, dither, cnmf, passes):
     if tab.ndim != 2 or tab.shape[1] != NQ or tab.dtype != torch.float32:
         raise ValueError(f"the z-scan table must be (F, {NQ}) float32, not "
                          f"{tuple(tab.shape)} {tab.dtype}")
-    if alpha.shape != (tab.shape[0],) or tuple(dither.shape) != (height, width) \
-            or tuple(excl.shape[1:]) != (height, width):
-        raise ValueError("alpha (F,), dither (H, W) and exclusion planes "
-                         "(P, H, W) must match the table and the frame")
-    tab, alpha = tab.contiguous(), alpha.float().contiguous()
-    dither, excl = dither.float().contiguous(), excl.to(torch.int32).contiguous()
-    cuda_build.require_cuda(tab, alpha, dither, excl)
-    z = torch.empty((height, width), dtype=torch.float32, device=tab.device)
-    ids = torch.empty((height, width), dtype=torch.int32, device=tab.device)
+    if alpha.shape != (tab.shape[0],) or tuple(dither.shape) != (height, width):
+        raise ValueError("alpha (F,) and dither (H, W) must match the table "
+                         "and the frame")
+    if passes < 1:
+        raise ValueError(f"the alpha z-scan takes at least one pass, not {passes}")
+    tab, alpha, dither = tab.contiguous(), alpha.float().contiguous(), dither.float()
+    cuda_build.require_cuda(tab, alpha)
+    # the dither is read through its strides (the composer's is a channel
+    # of the tiled blue noise: a view, which a copy would cost a pass over)
+    if dither.device != tab.device:
+        raise ValueError(f"the dither is on {dither.device}, the table on {tab.device}")
+    prep = torch.empty((tab.shape[0], 8), dtype=torch.float32, device=tab.device)
+    z = torch.empty((passes, height, width), dtype=torch.float32, device=tab.device)
+    ids = torch.empty((passes, height, width), dtype=torch.int32, device=tab.device)
     host = np.array([cnmf], np.float32)
-    fn = cuda_build.bind("raster", "re_zscan_alpha", 6, 4, 1)
-    err = fn(tab.data_ptr(), alpha.data_ptr(), dither.data_ptr(),
-             excl.data_ptr() if excl.numel() else None, z.data_ptr(),
-             ids.data_ptr(), tab.shape[0], height, width, excl.shape[0],
-             host.ctypes.data, cuda_build.stream_ptr(tab))
-    cuda_build.check(err, "z-scan kernel (alpha)")
+    fn = cuda_build.bind("raster", "re_zscan_peels", 6, 6, 1)
+    err = fn(tab.data_ptr(), alpha.data_ptr(), dither.data_ptr(), prep.data_ptr(),
+             z.data_ptr(), ids.data_ptr(), tab.shape[0], height, width,
+             dither.stride(0), dither.stride(1), passes, host.ctypes.data,
+             cuda_build.stream_ptr(tab))
+    cuda_build.check(err, "z-scan kernel (alpha peels)")
     return ids, z

@@ -55,7 +55,8 @@ from .ops import cuda_build
 PORT_KERNELS = ("warp_kernel", "warp_multi_kernel", "minmax_kernel",
                 "sharpness_kernel", "hbao_kernel", "hbao_noise_kernel",
                 "poisson_kernel",
-                "taps_kernel", "sweep_kernel", "zscan_kernel", "lookup_kernel")
+                "taps_kernel", "sweep_kernel", "zscan_kernel", "zscan_prep_kernel",
+                "zscan_peels_kernel", "lookup_kernel")
 PATHS = ("hbao_traa", "ssgi_hbao_traa", "flagship", "demo_stack",
          "hbao_traa_unfused", "ssr_gtao_taa", "march_aa", "ortho_ssr",
          "gltf_alpha_msaa")

@@ -34,7 +34,8 @@ import torch
 from ..core.brdf import cross
 from ..core.framebuffers import GBuffer, VelocityBuffer
 from ..core.math3d import fma, length
-from ..ops.raster_kernel import soft_alpha, zscan_alpha, zscan_table, zscan_visibility
+from ..ops.raster_kernel import (soft_alpha, zscan_alpha_peels, zscan_table,
+                                 zscan_visibility)
 from ..ops.table_kernel import LANES, face_lookup
 from .scene import PackedScene
 
@@ -152,7 +153,8 @@ def _visibility(clip: torch.Tensor, faces: torch.Tensor, height: int,
     nearest texel's green channel) by depth peeling: each of
     ``alpha_peels`` passes excludes the earlier passes' winners per pixel
     and tests the law on its winner's texel; a pixel whose first
-    ``alpha_peels`` layers all dither out becomes background."""
+    ``alpha_peels`` layers all dither out becomes background. One
+    launch of the z-scan's alpha variant gives every pass's winner."""
     faces = faces.long()
     tri_h, scale = _scaled_tri_verts(clip, faces, height, width)
     tri_z = clip[faces][..., 2] * scale                # scaled z_clip
@@ -186,12 +188,36 @@ def _visibility(clip: torch.Tensor, faces: torch.Tensor, height: int,
                                      tri_bbox, height, width)
         return ids, depth01(ids, zbuf)
 
+    # every pass in one z-scan: plane p is pass p's raw winner
     tab = zscan_table(coeffs, tri_z, tri_w, sgn, valid, tri_bbox)
-    ids, zbuf = zscan_alpha(tab, height, width, tri_alpha, dither, cnmf)
+    passes = max(alpha_peels, 1) if alpha_tex is not None else 1
+    ids_p, z_p = zscan_alpha_peels(tab, height, width, tri_alpha, dither, cnmf,
+                                   passes)
     if alpha_tex is None:
-        return ids, depth01(ids, zbuf)
+        return ids_p[0], depth01(ids_p[0], z_p[0])
 
     # --- texel-alpha depth peeling
+    winner_keeps = _texel_law(clip, faces, height, width, alpha_tex, tri_alpha,
+                              dither, cnmf)
+    keep = winner_keeps(ids_p[0])
+    final_ids = torch.where(keep, ids_p[0], -1)
+    final_z = torch.where(keep, z_p[0], _INF)
+    resolved = keep
+    for p in range(1, passes):
+        kp = winner_keeps(ids_p[p])
+        take = ~resolved & kp
+        final_ids = torch.where(take, ids_p[p], final_ids)
+        final_z = torch.where(take, z_p[p], final_z)
+        resolved = resolved | kp
+    return final_ids, depth01(final_ids, final_z)
+
+
+def _texel_law(clip, faces, height, width, alpha_tex, tri_alpha, dither, cnmf):
+    """``winner_keeps(win_ids)`` of the depth peels: (H, W) bool, the law
+    on each pixel's winning texel, material alpha times the nearest
+    texel's *green* channel (`GBufferMaterial.js:60`), and True where no
+    triangle won. ``alpha_tex`` (pages (F,), uvs (V, 2), atlas
+    (N, S, S, 4)) as :func:`_visibility`'s."""
     pages, uvs, atlas = alpha_tex
     size = atlas.shape[1]
     table = _pack_face_table([
@@ -202,8 +228,6 @@ def _visibility(clip: torch.Tensor, faces: torch.Tensor, height: int,
     ])
 
     def winner_keeps(win_ids):
-        """The law on each pixel's winning texel: material alpha times
-        the nearest texel's *green* channel (`GBufferMaterial.js:60`)."""
         rec = _fetch_face_table(table, win_ids)
         wts = _weights_from_coeffs(rec[..., 0:9], height, width)
         uvv = rec[..., 9:15]
@@ -218,24 +242,7 @@ def _visibility(clip: torch.Tensor, faces: torch.Tensor, height: int,
         keep = keep_all if hard else keep_all | (dither < a_soft)
         return keep | (win_ids < 0)   # background resolves trivially
 
-    keep = winner_keeps(ids)
-    final_ids = torch.where(keep, ids, -1)
-    final_z = torch.where(keep, zbuf, _INF)
-    resolved = keep
-    # pass p excludes the winners of passes 0 .. p-1, slots 0 .. p-1
-    exclude = torch.empty((max(alpha_peels - 1, 0), height, width),
-                          dtype=torch.int32, device=ids.device)
-    idp = ids
-    for p in range(1, alpha_peels):
-        exclude[p - 1] = idp
-        idp, zb = zscan_alpha(tab, height, width, tri_alpha, dither, cnmf,
-                              exclude[:p])
-        kp = winner_keeps(idp)
-        take = ~resolved & kp
-        final_ids = torch.where(take, idp, final_ids)
-        final_z = torch.where(take, zb, final_z)
-        resolved = resolved | kp
-    return final_ids, depth01(final_ids, final_z)
+    return winner_keeps
 
 
 # --- per-face packed records ------------------------------------------------
@@ -398,7 +405,7 @@ def rasterize_gbuffer(packed: PackedScene, model_mats, view_proj,
     skinning, and stochastic-alpha transparency by ``dither`` (H, W)
     noise on the scene's device and ``cnmf`` = cameraNotMovedFrames for
     the convergence law; ``alpha_peels`` bounds alpha-map depth, each
-    peel one more pass of the z-scan). ``model_mats`` (M, 4, 4),
+    peel one more plane of the z-scan). ``model_mats`` (M, 4, 4),
     ``bones`` (B, 4, 4) and ``morph_weights`` (M, T) are host arrays or
     tensors (copied to the scene's device); ``view_proj`` is a host
     (4, 4) float32 matrix. ``face_keep`` (F,) bool drops faces from the

@@ -593,8 +593,11 @@ def _synthetic_table(case, h, w):
     id must win); ``scrambled`` large overlapping triangles whose depth
     order is a shuffle of their id order; ``overflow`` 700 small
     triangles inside one 16 x 16 tile, more than a round of the kernel
-    holds (256), among 200 scattered ones."""
-    rng = np.random.default_rng(["many", "ties", "scrambled", "overflow"].index(case))
+    holds (256), among 200 scattered ones; ``triples`` 280 triangles and
+    two scrambled duplicates of each, so that the alpha variant's peel
+    planes 3 and 4 (either side of its first chunk) tie."""
+    rng = np.random.default_rng(
+        ["many", "ties", "scrambled", "overflow", "triples"].index(case))
 
     def scatter(n, lo, hi, size):
         centre = rng.uniform(lo, hi, (n, 1, 2))
@@ -604,6 +607,8 @@ def _synthetic_table(case, h, w):
         verts = scatter(900, (-5, -5), (w + 5, h + 5), rng.uniform(0.5, 12, 900))
     elif case == "ties":
         verts = scatter(420, (0, 0), (w, h), rng.uniform(2, 15, 420))
+    elif case == "triples":
+        verts = scatter(280, (0, 0), (w, h), rng.uniform(3, 18, 280))
     elif case == "scrambled":
         verts = scatter(800, (0, 0), (w, h), rng.uniform(10, 40, 800))
     else:
@@ -631,10 +636,12 @@ def _synthetic_table(case, h, w):
                                     t(valid, torch.bool), t(bbox))
     if case == "ties":
         tab = torch.cat([tab, tab[torch.tensor(rng.permutation(n))]])
+    elif case == "triples":
+        tab = torch.cat([tab] + [tab[torch.tensor(rng.permutation(n))] for _ in range(2)])
     return tab
 
 
-@pytest.mark.parametrize("case", ["many", "ties", "scrambled", "overflow"])
+@pytest.mark.parametrize("case", ["many", "ties", "scrambled", "overflow", "triples"])
 def test_zscan_source_binning(host_kernels, case):
     """The per-block binning on synthetic tables at 45 x 83, bit for bit:
     ties to the lowest id, overlaps out of id order, a tile whose list
@@ -645,24 +652,31 @@ def test_zscan_source_binning(host_kernels, case):
     want = raster_kernel.zscan_plain(tab, h, w)
     ids = want[0]
     assert tab.shape[0] > 3 * 256 and bool((ids >= 0).float().mean() > 0.3)
-    if case == "ties":   # winners among the duplicates are the first copies
-        assert bool((ids[ids >= 0] < tab.shape[0] // 2).all())
+    if case in ("ties", "triples"):   # the winners are the first copies
+        first = tab.shape[0] // (2 if case == "ties" else 3)
+        assert bool((ids[ids >= 0] < first).all())
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("case,cnmf,passes", [
     ("flagship", 0.0, 3), ("flagship", 3.0, 3), ("many", 20.0, 2),
-    ("ties", 3.0, 3), ("scrambled", 0.0, 2), ("overflow", 20.0, 3)])
+    ("ties", 3.0, 3), ("scrambled", 0.0, 2), ("overflow", 20.0, 3),
+    ("many", 3.0, 1), ("ties", 0.0, 5), ("scrambled", 20.0, 6),
+    ("flagship", 20.0, 9), ("triples", 3.0, 6)])
 def test_zscan_alpha_source(host_kernels, case, cnmf, passes):
-    """The z-scan's alpha variant against the plain version, bit for bit,
-    over ``passes`` depth-peel passes, each excluding the earlier passes'
-    winners: material alpha drawn from 1, 0.9999, 0.7, 0.5, 0.3 and 0.1
-    (opaque, the opaque cut, both sides of the hard cut), a dither of
-    uniform noise, and cnmf 0 (the hard cut), 3 and 20 (the soft law,
-    ``fmaf`` in the kernel and the float64 fma of ``core.math3d.fma`` in
-    the plain version). On the tie-heavy table the second pass must hand
-    each pixel its excluded winner's duplicate: exclusion is by id."""
+    """The z-scan's alpha variant, every depth-peel pass in one launch,
+    against ``passes`` passes of the plain version, bit for bit, each
+    pass excluding the earlier passes' winners: material alpha drawn
+    from 1, 0.9999, 0.7, 0.5, 0.3 and 0.1 (opaque, the opaque cut, both
+    sides of the hard cut), a dither of uniform noise (a strided view),
+    and cnmf 0 (the hard cut), 3 and 20 (the soft law, ``fmaf`` in the kernel and the
+    float64 fma of ``core.math3d.fma`` in the plain version). One pass;
+    passes above the kernel's four register planes (5, 6, 9) run as
+    chunks, each after the floor of the one before (on the triples, a
+    floor that ties the next chunk's first winners). On the tie-heavy
+    table the second pass must hand each pixel its excluded winner's
+    duplicate: exclusion is by id."""
     h, w = 45, 83
     if case == "flagship":
         tab = _flagship_table(h, w, (3.0, 2.5, 4.0), (0, 0.5, 0))
@@ -673,17 +687,19 @@ def test_zscan_alpha_source(host_kernels, case, cnmf, passes):
     # drawn from the row's bits, so a triangle and its duplicate share it
     pick = tab.contiguous().view(torch.int32)[:, :9].sum(1).remainder(6)
     alpha = torch.tensor([1.0, 0.9999, 0.7, 0.5, 0.3, 0.1])[pick]
-    dither = torch.tensor(rng.random((h, w)), dtype=torch.float32)
+    # a channel of a wider array, as the composer's dither: read through
+    # its strides
+    dither = torch.zeros((h, w + 5, 2))[:, :w, 1]
+    dither.copy_(torch.tensor(rng.random((h, w)), dtype=torch.float32))
+    got_ids, got_z = raster_kernel._launch_peels(tab, h, w, alpha, dither, cnmf, passes)
+    assert got_ids.shape == got_z.shape == (passes, h, w)
     exclude = []
     for p in range(passes):
-        excl = (torch.stack(exclude) if exclude
-                else torch.empty((0, h, w), dtype=torch.int32))
-        got = raster_kernel._launch_alpha(tab, h, w, alpha, dither, cnmf, excl)
         want = raster_kernel.zscan_plain(tab, h, w, alpha, dither, cnmf,
-                                         excl if exclude else None)
-        assert bool((want[0] >= 0).any())
-        assert torch.equal(got[0], want[0])
-        assert torch.equal(got[1], want[1])
+                                         torch.stack(exclude) if exclude else None)
+        assert bool((want[0] >= 0).any()) or p >= 3
+        assert torch.equal(got_ids[p], want[0])
+        assert torch.equal(got_z[p], want[1])
         for prev in exclude:
             assert not bool(((want[0] == prev) & (prev >= 0)).any())
         if case == "ties" and p == 1:
@@ -711,7 +727,8 @@ def test_lookup_source(host_kernels, k, offset):
 
 
 @pytest.mark.parametrize("name,entry", [
-    ("raster", "re_zscan"), ("table", "re_lookup"), ("taps", "re_poisson_taps"),
+    ("raster", "re_zscan"), ("raster", "re_zscan_peels"), ("table", "re_lookup"),
+    ("taps", "re_poisson_taps"),
     ("hbao", "re_hbao_noise"),
     ("stencil", "re_sharpness"), ("warp", "re_warp_multi")])
 def test_raster_sources_are_listed(name, entry):

@@ -75,7 +75,7 @@ def jax_images():
 
 def test_render_msaa_alpha_matches_jax(jax_images):
     images, comp = _run(tre, device="cpu")
-    assert raster_kernel.zscan_alpha.launches == 0    # the CPU runs plain
+    assert raster_kernel.zscan_alpha_peels.launches == 0    # the CPU runs plain
     for i, (got, want) in enumerate(zip(images, jax_images)):
         assert got.shape == (H, W, 3) and np.isfinite(got).all()
         d = np.abs(got - want)
