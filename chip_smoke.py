@@ -87,7 +87,28 @@ Phases (any failure raises and the script exits non-zero):
    of each path at 270x480 must agree with the same composer on the CPU,
    and SMAA and FXAA alone on the card must agree with the CPU over the
    CPU paths' own pre-AA frames (SMAA_ALONE_MAX_TOL, FXAA_ALONE_MAX_TOL).
-4. Print the ``kernels`` JSON line, then the device JSON line last.
+4. ``[mesh]``: the row-sharded route at 1920x1080 on meshes of 4 and 8
+   shards (``make_mesh()`` when the host has that many cards, else
+   ``cuda:0`` repeated). The four mesh-aware wrappers (the catrom5,
+   nearest and bilinear warps, ``warp_multi``, HBAO at spp 8, the 2-slot
+   and the AO Poisson pass) under ``mesh_context`` against their
+   unsharded launches on the same inputs (MESH_TOL, 0 expected) and
+   against their plain versions, timed with the halo exchange; then 3
+   frames of the flagship and 3 of HBAO + TRAA unfused through the
+   composer under the mesh against the same frames without one (and two
+   runs without a mesh against each other), the counters set to 0 just
+   before the sharded run and read just after: each sharded kernel must
+   have launched there. Their entries join the ``kernels`` line as
+   ``<kernel>@mesh<n>``.
+5. ``[demo]``: the port's demo (``tools/demo.py``) on the six scenes it
+   builds in code (DEMO_RUNS: ``lights`` with ``ssgi,hbao`` + TRAA, point
+   lights and the specular sun; ``dynamic`` with ``ssgi,motion_blur`` +
+   TAA; ``showcase`` with SSR, GTAO and the finishing stack + SMAA;
+   ``traa_test`` with HBAO + FXAA; ``gltf`` with SSGI + MSAA; ``ao`` with
+   HBAO + TRAA on the sweep trace), ``main()`` for 12 frames at 1024 x 1024
+   (steady ms/frame), then 3 frames at 64 x 64 card against CPU within
+   the DEMO_SLICE bounds (the FXAA path's; DEMO_SLICE_MAX_TOL says why).
+6. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
 """
@@ -112,6 +133,10 @@ WARMUP = 4            # frames before the timed ones: allocator and clocks
 SWEEP_FRAME = 5       # the frame whose SSGI trace / raster feeds the checks
 MEM_BW = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_RATE = 67e12      # H100 SXM float32 outside the tensor cores, op/s
+MESH_SHARDS = (4, 8)  # 1080 rows divide by both
+MESH_TOL = 1e-6       # sharded against unsharded (0 expected)
+DEMO_FRAMES = 12
+DEMO_SIZE = 1024
 
 # HBAO + TRAA against the CPU composer (tests/test_torch_slice.py): max
 # 1e-3 (a few pixels on a nearest-texel snap or the Poisson weight
@@ -168,6 +193,19 @@ FXAA_ALONE_MAX_TOL = 1e-3
 FXAA_ALONE_FLIPS = 2
 ORTHO_FXAA_MEAN_TOL = 2e-4
 ORTHO_FXAA_PIX_FRAC = 1e-2
+# The demo's scenes at 64 x 64, card against CPU: every stack has an AA
+# pass (the demo's --aa), and at this size one decision flipped by an ulp
+# is most of the mean on its own: the Poisson denoiser's blue-noise angle
+# near a multiple of pi/4 puts its diagonal taps at radius 3 on texel
+# edges on flat ground, where ATen's CPU and the card's sin/cos differ by
+# an ulp, so one tap snaps to the next texel (a pixel moves by up to 0.07,
+# 1-2e-5 of the 64 x 64 mean; 2.5e-5 at most, over the six scenes). The
+# 270 x 480 paths' mean 1e-5 and max 5e-2 therefore do not hold there,
+# nor at 256 x 256 on the glTF scene (max 0.053, mean 1.3e-5); the demo
+# is held to the FXAA path's bounds, whose reason is the same.
+DEMO_SLICE_MAX_TOL = ORTHO_FXAA_MAX_TOL
+DEMO_SLICE_MEAN_TOL = ORTHO_FXAA_MEAN_TOL
+DEMO_SLICE_PIX_FRAC = ORTHO_FXAA_PIX_FRAC
 
 # Operations per pixel of the kernels whose arithmetic rivals their
 # bytes, counted from the kernels' source: every add, multiply, compare,
@@ -526,10 +564,10 @@ def check_ssgi_kernels(torch, analytic, timer, frames, results):
         captured["sweep"].append((args, kw))
         return march(*args, **kw)
 
-    def record_pass(textures, gbuffer, noise_index, cfg_, scalar_slots=None):
+    def record_pass(textures, gbuffer, noise_index, cfg_, **kw):
         if len(textures) == 2:
             captured["poisson"].append((list(textures), noise_index))
-        return ppass(textures, gbuffer, noise_index, cfg_, scalar_slots)
+        return ppass(textures, gbuffer, noise_index, cfg_, **kw)
 
     ssgi_sweep.sweep_march = record_march
     poisson_denoise.poisson_pass_fused = record_pass
@@ -625,10 +663,10 @@ def check_ssr_kernels(torch, analytic, timer, results):
         captured["sweep"].append((args, kw))
         return march(*args, **kw)
 
-    def record_pass(textures, gbuffer, noise_index, cfg_, scalar_slots=None):
-        if scalar_slots is None:   # the SSR texture, not GTAO's AO slot
+    def record_pass(textures, gbuffer, noise_index, cfg_, **kw):
+        if kw.get("scalar_slots") is None:   # the SSR texture, not GTAO's AO slot
             captured["poisson"].append((list(textures), gbuffer, noise_index, cfg_))
-        return ppass(textures, gbuffer, noise_index, cfg_, scalar_slots)
+        return ppass(textures, gbuffer, noise_index, cfg_, **kw)
 
     ssgi_sweep.sweep_march = record_march
     poisson_denoise.poisson_pass_fused = record_pass
@@ -1203,6 +1241,309 @@ def aa_alone(torch, smaa_in, fxaa_in):
                                      f"than {tol} in frame {i}")
 
 
+def _mesh(torch, n):
+    """A row mesh of ``n`` shards: every card when the host has ``n``,
+    else ``cuda:0`` repeated."""
+    from realism_effects_tpu_torch.parallel.sharding import make_mesh
+
+    if torch.cuda.device_count() == n:
+        return make_mesh()
+    return make_mesh(["cuda:0"] * n)
+
+
+def _mesh_routes(torch, analytic):
+    """The four sharded kernel routes at 1920 x 1080 on the inputs of
+    frame 1 of the HBAO + TRAA path: name -> (call, plain call, source,
+    replaced kernel, tolerance against the plain version, bytes,
+    operations, library call or None)."""
+    from realism_effects_tpu_torch.core.camera import PerspectiveCamera
+    from realism_effects_tpu_torch.core.math3d import floor_int32, uv_grid
+    from realism_effects_tpu_torch.ops import hbao_kernel, poisson_kernel, warp
+    from realism_effects_tpu_torch.ops.ao import AOConfig
+    from realism_effects_tpu_torch.ops.poisson_denoise import \
+        PoissonDenoiseConfig
+
+    h, w = HEIGHT, WIDTH
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    (_, last_vel, _), (gb, vel, color) = analytic.frames_at(cam, range(2), h, w, "cuda")
+    analytic.orbit(cam, 1)
+    mats = cam.matrices()
+    reproj = uv_grid(h, w, "cuda") - vel.velocity
+    x = reproj[..., 0] * w - 0.5
+    y = reproj[..., 1] * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    hist = torch.cat([color, torch.full_like(color[..., :1], 5.0)], -1)
+    hist = hist.to(torch.float16).to(torch.float32)
+    c5 = (hist, floor_int32(y0), floor_int32(x0), y - y0, x - x0)
+    bil = (color.contiguous(), floor_int32(y0), floor_int32(x0),
+           torch.where(y0 < 0.0, 0.0, y - y0), torch.where(x0 < 0.0, 0.0, x - x0))
+    nd = torch.cat([last_vel.normal, last_vel.depth[..., None]], -1).contiguous()
+    iy = floor_int32(reproj[..., 1] * h)
+    ix = floor_int32(reproj[..., 0] * w)
+    ys = torch.arange(h, device="cuda", dtype=torch.int32)[:, None]
+    xs = torch.arange(w, device="cuda", dtype=torch.int32)[None, :]
+
+    def window_index(ty, tx, ky, kx):
+        dy = torch.clamp(torch.clamp(ty.clamp(-(1 << 20), 1 << 20) - ys, -ky, ky),
+                         -ys, h - 1 - ys)
+        return ((ys + torch.clamp(dy, -ky, ky)).long(),
+                (xs + torch.clamp(torch.clamp(tx, 0, w - 1) - xs, -kx, kx)).long())
+
+    li, lj = window_index(iy, ix, 8, 30)
+    # 8 nearest depth targets around the reprojection (the unfused HBAO's
+    # kind of fetch), ky 32, kx 30
+    offs = torch.tensor([(-9, 3), (4, -17), (20, 8), (-31, -2), (12, 25),
+                         (-5, -28), (33, 1), (0, 40)], device="cuda", dtype=torch.int32)
+    mty = iy[None] + offs[:, 0, None, None]
+    mtx = ix[None] + offs[:, 1, None, None]
+    mli, mlj = window_index(mty, mtx, 32, 30)
+    depth = gb.depth.contiguous()
+    ao_cfg = AOConfig()
+    ao = hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, ao_cfg)
+    ao_tex = torch.cat([ao[..., None].expand(h, w, 3), torch.zeros_like(ao)[..., None]], -1)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    texs = [torch.cat([torch.rand(h, w, 3, device="cuda", generator=g) * 2.0,
+                       torch.randint(0, 40, (h, w, 1), device="cuda",
+                                     generator=g).float()], -1) for _ in range(2)]
+    pcfg = PoissonDenoiseConfig()
+    pcfg2 = PoissonDenoiseConfig(is_specular=(False, True))
+    fg = int((gb.depth < 1.0).sum())
+    tile = 128 * 128 * 4 * 4
+    wsrc, wrep = "warp.cu", "realism_effects_tpu/ops/pallas/warp.py:91"
+    psrc, prep = "poisson.cu", "realism_effects_tpu/ops/pallas/poisson.py:126"
+    grid = (reproj * 2.0 - 1.0)[None].contiguous()
+    nchw = color.permute(2, 0, 1)[None].contiguous()
+    return {
+        "warp_catrom5": (
+            lambda: warp.window_warp(*c5, ky=8, mode="catrom5", kx=30),
+            lambda: warp.window_warp_plain(*c5, ky=8, mode="catrom5", kx=30),
+            wsrc, wrep, 1e-6, sum(a.nbytes for a in c5) + hist.nbytes + h * w,
+            h * w * (4 * 32 + 30), None),
+        "warp_nearest": (
+            lambda: warp.window_warp(nd, iy, ix, ky=8, mode="nearest", kx=30),
+            lambda: warp.window_warp_plain(nd, iy, ix, ky=8, mode="nearest", kx=30),
+            wsrc, wrep, 1e-6, 2 * nd.nbytes + iy.nbytes + ix.nbytes + h * w,
+            h * w * 4 * 2, lambda: nd[li, lj]),
+        "warp_bilinear": (
+            lambda: warp.window_warp(*bil, ky=8, mode="bilinear", kx=30),
+            lambda: warp.window_warp_plain(*bil, ky=8, mode="bilinear", kx=30),
+            wsrc, wrep, 1e-6, sum(a.nbytes for a in bil) + color.nbytes + h * w,
+            h * w * BILINEAR_OPS, lambda: torch.nn.functional.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="border",
+                align_corners=False)),
+        "warp_multi": (
+            lambda: warp.window_warp_multi(depth, mty, mtx, 32, 30),
+            lambda: warp.window_warp_multi_plain(depth, mty, mtx, 32, 30),
+            wsrc, "realism_effects_tpu/ops/pallas/warp.py:365", 0.0,
+            depth.nbytes + mty.nbytes + mtx.nbytes + 8 * (depth.nbytes + h * w),
+            8 * h * w * WARP_MULTI_OPS, lambda: depth[mli, mlj]),
+        "hbao": (
+            lambda: hbao_kernel.hbao_fused(gb.depth, gb.normal, mats, 1, ao_cfg),
+            lambda: hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, ao_cfg),
+            "hbao.cu", "realism_effects_tpu/ops/pallas/hbao.py:58", 2e-4,
+            gb.depth.nbytes * 2 + gb.normal.nbytes + tile,
+            fg * (HBAO_OPS_SETUP + ao_cfg.spp * HBAO_OPS_SAMPLE)
+            + 128 * 128 * HBAO_OPS_NOISE, None),
+        "poisson_2tex": (
+            lambda: poisson_kernel.poisson_pass_fused(texs, gb, 3, pcfg2),
+            lambda: poisson_kernel.poisson_pass_plain(
+                *poisson_kernel.pack_bundle(texs, gb, (False, False)), (False, False),
+                3, pcfg2),
+            # 1e-5 x the largest value (the alpha, 39), as poisson_2tex's entry
+            psrc, prep, 4e-4, h * w * 4 * (3 + 4) + tile + h * w * 4 * 8,
+            h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + 2 * POISSON_OPS_TAP_SLOT)),
+            None),
+        "poisson": (
+            lambda: poisson_kernel.poisson_pass_fused([ao_tex], gb, 2, pcfg,
+                                                      scalar_slots=(True,)),
+            lambda: poisson_kernel.poisson_pass_plain(
+                *poisson_kernel.pack_bundle([ao_tex], gb, (True,)), (True,), 2, pcfg),
+            psrc, prep, 5e-4, h * w * 4 * (3 + 1) + tile + h * w * 4 * 4,
+            h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + POISSON_OPS_TAP_SLOT)),
+            None),
+    }
+
+
+def _outputs(out):
+    """The tensors of a route's result, flattened (the Poisson pass
+    returns per-slot views of one (H, W, 4 n) plane)."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _outputs(o)]
+    return [out]
+
+
+def _diff(torch, a, b):
+    torch.cuda.synchronize()
+    a, b = _outputs(a), _outputs(b)
+    if len(a) == 1 and len(b) > 1:   # the plain Poisson pass: one plane
+        b = [torch.cat(b, -1)]
+    if len(b) == 1 and len(a) > 1:
+        a = [torch.cat(a, -1)]
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def check_mesh(torch, analytic, timer, smi, results):
+    """The row-sharded route at 1920 x 1080 on meshes of 4 and 8 shards
+    (every card when the host has that many, else ``cuda:0`` repeated):
+    each of the four mesh-aware wrappers under ``mesh_context`` against
+    its unsharded launch on the same inputs (max abs difference, tol
+    MESH_TOL) and against its plain version (the entry's tolerance), timed
+    with the halo exchange; then 3 frames of the flagship, and 3 of HBAO +
+    TRAA on the unfused route (the path of ``warp_multi``), through the
+    composer under the mesh against the same frames without one, the
+    counters set to 0 just before the sharded run and read just after.
+    The entries join the ``kernels`` line as ``<kernel>@mesh<n>``."""
+    from realism_effects_tpu_torch.core.camera import PerspectiveCamera
+    from realism_effects_tpu_torch.parallel.context import mesh_context
+
+    routes = _mesh_routes(torch, analytic)
+    plain_ms = {}
+    for n in MESH_SHARDS:
+        mesh = _mesh(torch, n)
+        print(f"[mesh] {n} shards on {[str(d) for d in mesh]}", flush=True)
+        entries = {}
+        for name, (call, plain, src, rep, tol, nbytes, ops, lib) in routes.items():
+            ref = call()
+            with mesh_context(mesh):
+                got = call()
+            d = _diff(torch, got, ref)
+            want = plain()
+            err = _diff(torch, got, want)
+            del want
+            if name not in plain_ms:
+                plain_ms[name] = timer(plain, iters=5, warmup=1)
+
+            def sharded():
+                with mesh_context(mesh):
+                    return call()
+
+            ms = timer(sharded)
+            ms_1 = timer(call)
+            print(f"[mesh] {name} at {n} shards: max abs difference from the "
+                  f"unsharded launch {d} (tol {MESH_TOL}); ms {ms} (unsharded "
+                  f"{ms_1}, same call); card: {smi}", flush=True)
+            if not d <= MESH_TOL:
+                raise AssertionError(f"{name} at {n} shards differs from "
+                                     f"unsharded by {d}")
+            results.add(f"{name}@mesh{n}", src, rep, err, tol, ms, plain_ms[name],
+                        nbytes, ops, library_ms=None if lib is None else timer(lib))
+            results[-1]["shards"] = n
+            results[-1]["max_abs_diff_unsharded"] = d
+            results[-1]["unsharded_ms"] = ms_1
+            entries[name] = results[-1]
+
+        # the main paths under the mesh: the flagship (every route but
+        # warp_multi) and HBAO + TRAA unfused (warp_multi)
+        def timed(fn):
+            """(fn(), host ms of it ending in a synchronise)."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def flagship(mesh_, steps):
+            comp, cam = analytic.flagship_composer(HEIGHT, WIDTH, "cuda")
+            with mesh_context(mesh_):
+                return timed(lambda: analytic.render_frames(comp, cam, steps))
+
+        def unfused_path(mesh_, steps):
+            cam = PerspectiveCamera(50, WIDTH / HEIGHT, 0.1, 100)
+            frames = analytic.frames_at(cam, steps, HEIGHT, WIDTH, "cuda")
+            comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
+            with analytic.unfused(), mesh_context(mesh_):
+                return timed(lambda: analytic.run_frames(comp, cam, frames, steps))
+
+        for label, path, kernels_ in (
+                ("flagship", flagship, ("warp_catrom5", "warp_nearest",
+                                         "warp_bilinear", "hbao", "poisson",
+                                         "poisson_2tex")),
+                ("HBAO+TRAA unfused", unfused_path, ("warp_multi",))):
+            steps = range(3)
+            ref, ref_ms = path(None, steps)
+            again, again_ms = path(None, steps)
+            reset_counters()
+            got, ms = path(mesh, steps)
+            launches = counters()
+            d = max(_diff(torch, a, b) for a, b in zip(got, ref))
+            d0 = max(_diff(torch, a, b) for a, b in zip(again, ref))
+            print(f"[mesh] {label} through the composer, 3 frames at {WIDTH}x"
+                  f"{HEIGHT} under {n} shards: max abs difference from no mesh "
+                  f"{d} (tol {MESH_TOL}; two runs without a mesh differ by {d0}); "
+                  f"{ms / len(steps):.3f} ms/frame (without a mesh "
+                  f"{ref_ms / len(steps):.3f} and {again_ms / len(steps):.3f}; "
+                  f"host clock, first frames); launches "
+                  f"{json.dumps({k: launches[k] for k in kernels_})}; card: {smi}",
+                  flush=True)
+            if not d <= MESH_TOL:
+                raise AssertionError(f"{label} under {n} shards differs by {d}")
+            for k in kernels_:
+                if launches[k] < n:
+                    raise AssertionError(f"{k} launched {launches[k]} times under "
+                                         f"{n} shards on the {label} path")
+                entries[k]["launches"] = launches[k]
+                entries[k]["launches_path"] = f"{label} under {n} shards"
+
+
+#: the scenes of the demo the [demo] phase drives: (scene, effects, aa,
+#: trace)
+DEMO_RUNS = (
+    ("lights", "ssgi,hbao", "traa", "march"),
+    ("dynamic", "ssgi,motion_blur", "taa", "march"),
+    ("showcase", "ssr,gtao,sparkle,lens_distortion,gradual_background,tonemap,"
+                 "vignette,bloom,sharpness", "smaa", "march"),
+    ("traa_test", "hbao", "fxaa", "march"),
+    ("gltf", "ssgi", "msaa", "march"),
+    ("ao", "hbao", "traa", "sweep"),
+)
+
+
+def check_demo(torch, smi):
+    """The port's demo (``tools/demo.py``) on the six scenes it builds in
+    code: ``main()`` with each stack for DEMO_FRAMES frames at
+    ``--size DEMO_SIZE`` on the card (its steady ms/frame and the kernels
+    it launched), then 3 frames at 64 x 64 through ``run`` with a fixed
+    frame time, card against CPU, within the DEMO_SLICE bounds."""
+    import argparse
+
+    from realism_effects_tpu_torch.tools import demo
+
+    out_dir = os.path.join(ROOT, "build", "demo_smoke")
+    bad = []
+    for scene, effects, aa, trace in DEMO_RUNS:
+        argv = ["--scene", scene, "--effects", effects, "--aa", aa, "--trace", trace,
+                "--frames", str(DEMO_FRAMES), "--size", str(DEMO_SIZE),
+                "--out", os.path.join(out_dir, scene)]
+        reset_counters()
+        res = demo.main(argv)
+        launches = {k: v for k, v in counters().items() if v}
+        if not np.isfinite(res["image"].cpu().numpy()).all():
+            raise AssertionError(f"demo {scene}: non-finite frame")
+        print(f"[demo] {scene} {effects}+{aa} (trace {trace}) at {DEMO_SIZE}x"
+              f"{DEMO_SIZE}: steady {res['steady_ms']:.3f} ms/frame over "
+              f"{DEMO_FRAMES} frames (host clock, median of frames 3-"
+              f"{DEMO_FRAMES}); launches {json.dumps(launches)}; card: {smi}",
+              flush=True)
+        tols = (DEMO_SLICE_MAX_TOL, DEMO_SLICE_MEAN_TOL, DEMO_SLICE_PIX_FRAC)
+        imgs = {}
+        for dev in ("cuda", "cpu"):
+            ns = argparse.Namespace(scene=scene, effects=effects, aa=aa, trace=trace,
+                                    frames=3, size=64, save_every=0, device=dev,
+                                    env=None, out=os.path.join(out_dir, f"{scene}_{dev}"))
+            imgs[dev] = demo.run(ns, dt=1 / 60)["images"]
+        for i, (a, b) in enumerate(zip(imgs["cuda"], imgs["cpu"])):
+            d = (a.cpu() - b).abs()
+            mx, mean = float(d.max()), float(d.mean())
+            frac = float((d.amax(-1) > SSGI_SLICE_PIX_TOL).float().mean())
+            print(f"[demo] {scene} 64x64 frame {i}: card vs CPU max {mx} mean {mean} "
+                  f"share of pixels > {SSGI_SLICE_PIX_TOL}: {frac}; pixels > 1e-3: "
+                  f"{int((d.amax(-1) > 1e-3).sum())} (tol {tols})", flush=True)
+            if not (mx <= tols[0] and mean <= tols[1] and frac <= tols[2]):
+                bad.append(f"{scene} frame {i}")
+    if bad:
+        raise AssertionError(f"demo: card and CPU disagree at {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -1398,6 +1739,10 @@ def main() -> int:
           card_vs_cpu(torch, analytic, analytic.gltf_alpha_msaa_composer, None,
                       steps=analytic.still_then_step(0, 3, 2)),
           SSGI_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
+
+    # phase 4: the row-sharded route, then the demo's scenes
+    check_mesh(torch, analytic, timer, smi, kernels)
+    check_demo(torch, smi)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,13 @@
 // target clamped to +-ky rows / +-kx columns around the pixel (this
 // bounds the sampling radius in screen space) after the frame clamp.
 // Noise of sample s is tile[(y + sy_s) % 128, (x + sx_s) % 128],
-// channels 0..2, with the shifts computed on the host.
+// channels 0..2, with the shifts computed on the host. A row block of a
+// larger frame (the row-sharded route: a shard extended by halo rows)
+// passes the global row of its first row, row0, and the global rows hg:
+// the uv, the sample row and its frame clamp are the global frame's, the
+// target is re-based by -row0 and held to the block, and the host rolls
+// the noise shifts by row0. With row0 = 0 and hg = h this is the
+// unsharded kernel.
 //
 // On the H100 this kernel is bound by instruction issue, not bytes (20
 // bytes a pixel). A sample's cosine draw (sqrt, sin, cos, sqrt and
@@ -29,7 +35,9 @@
 // is 1 whatever its samples, stops after its depth load (a fifth of the
 // flagship frame; its carry is never read). One thread per pixel,
 // everything in registers, 128 x 1 blocks (2D blocks, whose rows share
-// the sample-depth gathers' L1 lines, measured no faster).
+// the sample-depth gathers' L1 lines, measured no faster), held to 10
+// blocks an SM: the row offset's bounds took 50 registers, which the
+// allocation step of 8 makes 56 and 9 blocks, 3% slower.
 // No window limit: the TPU's ky <= 64, kx <= 32 came from VMEM blocks
 // and lane groups. Any spp: the noise shifts travel in the launch's
 // parameters, kChunk samples a launch; above kChunk the entry point
@@ -53,7 +61,10 @@ struct HbaoParams {
   float bias;      // bias (scaled by 1000 in the kernel)
   float th;        // thickness * 0.01
   float inv_w;     // float32(1 / W)
-  float inv_h;     // float32(1 / H)
+  float inv_h;     // float32(1 / H), H the global rows
+  int row0;       // global row of the block's row 0
+  int hg;         // global rows
+  int t_lo, t_hi;  // a sample's block row: in the frame and in the block
   int n;          // samples of this launch, at most kChunk
   int first;      // 1: the sums start at 0, else from the carry
   int last;       // 1: write the AO, else the sums to the carry
@@ -94,7 +105,7 @@ __global__ void hbao_noise_kernel(const float* __restrict__ tile,
   table[i] = v;
 }
 
-__global__ void hbao_kernel(const float* __restrict__ depth,
+__global__ void __launch_bounds__(128, 10) hbao_kernel(const float* __restrict__ depth,
                             const float* __restrict__ normal,
                             const re::F4* __restrict__ noise,
                             float* __restrict__ ao_out,
@@ -110,7 +121,8 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
     return;
   }
   const float uvx = (static_cast<float>(x) + 0.5f) * p.inv_w;
-  const float uvy = (static_cast<float>(y) + 0.5f) * p.inv_h;
+  const int yg = y + p.row0;
+  const float uvy = (static_cast<float>(yg) + 0.5f) * p.inv_h;
   float cx, cy, cz, wpx, wpy, wpz;
   tpoint(p.pmi, (uvx - 0.5f) * 2.0f, (uvy - 0.5f) * 2.0f, (d - 0.5f) * 2.0f,
          cx, cy, cz);
@@ -132,6 +144,10 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
   const float ty_ = bz * nx - bx * nz;
   const float tz_ = bx * ny - by * nx;
 
+  // a sample row's offset bounds: its block row within the frame and
+  // within the block (the block's bind only on a block's halo rows)
+  const int dy_lo = p.t_lo - y;
+  const int dy_hi = p.t_hi - y;
   const size_t hw = static_cast<size_t>(h) * w;
   float ao = p.first ? 0.0f : carry[pix];
   float tw = p.first ? 0.0f : carry[hw + pix];
@@ -162,8 +178,8 @@ __global__ void hbao_kernel(const float* __restrict__ depth,
     sux = (sux == sux) ? fminf(fmaxf(sux, -2.0f), 3.0f) : 0.0f;
     suy = (suy == suy) ? fminf(fmaxf(suy, -2.0f), 3.0f) : 0.0f;
     const int ixt = static_cast<int>(floorf(sux * static_cast<float>(w)));
-    const int iyt = static_cast<int>(floorf(suy * static_cast<float>(h)));
-    const int dyv = clampi(clampi(clampi(iyt - y, -ky, ky), -y, h - 1 - y), -ky, ky);
+    const int iyt = static_cast<int>(floorf(suy * static_cast<float>(p.hg))) - p.row0;
+    const int dyv = clampi(clampi(clampi(iyt - y, -ky, ky), dy_lo, dy_hi), -ky, ky);
     const int dxk = clampi(clampi(ixt, 0, w - 1) - x, -kx, kx);
     const float sd = depth[(y + dyv) * w + x + dxk];
 
@@ -205,14 +221,15 @@ extern "C" int re_hbao_noise(const float* tile, float* table,
 
 // noise: the table of re_hbao_noise (16-byte aligned); fparams (host):
 // pmi[16] cmw[16] pv[16] cpos[3] dist pow1 bias th inv_w inv_h (dist and
-// pow1 are in the table); shifts (host): sy[spp] then sx[spp]; carry:
-// (2, h, w) float32 scratch, needed (and only read or written) when
-// spp > 32.
+// pow1 are in the table; inv_h of the global rows hg); shifts (host):
+// sy[spp] then sx[spp], rolled by row0; carry: (2, h, w) float32
+// scratch, needed (and only read or written) when spp > 32; row0: the
+// global row of the block's row 0.
 extern "C" int re_hbao(const float* depth, const float* normal,
                        const float* noise, float* ao, float* carry, int h,
-                       int w, int ky, int kx, int spp, const float* fparams,
-                       const int* shifts, void* stream) {
-  if (spp < 1 || (spp > kChunk && carry == nullptr) ||
+                       int w, int ky, int kx, int spp, int row0, int hg,
+                       const float* fparams, const int* shifts, void* stream) {
+  if (spp < 1 || (spp > kChunk && carry == nullptr) || hg < 1 ||
       reinterpret_cast<uintptr_t>(noise) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
@@ -227,6 +244,10 @@ extern "C" int re_hbao(const float* depth, const float* normal,
   p.th = *f++;
   p.inv_w = *f++;
   p.inv_h = *f++;
+  p.row0 = row0;
+  p.hg = hg;
+  p.t_lo = max(0, -row0);
+  p.t_hi = min(h - 1, hg - 1 - row0);
   const dim3 block(128);
   const dim3 grid((w + 127) / 128, h);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -11,6 +11,12 @@
 // x^e as exp(log(x) * e); background pixels pass the raw input through.
 // The TPU kernel's tap-window clamp is dropped: its windows are the
 // bound of the tap reach, so it never binds (the tests check this).
+// A row block of a larger frame (the row-sharded route: a shard extended
+// by halo rows) passes the global row of its first row, row0, and the
+// global resolution (wg, hg): the uv, the flatness's bottom edge and the
+// taps' frame clamp are the global frame's, a tap row is then re-based
+// by -row0 and held to the block, and the host rolls the noise by row0.
+// With row0 = 0 and (wg, hg) = (w, h) this is the unsharded pass.
 //
 // On the H100 the pass is bound by instruction issue, not bytes: the
 // first kernel (a thread a pixel, direct loads) recomputed each tap's
@@ -44,10 +50,12 @@ constexpr int kMaxHalo = 8;         // staged texels beyond the tile, a side
 struct PoissonParams {
   float radius, age_e, luma_phi, depth_phi, normal_phi, roughness_phi,
       specular_phi;
-  float inv_w, inv_h, wg, hg;
+  float inv_w, inv_h, wg, hg;  // of the global frame
   float offx[8];  // POISSON8[k][0] / W
   float offy[8];  // POISSON8[k][1] / H
-  int sy, sx;     // blue-noise shift of this pass
+  int sy, sx;     // blue-noise shift of this pass (rolled by row0)
+  int row0;       // global row of the block's row 0
+  int hgi;        // global rows
   int cb;         // bundle channels
   int hx, hy;     // staged halo: columns, rows
   int slot_ch[kMaxTex];
@@ -140,7 +148,8 @@ poisson_kernel(const float* __restrict__ bundle, const float* __restrict__ tile,
   const int ir = staged(y, min(x + 1, w - 1));
   const int id = staged(min(y + 1, h - 1), x);
   const float right_ok = x < w - 1 ? 1.0f : 0.0f;
-  const float down_ok = y < h - 1 ? 1.0f : 0.0f;
+  const int yg = y + p.row0;
+  const float down_ok = yg < p.hgi - 1 ? 1.0f : 0.0f;
   float fw2 = 0.0f;
   {
     const float c0[3] = {ncx, ncy, ncz};
@@ -160,7 +169,12 @@ poisson_kernel(const float* __restrict__ bundle, const float* __restrict__ tile,
   const float c_ = cosf(angle);
   const float rscale = p.radius * flatness;
   const float uvx = (static_cast<float>(x) + 0.5f) * p.inv_w;
-  const float uvy = (static_cast<float>(y) + 0.5f) * p.inv_h;
+  const float uvy = (static_cast<float>(yg) + 0.5f) * p.inv_h;
+  // a tap row clamped to the frame, then re-based onto the block and held
+  // to it: clamp(clamp(v, 0, hg - 1) - row0, 0, h - 1) as one clamp of
+  // v - row0 (the two ranges overlap: the block holds its halo's rows)
+  const int iy_lo = max(-p.row0, 0);
+  const int iy_hi = min(p.hgi - 1 - p.row0, h - 1);
 
   // center state per slot
   const float* center = bundle + (static_cast<size_t>(y) * w + x) * cb;
@@ -181,7 +195,8 @@ poisson_kernel(const float* __restrict__ bundle, const float* __restrict__ tile,
     const float ox = (c_ * p.offx[k] + s_ * p.offy[k]) * rscale;
     const float oy = (-s_ * p.offx[k] + c_ * p.offy[k]) * rscale;
     const int ixt = clampi(static_cast<int>(floorf((uvx + ox) * p.wg)), 0, w - 1);
-    const int iyt = clampi(static_cast<int>(floorf((uvy + oy) * p.hg)), 0, h - 1);
+    const int iyt =
+        clampi(static_cast<int>(floorf((uvy + oy) * p.hg)) - p.row0, iy_lo, iy_hi);
     float v[kV];
     const int sx = ixt - gx0;
     const int sy = iyt - gy0;
@@ -262,10 +277,11 @@ int launch(const float* bundle, const float* tile, float* out, int h, int w,
 
 // ---- host entry points ----
 // fparams (host): radius age_e luma_phi depth_phi normal_phi
-// roughness_phi specular_phi inv_w inv_h wg hg offx[8] offy[8];
-// iparams (host): sy sx then per slot (slot_ch, scalar, spec).
+// roughness_phi specular_phi inv_w inv_h wg hg offx[8] offy[8], of the
+// global frame; iparams (host): sy sx then per slot (slot_ch, scalar,
+// spec); row0: the global row of the bundle's row 0.
 extern "C" int re_poisson(const float* bundle, const float* tile, float* out,
-                          int h, int w, int cb, int n_tex,
+                          int h, int w, int cb, int n_tex, int row0,
                           const float* fparams, const int* iparams,
                           void* stream) {
   if (n_tex < 1 || n_tex > kMaxTex) return cudaErrorInvalidValue;
@@ -286,6 +302,8 @@ extern "C" int re_poisson(const float* bundle, const float* tile, float* out,
   for (int k = 0; k < 8; ++k) p.offy[k] = *f++;
   p.sy = iparams[0];
   p.sx = iparams[1];
+  p.row0 = row0;
+  p.hgi = static_cast<int>(p.hg);
   p.cb = cb;
   p.hx = halo(p.offx, p.offy, p.radius, p.wg);
   p.hy = halo(p.offx, p.offy, p.radius, p.hg);

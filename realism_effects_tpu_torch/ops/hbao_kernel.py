@@ -13,6 +13,16 @@ shifts ride in the launch's parameters 32 samples at a time, and above
 sums carried between launches in a (2, H, W) scratch, in the same
 summation order as one launch.
 
+A row block of a larger frame takes ``row_offset`` (the global row of
+its first row) and ``height`` (the global rows), as the JAX kernel's
+``_ROW0`` and global ``h`` do: the uv, the sample row and its frame
+clamp are the global frame's, the target is re-based onto the block,
+and the noise shifts are rolled by the offset. Under a row mesh
+(``parallel.context``), :func:`hbao_fused` runs that way on each shard
+extended by ``window_ky`` rows of depth (exchanged) and of normals
+(edge-padded: only the centre pixel's normal is read), the JAX
+``_hbao_fused_sharded``.
+
 On the H100 the kernel is bound by instruction issue against 20 bytes
 a pixel. The cosine draw of a sample (sqrt, sin, cos, sqrt, exp(log))
 depends on the blue-noise texel and two launch constants only, so a
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core.rng import blue_noise_tile_tensor, noise_shift
+from ..parallel.context import row_mesh_for
 from . import cuda_build
 
 _PI2 = float(np.float32(2.0 * math.pi))
@@ -84,19 +95,24 @@ def _tpoint(m, x, y, z):
     return r[0] / r[3], r[1] / r[3], r[2] / r[3]
 
 
-def hbao_fused_plain(depth, normal, cam, frame: int, cfg) -> torch.Tensor:
-    """The kernel's function in PyTorch, op for op."""
+def hbao_fused_plain(depth, normal, cam, frame: int, cfg, row_offset: int = 0,
+                     height: int | None = None) -> torch.Tensor:
+    """The kernel's function in PyTorch, op for op, on a row block of a
+    frame of ``height`` rows (default: the block's) starting at global
+    row ``row_offset``."""
     h, w = depth.shape
+    hg = h if height is None else int(height)
     dev = depth.device
     ky, kx = int(cfg.window_ky), int(cfg.window_kx)
-    prm = _host_params(cam, cfg, h, w)
+    prm = _host_params(cam, cfg, hg, w)
     dist_k, pow1, bias, th, inv_w, inv_h = (float(v) for v in prm[51:57])
     pv = np.asarray(cam.projection_view_matrix, np.float32)
     cpos = [float(v) for v in prm[48:51]]
     rr = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
     cc = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    rg = rr + row_offset
     uvx = (cc.to(torch.float32) + 0.5) * inv_w
-    uvy = (rr.to(torch.float32) + 0.5) * inv_h
+    uvy = (rg.to(torch.float32) + 0.5) * inv_h
     wpx, wpy, wpz = _tpoint(
         cam.camera_matrix_world,
         *_tpoint(cam.projection_matrix_inverse, (uvx - 0.5) * 2.0,
@@ -109,12 +125,15 @@ def hbao_fused_plain(depth, normal, cam, frame: int, cfg) -> torch.Tensor:
     tx_ = by * nz - bz * ny
     ty_ = bz * nx - bx * nz
     tz_ = bx * ny - by * nx
+    # the frame's row bounds and, for a block's halo rows, the block's
+    dy_lo = torch.maximum(-rg, -rr)
+    dy_hi = torch.minimum((hg - 1) - rg, (h - 1) - rr)
     tile = blue_noise_tile_tensor(dev)
     flat = depth.reshape(-1)
     ao = torch.zeros_like(depth)
     tw = torch.zeros_like(depth)
     for index in sample_indices(cfg.spp, frame, cfg.animated_noise):
-        sy, sx = noise_shift(index)
+        sy, sx = noise_shift(index, row_offset=row_offset)
         u = tile[((rr + sy) % 128).long(), ((cc + sx) % 128).long()]
         u0, u1, u2 = u[..., 0], u[..., 1], u[..., 2]
         r_ = torch.sqrt(u0)
@@ -138,9 +157,9 @@ def hbao_fused_plain(depth, normal, cam, frame: int, cfg) -> torch.Tensor:
         sux = torch.where(sux == sux, torch.clamp(sux, -2.0, 3.0), 0.0)
         suy = torch.where(suy == suy, torch.clamp(suy, -2.0, 3.0), 0.0)
         ixt = torch.floor(sux * float(w)).to(torch.int32)
-        iyt = torch.floor(suy * float(h)).to(torch.int32)
-        dyv = torch.clamp(iyt - rr, -ky, ky)
-        dyv = torch.minimum(torch.maximum(dyv, -rr), (h - 1) - rr)
+        iyt = torch.floor(suy * float(hg)).to(torch.int32)
+        dyv = torch.clamp(iyt - rg, -ky, ky)
+        dyv = torch.minimum(torch.maximum(dyv, dy_lo), dy_hi)
         dyv = torch.clamp(dyv, -ky, ky)
         dxk = torch.clamp(torch.clamp(ixt, 0, w - 1) - cc, -kx, kx)
         sd = flat[((rr + dyv) * w + cc + dxk).long()]
@@ -208,11 +227,26 @@ noise_table.launches = 0
 def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
                cfg) -> torch.Tensor:
     """Fused HBAO: the AO plane (H, W) of ``depth`` (H, W) and world
-    normals ``normal`` (H, W, 3). CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    normals ``normal`` (H, W, 3). Under a row mesh each shard runs on its
+    halo-extended rows. CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    h = int(depth.shape[0])
+    mesh = row_mesh_for(h)
+    if mesh is None:
+        return _hbao(depth, normal, cam, frame, cfg, 0, h)
+    from ..parallel.halo import map_row_blocks
+
+    ky = int(cfg.window_ky)
+    return map_row_blocks(
+        lambda row0, d, n: _hbao(d, n, cam, frame, cfg, row0, h),
+        mesh, ky, [depth], [normal])
+
+
+def _hbao(depth, normal, cam, frame, cfg, row_offset, height):
     if depth.device.type == "cpu":
-        return hbao_fused_plain(depth, normal, cam, frame, cfg)
-    ao = _launch(depth, normal, cam, frame, cfg)
+        return hbao_fused_plain(depth, normal, cam, frame, cfg, row_offset,
+                                height)
+    ao = _launch(depth, normal, cam, frame, cfg, row_offset, height)
     hbao_fused.launches += 1
     return ao
 
@@ -220,13 +254,14 @@ def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
 hbao_fused.launches = 0
 
 
-def _launch(depth, normal, cam, frame, cfg):
+def _launch(depth, normal, cam, frame, cfg, row_offset=0, height=None):
     h, w = depth.shape
+    hg = h if height is None else int(height)
     if cfg.spp < 1:
         raise ValueError(f"spp must be at least 1, not {cfg.spp}")
     depth = depth.contiguous()
     normal = normal.contiguous()
-    fparams = _host_params(cam, cfg, h, w)
+    fparams = _host_params(cam, cfg, hg, w)
     noise = noise_table(depth.device, fparams[51], fparams[52])
     cuda_build.require_cuda(depth, normal, noise)
     if noise.is_cuda:
@@ -235,14 +270,15 @@ def _launch(depth, normal, cam, frame, cfg):
     ao = torch.empty_like(depth)
     carry = (torch.empty((2, h, w), dtype=torch.float32, device=depth.device)
              if cfg.spp > _CHUNK else None)
-    shifts = [noise_shift(i) for i in
+    shifts = [noise_shift(i, row_offset=row_offset) for i in
               sample_indices(cfg.spp, frame, cfg.animated_noise)]
     ishifts = np.array([s[0] for s in shifts] + [s[1] for s in shifts],
                        np.int32)
-    fn = cuda_build.bind("hbao", "re_hbao", 5, 5, 2)
+    fn = cuda_build.bind("hbao", "re_hbao", 5, 7, 2)
     err = fn(depth.data_ptr(), normal.data_ptr(), noise.data_ptr(),
              ao.data_ptr(), None if carry is None else carry.data_ptr(), h, w,
              int(cfg.window_ky), int(cfg.window_kx), int(cfg.spp),
+             int(row_offset), hg,
              fparams.ctypes.data, ishifts.ctypes.data,
              cuda_build.stream_ptr(depth))
     cuda_build.check(err, "hbao kernel")

@@ -55,12 +55,22 @@ class PoissonDenoiseConfig:
 
 def poisson_denoise_pass(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
                          noise_index: int, cfg: PoissonDenoiseConfig,
+                         row_offset: int = 0, resolution: tuple | None = None,
                          scalar_slots: tuple | None = None):
-    """One 8-tap pass over all texture slots, (H, W, 4) in and out."""
+    """One 8-tap pass over all texture slots, (H, W, 4) in and out.
+
+    ``row_offset``: the global row of this block's first row; a row block
+    of a larger frame (a shard extended by halo rows) passes it so that
+    the blue-noise phase is the whole frame's. ``resolution``: the global
+    (H, W) the tap pattern is defined against (the offsets rotate in uv,
+    so the pixel pattern depends on the whole frame's aspect); by default
+    the block's own shape."""
     if poisson_kernel.USE_FUSED_PASS and len(textures) <= poisson_kernel.MAX_TEX:
         return poisson_pass_fused(textures, gbuffer, noise_index, cfg,
+                                  row_offset=row_offset, resolution=resolution,
                                   scalar_slots=scalar_slots)
-    return poisson_pass_unfused(textures, gbuffer, noise_index, cfg)
+    return poisson_pass_unfused(textures, gbuffer, noise_index, cfg,
+                                row_offset, resolution)
 
 
 def _to_denoise_space(c):
@@ -74,7 +84,8 @@ def _luminance8(rgb):
 
 
 def poisson_pass_unfused(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
-                         noise_index: int, cfg: PoissonDenoiseConfig):
+                         noise_index: int, cfg: PoissonDenoiseConfig,
+                         row_offset: int = 0, resolution: tuple | None = None):
     """One pass in the JAX package's unfused formulation and operation
     order (``ops/poisson_denoise.py:111-291``, one device): the packed
     normal (zero normals stay zero), textures read through float16,
@@ -84,8 +95,13 @@ def poisson_pass_unfused(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
     fetched at them by :func:`poisson_taps` (more than 2 textures: the
     decoded normal, depth and roughness, and each texture, fetched
     apiece); then the edge-stopping weights, the log-space accumulation
-    and the background kept. Scalar slots are not packed here."""
+    and the background kept. Scalar slots are not packed here. A row
+    block takes ``row_offset`` and ``resolution`` as
+    :func:`poisson_denoise_pass` does: the tap uvs, the snap and the frame
+    clamp are the global frame's, and a tap row is re-based onto the
+    block."""
     h, w = gbuffer.depth.shape
+    hg, wg = resolution if resolution is not None else (h, w)
     dev = gbuffer.depth.device
     depth = gbuffer.depth
     n_valid = gbuffer.normal.abs().sum(-1, keepdim=True) > 1e-8
@@ -100,7 +116,8 @@ def poisson_pass_unfused(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
     flatness = 1.0 - torch.clamp(length(fwidth(normal)), max=1.0)
     flatness = flatness ** 2.0 * 0.75 + 0.25
 
-    noise = blue_noise_image(h, w, noise_index, device=dev)
+    noise = blue_noise_image(h, w, noise_index, row_offset=row_offset,
+                             device=dev)
     angle = noise[..., 0] * 2.0 * math.pi
     s, c = torch.sin(angle), torch.cos(angle)
     rscale = cfg.radius * flatness
@@ -125,14 +142,15 @@ def poisson_pass_unfused(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
 
     # tap texels: neighbourUv = vUv + rm * (offset / resolution), with
     # rm = r * flatness * mat2(c, -s, s, c) (`poisson_denoise.frag:185-190`)
-    u = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
-    v = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    u = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / wg
+    v = (torch.arange(h, dtype=torch.float32, device=dev) + row_offset + 0.5) / hg
     iys, ixs = [], []
     for off in POISSON8:
-        ox = (c * (off[0] / np.float32(w)) + s * (off[1] / np.float32(h))) * rscale
-        oy = (-s * (off[0] / np.float32(w)) + c * (off[1] / np.float32(h))) * rscale
-        ixs.append(torch.clamp(floor_int32((u[None, :] + ox) * w), 0, w - 1))
-        iys.append(torch.clamp(floor_int32((v[:, None] + oy) * h), 0, h - 1))
+        ox = (c * (off[0] / np.float32(wg)) + s * (off[1] / np.float32(hg))) * rscale
+        oy = (-s * (off[0] / np.float32(wg)) + c * (off[1] / np.float32(hg))) * rscale
+        ixs.append(torch.clamp(floor_int32((u[None, :] + ox) * wg), 0, wg - 1))
+        iy = torch.clamp(floor_int32((v[:, None] + oy) * hg), 0, hg - 1)
+        iys.append(torch.clamp(iy - row_offset, 0, h - 1))
     iy, ix = torch.stack(iys), torch.stack(ixs)
     taps = poisson_taps(bundle, iy, ix)
     tex_taps = (None if 3 + 2 * n_tex <= 8
@@ -177,14 +195,17 @@ def poisson_pass_unfused(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
 
 def poisson_denoise(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
                     frame: int, cfg: PoissonDenoiseConfig,
+                    row_offset: int = 0, resolution: tuple | None = None,
                     scalar_slots: tuple | None = None):
     """Full denoise: ``2 * iterations`` passes (the A/B ping-pong of
     `PoissonDenoisePass.js:135-149`); pass p of frame f draws noise
-    index ``f * 2 * iterations + p``."""
+    index ``f * 2 * iterations + p``. ``row_offset`` and ``resolution``
+    as in :func:`poisson_denoise_pass`."""
     out = list(textures)
     for p in range(2 * cfg.iterations):
         out = poisson_denoise_pass(out, gbuffer,
                                    frame * 2 * cfg.iterations + p, cfg,
+                                   row_offset=row_offset, resolution=resolution,
                                    scalar_slots=scalar_slots)
     return out
 

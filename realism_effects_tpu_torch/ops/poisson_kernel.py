@@ -16,6 +16,14 @@ bound of the tap reach, so the clamp never binds and this kernel fetches
 the frame-clamped texel directly; ``tests/test_torch_poisson.py`` checks
 the equality where the windows are tight.
 
+A row block of a larger frame takes ``row_offset`` (the global row of
+its first row) and ``resolution`` (the global (H, W)), as the JAX pass
+does: the uv, the flatness's bottom edge and the taps' frame clamp are
+the global frame's, a tap row is re-based onto the block, and the noise
+is rolled by the offset. Under a row mesh (``parallel.context``) and
+without ``resolution``, :func:`poisson_pass_fused` runs that way on each
+shard extended by ``aky`` halo rows (the JAX ``_fused_sharded``).
+
 On the H100 the pass is bound by instruction issue, not bytes: a thread
 a pixel that decoded each of its 8 taps' texels itself ran about 160
 accurate libm calls a two-slot pixel, each texel's work repeated about 8
@@ -34,6 +42,7 @@ import torch
 
 from ..core.packing import pack_half2x16, pack_normal, unpack_half2x16
 from ..core.rng import blue_noise_tile_tensor, noise_shift
+from ..parallel.context import row_mesh_for
 from . import cuda_build
 
 MAX_TEX = 4
@@ -69,7 +78,15 @@ def pack_bundle(textures, gbuffer, scalar_slots):
     return torch.stack(planes, dim=-1), slot_ch
 
 
+def tap_halo(radius: float, hg: int, wg: int) -> int:
+    """Rows a tap reaches from its pixel in a frame of hg x wg: the halo
+    of the sharded route (the axis window ``aky`` of the JAX
+    ``ops/pallas/poisson.py::_windows``)."""
+    return int(math.ceil(radius * math.hypot(hg / wg, 1.0))) + 1
+
+
 def _host_params(cfg, h: int, w: int) -> np.ndarray:
+    """The kernel's float parameters for the global frame (h, w)."""
     vals = [cfg.radius, 1.2 * cfg.phi, cfg.luma_phi, cfg.depth_phi,
             cfg.normal_phi, cfg.roughness_phi, cfg.specular_phi,
             1.0 / w, 1.0 / h, float(w), float(h)]
@@ -114,34 +131,41 @@ def _slot(b, ch, scalar):
     return (r, g, bl), alpha
 
 
-def tap_targets(rr, cc, angle, flatness, cfg, h: int, w: int):
-    """(iy, ix) int32 of the 8 Poisson taps of pixels (rr, cc) at the
-    blue-noise ``angle`` (`poisson_denoise.frag:185-190`): offsets rotated
-    in uv with the global aspect, scaled by ``radius * flatness``, snapped
-    to the nearest texel and clamped to the frame."""
-    prm = [float(v) for v in _host_params(cfg, h, w)]
-    inv_w, inv_h, wg, hg = prm[7:11]
+def tap_targets(rr, cc, angle, flatness, cfg, h: int, w: int,
+                row_offset: int = 0, resolution=None):
+    """(iy, ix) int32 of the 8 Poisson taps of pixels (rr, cc) of an
+    (h, w) block at the blue-noise ``angle`` (`poisson_denoise.frag:185-190`):
+    offsets rotated in uv with the global aspect, scaled by ``radius *
+    flatness``, snapped to the nearest texel and clamped to the global
+    frame ``resolution`` (default (h, w)); the row is then re-based by
+    ``-row_offset`` and held to the block."""
+    hg, wg = resolution if resolution is not None else (h, w)
+    prm = [float(v) for v in _host_params(cfg, hg, wg)]
+    inv_w, inv_h, wgf, hgf = prm[7:11]
     offx, offy = prm[11:19], prm[19:27]
     s_, c_ = torch.sin(angle), torch.cos(angle)
     rscale = prm[0] * flatness
     uvx = (cc.to(torch.float32) + 0.5) * inv_w
-    uvy = (rr.to(torch.float32) + 0.5) * inv_h
+    uvy = ((rr + row_offset).to(torch.float32) + 0.5) * inv_h
     taps = []
     for k in range(8):
         ox = (c_ * offx[k] + s_ * offy[k]) * rscale
         oy = (-s_ * offx[k] + c_ * offy[k]) * rscale
-        ix = torch.clamp(torch.floor((uvx + ox) * wg).to(torch.int32), 0, w - 1)
-        iy = torch.clamp(torch.floor((uvy + oy) * hg).to(torch.int32), 0, h - 1)
-        taps.append((iy, ix))
+        ix = torch.clamp(torch.floor((uvx + ox) * wgf).to(torch.int32), 0, wg - 1)
+        iy = torch.clamp(torch.floor((uvy + oy) * hgf).to(torch.int32), 0, hg - 1)
+        taps.append((torch.clamp(iy - row_offset, 0, h - 1), ix))
     return taps
 
 
-def poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index: int, cfg):
-    """The kernel's function in PyTorch on the packed bundle; returns the
-    (H, W, 4 * n_tex) output."""
+def poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index: int, cfg,
+                       row_offset: int = 0, resolution=None):
+    """The kernel's function in PyTorch on the packed bundle, a row block
+    of the frame ``resolution`` starting at global row ``row_offset``
+    (default: the whole frame); returns the (H, W, 4 * n_tex) output."""
     h, w = bundle.shape[0], bundle.shape[1]
+    hg, wg = resolution if resolution is not None else (h, w)
     dev = bundle.device
-    prm = [float(v) for v in _host_params(cfg, h, w)]
+    prm = [float(v) for v in _host_params(cfg, hg, wg)]
     age_e, luma_phi, depth_phi, normal_phi, rough_phi, spec_phi = prm[1:7]
     spec = tuple(cfg.is_specular) + (False,) * len(slot_ch)
 
@@ -154,8 +178,8 @@ def poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index: int, cfg):
     nd = _unpack_normal3(down)
     rr = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
     cc = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
-    right_ok = (cc < w - 1).to(torch.float32)
-    down_ok = (rr < h - 1).to(torch.float32)
+    right_ok = (cc < wg - 1).to(torch.float32)
+    down_ok = (rr + row_offset < hg - 1).to(torch.float32)
     fw2 = torch.zeros_like(d_c)
     for c0, cr, cd in zip(nc, nr, nd):
         fw = (cr - c0).abs() * right_ok + (cd - c0).abs() * down_ok
@@ -163,7 +187,7 @@ def poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index: int, cfg):
     flatness = 1.0 - torch.clamp(torch.sqrt(fw2), max=1.0)
     flatness = flatness * flatness * 0.75 + 0.25
 
-    sy, sx = noise_shift(noise_index)
+    sy, sx = noise_shift(noise_index, row_offset=row_offset)
     tile = blue_noise_tile_tensor(dev)
     angle = tile[((rr + sy) % 128).long(), ((cc + sx) % 128).long(), 0] * _PI2
 
@@ -181,7 +205,8 @@ def poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index: int, cfg):
     specular_factor = torch.exp(-glossiness * spec_phi)
 
     flat = bundle.reshape(h * w, -1)
-    for iyt, ixt in tap_targets(rr, cc, angle, flatness, cfg, h, w):
+    for iyt, ixt in tap_targets(rr, cc, angle, flatness, cfg, h, w,
+                                row_offset, (hg, wg)):
         t = flat[(iyt * w + ixt).long()]
         n_depth = t[..., 0]
         nt = _unpack_normal3(t[..., 1])
@@ -217,25 +242,51 @@ def poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index: int, cfg):
 
 
 def poisson_pass_fused(textures, gbuffer, noise_index: int, cfg,
+                       row_offset: int = 0, resolution=None,
                        scalar_slots=None):
     """One fused denoise pass over ``textures`` (each (H, W, 4)); returns
     the list of denoised (H, W, 4) textures. ``scalar_slots[i]`` marks a
     texture whose rgb is one replicated scalar (the AO path): it rides a
-    single packed channel. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    single packed channel. ``row_offset`` and ``resolution``: the block's
+    first global row and the global (H, W), for a row block of a larger
+    frame. Under a row mesh and without ``resolution``, each shard runs
+    the pass on its halo-extended rows. CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
     n_tex = len(textures)
     if not 1 <= n_tex <= MAX_TEX:
         raise ValueError(f"the fused pass takes 1..{MAX_TEX} textures, not {n_tex}")
     scalar_slots = tuple(scalar_slots or (False,) * n_tex)
     bundle, slot_ch = pack_bundle(textures, gbuffer, scalar_slots)
-    if bundle.device.type == "cpu":
-        out = poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index, cfg)
+    h, w = bundle.shape[0], bundle.shape[1]
+    if resolution is not None and int(resolution[1]) != w:
+        raise ValueError(f"a row block of {w} columns in a frame of "
+                         f"{resolution[1]}: blocks split rows only")
+    mesh = row_mesh_for(h) if resolution is None else None
+    if mesh is not None:
+        from ..parallel.halo import map_row_blocks
+
+        aky = tap_halo(cfg.radius, h, w)
+        out = map_row_blocks(
+            lambda row0, b: _pass(b, slot_ch, scalar_slots, noise_index, cfg,
+                                  row0, (h, w)),
+            mesh, aky, [bundle])
     else:
-        out = _launch(bundle, slot_ch, scalar_slots, noise_index, cfg)
-        poisson_pass_fused.launches += 1
-        kinds = poisson_pass_fused.slot_launches
-        kinds[scalar_slots] = kinds.get(scalar_slots, 0) + 1
+        out = _pass(bundle, slot_ch, scalar_slots, noise_index, cfg,
+                    row_offset, resolution)
     return [out[..., 4 * s: 4 * s + 4] for s in range(n_tex)]
+
+
+def _pass(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset,
+          resolution):
+    if bundle.device.type == "cpu":
+        return poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index,
+                                  cfg, row_offset, resolution)
+    out = _launch(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset,
+                  resolution)
+    poisson_pass_fused.launches += 1
+    kinds = poisson_pass_fused.slot_launches
+    kinds[scalar_slots] = kinds.get(scalar_slots, 0) + 1
+    return out
 
 
 poisson_pass_fused.launches = 0
@@ -244,23 +295,25 @@ poisson_pass_fused.launches = 0
 poisson_pass_fused.slot_launches = {}
 
 
-def _launch(bundle, slot_ch, scalar_slots, noise_index, cfg):
+def _launch(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset=0,
+            resolution=None):
     h, w, cb = bundle.shape
+    hg, wg = resolution if resolution is not None else (h, w)
     n_tex = len(slot_ch)
     bundle = bundle.contiguous()
     tile = blue_noise_tile_tensor(bundle.device)
     cuda_build.require_cuda(bundle, tile)
     out = torch.empty((h, w, 4 * n_tex), dtype=torch.float32,
                       device=bundle.device)
-    fparams = _host_params(cfg, h, w)
+    fparams = _host_params(cfg, hg, wg)
     spec = tuple(cfg.is_specular) + (False,) * n_tex
-    iparams = list(noise_shift(noise_index))
+    iparams = list(noise_shift(noise_index, row_offset=row_offset))
     for s in range(n_tex):
         iparams += [slot_ch[s], int(scalar_slots[s]), int(spec[s])]
     iparams = np.array(iparams, np.int32)
-    fn = cuda_build.bind("poisson", "re_poisson", 3, 4, 2)
+    fn = cuda_build.bind("poisson", "re_poisson", 3, 5, 2)
     err = fn(bundle.data_ptr(), tile.data_ptr(), out.data_ptr(), h, w, cb,
-             n_tex, fparams.ctypes.data, iparams.ctypes.data,
+             n_tex, int(row_offset), fparams.ctypes.data, iparams.ctypes.data,
              cuda_build.stream_ptr(bundle))
     cuda_build.check(err, "poisson kernel")
     return out

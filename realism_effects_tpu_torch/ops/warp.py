@@ -24,6 +24,14 @@ offset takes 4-byte loads) and a C = 4 output one 16-byte store; the
 filtered modes run 32 x 8 blocks, whose warps share their footprint
 rows through L1.
 
+Under a row mesh (``parallel.context``) both wrappers run per shard, as
+the JAX ``_window_warp_sharded`` and ``_window_warp_multi_sharded`` do:
+the texture is extended by ``ky`` plus the filter's reach in halo rows
+from the neighbouring shards (edge rows at the frame's top and bottom),
+the targets are re-based by the shard's first row, and the result is
+cropped. The values are those of the unsharded fetch: the window bound
+is the halo bound, and the in-window flag sees only ``ty - row``.
+
 ``window_warp_multi`` fetches one texture at N targets, nearest, each
 with the semantics above (kernel ``re_warp_multi``, the counterpart of
 ``ops/pallas/warp.py::_warp_multi_kernel``). The TPU kernel's column
@@ -36,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..core.math3d import floor_int32
+from ..parallel.context import row_mesh_for
 from . import cuda_build
 
 DEF_KY = 8
@@ -126,9 +135,26 @@ def window_warp(tex: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
     (ty, tx) (+ float32 fractions fy, fx in [0, 1) for the filtered
     modes). Returns (value (H, W[, C]), in_window (H, W) bool).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    Under a row mesh each shard fetches from its halo-extended rows. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
     if mode not in _MODES:
         raise ValueError(f"unknown warp mode {mode!r}")
+    mesh = row_mesh_for(int(tex.shape[0]))
+    if mesh is None:
+        return _window_warp(tex, ty, tx, fy, fx, ky, mode, kx)
+    from ..parallel.halo import map_row_blocks
+
+    fracs = [] if mode == "nearest" or fy is None or fx is None else [fy, fx]
+
+    def local(row0, tex_b, ty_b, tx_b, *fr):
+        return _window_warp(tex_b, ty_b - row0, tx_b, *(fr or (None, None)),
+                            ky, mode, kx)
+
+    return map_row_blocks(local, mesh, int(ky) + _HALO_EXTRA[mode], [tex],
+                          [ty, tx, *fracs])
+
+
+def _window_warp(tex, ty, tx, fy, fx, ky, mode, kx):
     if tex.device.type == "cpu":
         return window_warp_plain(tex, ty, tx, fy, fx, ky, mode, kx)
     out, flag = _launch(tex, ty, tx, fy, fx, ky, mode, kx)
@@ -238,7 +264,20 @@ def window_warp_multi(tex: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
     """N nearest window fetches of ``tex`` (H, W[, C<=8]) float32 at the
     int32 targets ``ty``, ``tx`` (N, H, W). Returns (values (N, H, W[, C]),
     in_window (N, H, W) bool). CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version. Under a row mesh each shard fetches
+    from its halo-extended rows."""
+    mesh = row_mesh_for(int(tex.shape[0]))
+    if mesh is None:
+        return _window_warp_multi(tex, ty, tx, ky, kx)
+    from ..parallel.halo import map_row_blocks
+
+    return map_row_blocks(
+        lambda row0, tex_b, ty_b, tx_b: _window_warp_multi(
+            tex_b, ty_b - row0, tx_b, ky, kx),
+        mesh, int(ky), [tex], [ty, tx], padded_dim=1, out_dim=1)
+
+
+def _window_warp_multi(tex, ty, tx, ky, kx):
     if tex.device.type == "cpu":
         return window_warp_multi_plain(tex, ty, tx, ky, kx)
     out = _launch_multi(tex, ty, tx, ky, kx)

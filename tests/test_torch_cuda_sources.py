@@ -427,6 +427,56 @@ def test_hbao_noise_table_source(host_kernels):
     np.testing.assert_allclose(table.numpy(), want.numpy(), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("row0,hg,spp", [(-32, 80, 8), (24, 80, 3), (40, 96, 40)])
+def test_hbao_source_row_block(host_kernels, row0, hg, spp):
+    """A 48-row block of a taller frame at global row ``row0`` (negative:
+    the first shard's block, extended by its halo), its uv, sample rows
+    and noise the frame's, against the plain version with the same
+    offset; the re-based targets stay inside the block."""
+    h, w = 48, 80
+    depth, nrm = _surface(h, w, 4)
+    cam = PerspectiveCamera(50, w / hg, 0.1, 80)
+    cam.set_position(0.3, 1.5, 5.0)
+    cam.look_at((0, 0.5, 0))
+    m = cam.matrices()
+    cfg = AOConfig(spp=spp, window_ky=6, distance=0.3)
+    got = hbao_kernel._launch(depth, nrm, m, 3, cfg, row0, hg)
+    want = hbao_kernel.hbao_fused_plain(depth, nrm, m, 3, cfg, row0, hg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+    unsharded = hbao_kernel.hbao_fused_plain(depth, nrm, m, 3, cfg)
+    assert float((want - unsharded).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("row0,hg", [(-12, 96), (30, 96), (50, 120)])
+@pytest.mark.parametrize("slots", [(False, False), (True,)])
+def test_poisson_source_row_block(host_kernels, slots, row0, hg):
+    """The pass on a 45-row block of a taller frame at global row
+    ``row0``: the flatness's bottom edge, the uv and the taps' frame
+    clamp of the frame, the tap rows re-based onto the block, the noise
+    rolled by ``row0``; against the plain version with the same offset."""
+    h, w = 45, 83
+    rng = np.random.default_rng(row0 + hg)
+    depth, nrm = _surface(h, w, 6)
+    z = torch.zeros
+    gb = GBuffer(diffuse=z(h, w, 4), normal=nrm,
+                 roughness=torch.tensor(rng.random((h, w)), dtype=torch.float32),
+                 metalness=z(h, w), emissive=z(h, w, 3), depth=depth)
+    texs = [torch.tensor(np.concatenate(
+        [rng.random((h, w, 3)) * 2, rng.integers(0, 40, (h, w, 1))], -1),
+        dtype=torch.float32) for _ in slots]
+    if slots == (True,):
+        texs = [texs[0][..., [0, 0, 0, 3]]]
+    cfg = dataclasses.replace(PoissonDenoiseConfig(),
+                              is_specular=(False, True)[:len(slots)])
+    bundle, ch = poisson_kernel.pack_bundle(texs, gb, slots)
+    got = poisson_kernel._launch(bundle, ch, slots, 11, cfg, row0, (hg, w))
+    want = poisson_kernel.poisson_pass_plain(bundle, ch, slots, 11, cfg, row0,
+                                             (hg, w))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+    unsharded = poisson_kernel.poisson_pass_plain(bundle, ch, slots, 11, cfg)
+    assert float((want - unsharded).abs().max()) > 1e-3
+
+
 @pytest.mark.parametrize("slots", [(False, False), (True,)])
 def test_poisson_source(host_kernels, slots):
     h, w = 48, 80

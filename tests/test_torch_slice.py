@@ -150,6 +150,13 @@ def test_render_needs_the_raster_slice():
 
 def test_package_imports_without_jax():
     code = ("import sys, realism_effects_tpu_torch, realism_effects_tpu_torch.analytic; "
+            "import realism_effects_tpu_torch.parallel.sharding, "
+            "realism_effects_tpu_torch.parallel.context, "
+            "realism_effects_tpu_torch.parallel.halo, "
+            "realism_effects_tpu_torch.ops.copy, "
+            "realism_effects_tpu_torch.tools.demo, "
+            "realism_effects_tpu_torch.tools.option_sweep, "
+            "realism_effects_tpu_torch.tools.debug_gui; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'realism_effects_tpu' not in sys.modules; "
             "assert 'PIL' not in sys.modules, 'PIL imported'")
