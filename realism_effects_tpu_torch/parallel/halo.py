@@ -106,35 +106,27 @@ def poisson_denoise_sharded(textures, gbuffer, frame: int,
     extended block on its shard's device, and crops. Takes and returns
     whole-frame (H, W, 4) textures on the input's device."""
     hg, wg = int(textures[0].shape[0]), int(textures[0].shape[1])
-    n = len(mesh)
-    if hg % n != 0 or hg < n:
-        raise ValueError(f"{hg} rows do not divide over {n} shards")
-    home = textures[0].device
     # the tap offsets rotate in global uv, so the vertical reach is bounded
     # by radius * hypot(1, H / W); 2 more rows cover the snap and rounding
     halo = int(math.ceil(cfg.radius * math.hypot(1.0, hg / wg))) + 2
-    h_loc = hg // n
     fields = [f.name for f in dataclasses.fields(gbuffer)
               if isinstance(getattr(gbuffer, f.name), torch.Tensor)]
-    planes = [halo_exchange_rows(shard_rows(getattr(gbuffer, f), mesh), halo)
-              for f in fields]
-    gbs = [dataclasses.replace(gbuffer, **{f: planes[k][i]
-                                          for k, f in enumerate(fields)})
-           for i in range(n)]
-    blocks = [shard_rows(t, mesh) for t in textures]   # per texture
+    planes = [getattr(gbuffer, f) for f in fields]
+    nt = len(textures)
     n_passes = 2 * cfg.iterations
+
+    def one_pass(p):
+        def fn(row0, *blocks):
+            gb = dataclasses.replace(gbuffer, **dict(zip(fields, blocks[nt:])))
+            return tuple(poisson_denoise_pass(
+                list(blocks[:nt]), gb, frame * n_passes + p, cfg,
+                row_offset=row0, resolution=(hg, wg)))
+        return fn
+
     for p in range(n_passes):
-        ext = [halo_exchange_rows(b, halo) for b in blocks]
-        new = [[None] * n for _ in textures]
-        for i, dev in enumerate(mesh):
-            with device_scope(dev):
-                out = poisson_denoise_pass(
-                    [e[i] for e in ext], gbs[i], frame * n_passes + p, cfg,
-                    row_offset=i * h_loc - halo, resolution=(hg, wg))
-            for t, o in enumerate(out):
-                new[t][i] = crop_rows(o, halo)
-        blocks = new
-    return [gather_rows(b, home) for b in blocks]
+        textures = list(map_row_blocks(one_pass(p), mesh, halo,
+                                       [*textures, *planes]))
+    return textures
 
 
 def sharded_stencil(fn, mesh, halo: int, num_outputs: int = 1):

@@ -6,9 +6,10 @@ explicit objects: a mesh is an ordered tuple of ``torch.device`` and a
 row-sharded array is a list of equal row blocks, block ``i`` on device
 ``i`` of the mesh.
 
-``row_sharding(mesh)`` and ``replicated(mesh)`` return small
-descriptors (:class:`Placement`) that :func:`shard_pytree` and
-:func:`place` apply: split into row blocks, or one copy on each device.
+JAX's ``row_sharding(mesh)`` and ``replicated(mesh)`` return
+``NamedSharding`` objects, which torch has no counterpart of; the port
+leaves them out and :func:`shard_pytree` applies the same rule itself:
+split into row blocks, or one copy on each device.
 
 Usage::
 
@@ -19,8 +20,6 @@ Usage::
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -45,39 +44,12 @@ def make_mesh(devices=None) -> tuple:
     return mesh
 
 
-@dataclasses.dataclass(frozen=True)
-class Placement:
-    """Where an array goes on ``mesh``: split along H (``rows``) or
-    copied to every device."""
-
-    mesh: tuple
-    rows: bool
-
-    def apply(self, x: torch.Tensor):
-        return shard_rows(x, self.mesh) if self.rows else [
-            x.to(d) for d in self.mesh]
-
-
-def row_sharding(mesh) -> Placement:
-    """Shard (H, W[, C]) arrays along H."""
-    return Placement(tuple(mesh), True)
-
-
-def replicated(mesh) -> Placement:
-    """One copy of the array on every device of the mesh."""
-    return Placement(tuple(mesh), False)
-
-
 def is_row_shardable(x, mesh) -> bool:
     """The JAX ``_spec_for`` rule: image-like (ndim >= 2) with H divisible
     by the mesh size and at least the mesh size."""
     n = len(mesh)
     return (isinstance(x, torch.Tensor) and x.ndim >= 2 and x.shape[0] % n == 0
             and x.shape[0] >= n)
-
-
-def _spec_for(x, mesh) -> Placement:
-    return row_sharding(mesh) if is_row_shardable(x, mesh) else replicated(mesh)
 
 
 def shard_rows(x: torch.Tensor, mesh, dim: int = 0) -> list:
@@ -99,9 +71,14 @@ def shard_pytree(tree, mesh):
     """Place every tensor leaf of a nested dict/list/tuple/dataclass:
     image-like leaves as row blocks (a list), the others as one copy per
     device (a list); other leaves stay as they are."""
-    return tree_map(
-        lambda x: _spec_for(x, mesh).apply(x) if isinstance(x, torch.Tensor)
-        else x, tree)
+    def place(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if is_row_shardable(x, mesh):
+            return shard_rows(x, mesh)
+        return [x.to(d) for d in mesh]
+
+    return tree_map(place, tree)
 
 
 def shard_frame_fn(frame_fn, mesh):

@@ -19,8 +19,8 @@ Usage:
 The ``sponza`` scene and the ``lut`` effect read the reference
 project's example assets (``example/public/...`` of a checkout of
 0beqz/realism-effects: the directory ``REALISM_EFFECTS_REFERENCE`` names,
-by default ``reference`` beside this repository); without them they fail
-as the JAX demo does.
+by default ``reference/`` inside this repository, which git ignores);
+without them they fail as the JAX demo does.
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 _REFERENCE = os.environ.get("REALISM_EFFECTS_REFERENCE", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))), "reference"))
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "reference"))
 SPONZA = os.path.join(_REFERENCE, "example", "public", "gltf",
                       "sponza_no_textures.optimized.glb")
 LUT_3DL = os.path.join(_REFERENCE, "example", "public", "lut_v2.3dl")
@@ -329,13 +329,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args, dt: float | None = None) -> dict:
-    """Render ``args.frames`` frames; writes ``final.png`` (and every
-    ``--save-every``-th frame) under ``args.out``. ``dt``: the frame time
-    the effects see (default: the wall clock between frames, as the
-    command line runs). Returns the per-frame host times (ms), the steady
-    median, the frames and the final one."""
-    from .. import EffectComposer, ToneMappingEffect, save_frame
+def make_composer(args):
+    """(composer, animate, tonemap_at_save) for ``args``: the scene, its
+    environment (``--env``), the composer at ``--size`` (2x2 MSAA for
+    ``--aa msaa``) and the effect stack on ``--device``."""
+    from .. import EffectComposer, ToneMappingEffect
     from ..composer import resolve_device
 
     dev = resolve_device(args.device)
@@ -358,6 +356,19 @@ def run(args, dt: float | None = None) -> dict:
     # a ToneMappingEffect in the chain already made display values: no
     # second tone map at save time
     tonemap_at_save = not any(isinstance(e, ToneMappingEffect) for e in effects)
+    return composer, animate, tonemap_at_save
+
+
+def run(args, dt: float | None = None) -> dict:
+    """Render ``args.frames`` frames; writes ``final.png`` (and every
+    ``--save-every``-th frame) under ``args.out``. ``dt``: the frame time
+    the effects see (default: the wall clock between frames, as the
+    command line runs). Returns the per-frame host times (ms), the steady
+    median and the final frame; no other frame is kept."""
+    from .. import save_frame
+
+    composer, animate, tonemap_at_save = make_composer(args)
+    dev = composer.device
 
     def sync():
         if dev.type == "cuda":
@@ -365,7 +376,6 @@ def run(args, dt: float | None = None) -> dict:
 
     os.makedirs(args.out, exist_ok=True)
     times = []
-    images = []
     img = None
     for f in range(args.frames):
         if animate:
@@ -373,7 +383,6 @@ def run(args, dt: float | None = None) -> dict:
         t0 = time.perf_counter()
         img = composer.render(dt=dt)
         sync()
-        images.append(img)
         times.append((time.perf_counter() - t0) * 1000)
         if args.save_every and f % args.save_every == 0:
             save_frame(os.path.join(args.out, f"frame_{f:04d}.png"), img,
@@ -382,7 +391,7 @@ def run(args, dt: float | None = None) -> dict:
     save_frame(os.path.join(args.out, "final.png"), img, tonemap=tonemap_at_save)
     steady = times[2:] if len(times) > 4 else times
     return {"times_ms": times, "steady_ms": float(np.median(steady)),
-            "images": images, "image": img}
+            "image": img}
 
 
 def main(argv=None):

@@ -240,7 +240,7 @@ def test_make_mesh_needs_cuda_or_named_devices(monkeypatch):
 def test_shard_pytree_rule():
     """Image-like leaves (ndim >= 2, H divisible by the mesh size and at
     least it) become row blocks; the rest is copied to every device;
-    non-tensors stay. ``row_sharding``/``replicated`` place one array."""
+    non-tensors stay. A bare tensor is a tree of one leaf."""
     mesh = make_mesh(["cpu"] * 4)
     tree = {"img": torch.zeros(8, 3, 2), "odd": torch.zeros(6, 3),
             "vec": torch.zeros(8), "short": torch.zeros(2, 5),
@@ -253,9 +253,10 @@ def test_shard_pytree_rule():
     assert [tuple(b.shape) for b in out["list"][0]] == [(1, 4)] * 4
     assert out["list"][1] == 3 and out["name"] == "x"
     assert torch.equal(sharding.gather_rows(out["img"]), tree["img"])
-    assert len(sharding.row_sharding(mesh).apply(torch.zeros(8, 2))) == 4
-    assert all(tuple(b.shape) == (8, 2)
-               for b in sharding.replicated(mesh).apply(torch.zeros(8, 2)))
+    assert [tuple(b.shape) for b in sharding.shard_pytree(torch.zeros(8, 2), mesh)] \
+        == [(2, 2)] * 4
+    assert all(tuple(b.shape) == (8,)
+               for b in sharding.shard_pytree(torch.zeros(8), mesh))
     assert [tuple(b.shape) for b in sharding.constrain_rows(torch.zeros(8, 2), mesh)] \
         == [(2, 2)] * 4
 

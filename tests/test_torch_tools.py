@@ -150,31 +150,62 @@ def test_demo_effects_match_jax(jax_demo, names, aa, trace):
 
 
 @pytest.mark.parametrize("aa", ["traa", "none", "msaa"])
-def test_demo_full_stack_matches_jax(jax_demo, aa, monkeypatch):
+def test_demo_full_stack_matches_jax(jax_demo, aa, monkeypatch, tmp_path):
     """``full`` is the reference demo's stack and order. Its LUT is the
-    reference's file: without it both demos refuse alike; with a cube in
-    its place both build the same classes and options."""
+    reference project's ``lut_v2.3dl``: the port's path is pinned to a
+    file under ``tmp_path`` and the JAX demo's is answered by a stub of
+    ``os.path.exists``, so no real location is probed. Without the file
+    both demos refuse alike; with a cube in its place both build the same
+    classes and options."""
     import realism_effects_tpu as jre
     import realism_effects_tpu_torch as tre
 
-    if not os.path.exists(demo.LUT_3DL):
-        with pytest.raises(SystemExit, match="lut"):
-            jax_demo.build_effects(["full"], aa)
-        with pytest.raises(SystemExit, match="lut"):
-            demo.build_effects(["full"], aa)
+    lut_path = str(tmp_path / "lut_v2.3dl")
+    monkeypatch.setattr(demo, "LUT_3DL", lut_path)
+    exists = os.path.exists
+
+    def lut_exists(present):
+        return lambda p: (present if str(p).endswith("lut_v2.3dl")
+                          else exists(p))
+
+    monkeypatch.setattr(os.path, "exists", lut_exists(False))
+    with pytest.raises(SystemExit, match="lut"):
+        jax_demo.build_effects(["full"], aa)
+    with pytest.raises(SystemExit, match="lut"):
+        demo.build_effects(["full"], aa)
     cube = np.stack(np.meshgrid(*[np.linspace(0, 1, 4)] * 3, indexing="ij"),
                     -1).astype(np.float32)
-    exists = os.path.exists
-    monkeypatch.setattr(os.path, "exists",
-                        lambda p: p == demo.LUT_3DL or exists(p))
+    monkeypatch.setattr(os.path, "exists", lut_exists(True))
     monkeypatch.setattr(jre, "load_lut_3dl", lambda path: cube)
-    monkeypatch.setattr(tre, "load_lut_3dl", lambda path: cube)
+    monkeypatch.setattr(tre, "load_lut_3dl",
+                        lambda path: cube if path == lut_path else None)
     want = [_options(e) for e in jax_demo.build_effects(["full"], aa)]
     got = [_options(e) for e in demo.build_effects(["full"], aa)]
     assert [w["class"] for w in want] == [g["class"] for g in got]
     assert [g["class"] for g in got][-1] == "LUT3DEffect"
     for w, g in zip(want, got):
         assert {k: g[k] for k in w} == w, w["class"]
+
+
+def test_demo_reference_assets_default_inside_the_checkout(monkeypatch):
+    """Without ``REALISM_EFFECTS_REFERENCE`` the reference assets are
+    looked for under ``reference/`` of this checkout, nowhere beside it;
+    the variable names another directory."""
+    import importlib
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.delenv("REALISM_EFFECTS_REFERENCE", raising=False)
+    mod = importlib.reload(demo)
+    try:
+        assert mod.LUT_3DL == os.path.join(repo, "reference", "example",
+                                           "public", "lut_v2.3dl")
+        assert mod.SPONZA.startswith(os.path.join(repo, "reference") + os.sep)
+        monkeypatch.setenv("REALISM_EFFECTS_REFERENCE", "/elsewhere")
+        mod = importlib.reload(demo)
+        assert mod.LUT_3DL.startswith("/elsewhere" + os.sep)
+    finally:
+        monkeypatch.delenv("REALISM_EFFECTS_REFERENCE", raising=False)
+        importlib.reload(demo)
 
 
 def test_demo_unknown_scene_and_missing_asset():
