@@ -100,7 +100,15 @@ Phases (any failure raises and the script exits non-zero):
    before the sharded run and read just after: each sharded kernel must
    have launched there. Their entries join the ``kernels`` line as
    ``<kernel>@mesh<n>``.
-5. ``[demo]``: the port's demo (``tools/demo.py``) on the six scenes it
+5. ``[split]``: the split frame (``EffectComposer._build_frame_fn(mesh)``,
+   driven through ``render(mesh=...)``) on ``_mesh(torch, 4)``: the
+   flagship and HBAO + TRAA on the flagship scene at 1920x1080, 3 frames
+   each, every frame's image and every leaf of the final state against
+   the unsplit frames on the card within SPLIT_TOL (the JAX package's
+   bounds, 2e-4 and 5e-4; 0 expected); it prints the differences, each
+   stage's placement, the kernels launched in the split run and the host
+   ms per frame of both runs, and claims nothing of speed.
+6. ``[demo]``: the port's demo (``tools/demo.py``) on the six scenes it
    builds in code (DEMO_RUNS: ``lights`` with ``ssgi,hbao`` + TRAA, point
    lights and the specular sun; ``dynamic`` with ``ssgi,motion_blur`` +
    TAA; ``showcase`` with SSR, GTAO and the finishing stack + SMAA;
@@ -109,7 +117,7 @@ Phases (any failure raises and the script exits non-zero):
    (steady ms/frame), then 3 frames at 64 x 64 card against CPU within
    its AA pass's DEMO_BOUNDS (the FXAA path's for FXAA; DEMO_BOUNDS says
    why).
-6. Print the ``kernels`` JSON line, then the device JSON line last.
+7. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
 """
@@ -136,6 +144,11 @@ MEM_BW = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_RATE = 67e12      # H100 SXM float32 outside the tensor cores, op/s
 MESH_SHARDS = (4, 8)  # 1080 rows divide by both
 MESH_TOL = 1e-6       # sharded against unsharded (0 expected)
+SPLIT_SHARDS = 4
+#: the split frame against the unsplit one: tests/test_parallel.py's
+#: bounds for its sharded frame (0 expected: the same kernels on the
+#: same values)
+SPLIT_TOL = {"HBAO+TRAA": 2e-4, "flagship": 5e-4}
 DEMO_FRAMES = 12
 DEMO_SIZE = 1024
 
@@ -1490,6 +1503,86 @@ def check_mesh(torch, analytic, timer, smi, results):
                 entries[k]["launches_path"] = f"{label} under {n} shards"
 
 
+def _state_leaves(torch, state):
+    """The tensor leaves of a composer state, row blocks joined."""
+    from realism_effects_tpu_torch.ops.copy import tree_map
+    from realism_effects_tpu_torch.parallel.sharding import gather_rows, is_blocks
+
+    out = []
+    tree_map(lambda x: out.append(gather_rows(x) if is_blocks(x) else x),
+             state, is_leaf=is_blocks)
+    return [x for x in out if isinstance(x, torch.Tensor)]
+
+
+def check_split(torch, analytic, smi):
+    """The split frame at 1920 x 1080 on ``_mesh(torch, SPLIT_SHARDS)``:
+    3 frames of HBAO + TRAA on the flagship scene and 3 of the flagship
+    through ``render(mesh=...)`` (``_build_frame_fn(mesh)``) against the
+    same frames without a mesh, every image and every final state leaf
+    within SPLIT_TOL; the host ms per frame of both runs (first frames,
+    each run ending in a synchronise)."""
+    from realism_effects_tpu_torch import EffectComposer, HBAOEffect, TRAAEffect
+    from realism_effects_tpu_torch.core.camera import PerspectiveCamera
+    from realism_effects_tpu_torch.parallel.sharding import gather_rows
+
+    mesh = _mesh(torch, SPLIT_SHARDS)
+    print(f"[split] {SPLIT_SHARDS} shards on {[str(d) for d in mesh]}", flush=True)
+
+    def hbao_traa(h, w, device):
+        cam = PerspectiveCamera(50, w / h, 0.1, 100)
+        comp = EffectComposer(analytic.flagship_scene(device), cam, w, h,
+                              device=device)
+        comp.add_effect(HBAOEffect())
+        comp.add_effect(TRAAEffect())
+        return comp, cam
+
+    def run(make, mesh_):
+        comp, cam = make(HEIGHT, WIDTH, "cuda")
+        images = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(3):
+            analytic.orbit(cam, f)
+            images.append(comp.render(dt=1 / 60, mesh=mesh_))
+        torch.cuda.synchronize()
+        return comp, images, (time.perf_counter() - t0) * 1e3 / 3
+
+    for label, make in (("HBAO+TRAA", hbao_traa),
+                        ("flagship", analytic.flagship_composer)):
+        tol = SPLIT_TOL[label]
+        ref, want, ref_ms = run(make, None)
+        reset_counters()
+        comp, got, ms = run(make, mesh)
+        launches = {k: v for k, v in counters().items() if v}
+        diffs = [float((gather_rows(g) - w).abs().max()) for g, w in zip(got, want)]
+        a, b = _state_leaves(torch, ref._state), _state_leaves(torch, comp._state)
+        if len(a) != len(b):
+            raise AssertionError(f"[split] {label}: {len(b)} state leaves, not {len(a)}")
+        state_d = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+        print(f"[split] {label}, 3 frames at {WIDTH}x{HEIGHT} split over "
+              f"{SPLIT_SHARDS} shards: max abs difference from the unsplit "
+              f"frames {diffs}, final state ({len(a)} leaves) {state_d} (tol "
+              f"{tol}); placement {json.dumps(comp.last_placement)}; launches "
+              f"in the split run {json.dumps(launches)}; host ms/frame split "
+              f"{ms:.3f}, unsplit {ref_ms:.3f} (first frames); card: {smi}",
+              flush=True)
+        if not (max(diffs) <= tol and state_d <= tol):
+            raise AssertionError(f"[split] {label} differs from the unsplit frame "
+                                 f"by {max(diffs + [state_d])}")
+        # per shard: HBAO and the reprojection's warps each shard a frame;
+        # whole: the raster's z-scan and the sweep once a frame
+        want_n = {"hbao": 3 * SPLIT_SHARDS, "warp_catrom5": 3 * SPLIT_SHARDS,
+                  "zscan": 3}
+        if label == "flagship":
+            want_n.update(sweep=3, poisson_2tex=3 * 2 * SPLIT_SHARDS)
+        short = {k: launches.get(k, 0) for k, n in want_n.items()
+                 if launches.get(k, 0) < n}
+        if short or (label == "flagship" and launches.get("sweep") != 3):
+            raise AssertionError(f"[split] {label}: launches {short or launches} "
+                                 f"against {want_n}")
+        del ref, comp, want, got
+
+
 #: the scenes of the demo the [demo] phase drives: (scene, effects, aa,
 #: trace)
 DEMO_RUNS = (
@@ -1750,8 +1843,9 @@ def main() -> int:
                       steps=analytic.still_then_step(0, 3, 2)),
           SSGI_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
 
-    # phase 4: the row-sharded route, then the demo's scenes
+    # phase 4: the row-sharded route, the split frame, the demo's scenes
     check_mesh(torch, analytic, timer, smi, kernels)
+    check_split(torch, analytic, smi)
     check_demo(torch, smi)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)

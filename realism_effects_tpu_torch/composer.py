@@ -9,7 +9,14 @@ jittered camera, velocity with the unjittered current and previous
 cameras), shades it, then runs each effect in turn over (H, W, C)
 tensors, with the temporal state in an explicit dict that the frame
 replaces; :meth:`EffectComposer.render_external` runs the effects on
-buffers the caller supplies. Both go through one frame driver.
+buffers the caller supplies. Both go through one frame body, which is
+also the JAX package's monolithic frame function
+(:meth:`EffectComposer._build_frame_fn`).
+
+The split frame: ``_build_frame_fn(mesh)`` (and ``render(mesh=...)``)
+runs the same body with the frame's images and its temporal state held
+as row blocks over a mesh of devices, each stage per shard or whole as
+``parallel/__init__.py`` sets out; its values are the unsplit frame's.
 
 The packed scene and the lighting go to the device once. The camera
 matrices and the effects' uniforms stay host floats that enter the
@@ -30,6 +37,8 @@ from .core.camera import Camera, CameraMatrices
 from .core.envmap import EquirectEnv, build_equirect_env, cube_to_equirect
 from .core.framebuffers import GBuffer, VelocityBuffer
 from .core.rng import blue_noise_transform
+from .parallel.halo import SplitFrame
+from .parallel.sharding import gather_pytree
 from .scene.rasterizer import rasterize_gbuffer, rasterize_velocity
 from .scene.shading import shade_direct
 
@@ -142,6 +151,10 @@ class EffectComposer:
         #: host clock on the CPU); adds one synchronisation per frame
         self.collect_timings = False
         self.last_timings: dict[str, float] = {}
+        #: where the last frame ran each stage: "shard" or "whole" by
+        #: stage name (``raster``, ``shade``, then the effects' names);
+        #: empty after a frame with no mesh
+        self.last_placement: dict[str, str] = {}
 
     # ------------------------------------------------------------------
     def add_effect(self, effect) -> "EffectComposer":
@@ -224,18 +237,23 @@ class EffectComposer:
         return state
 
     # ------------------------------------------------------------------
-    def render(self, dt: float | None = None) -> torch.Tensor:
+    def render(self, dt: float | None = None, mesh=None):
         """Rasterize, shade and run the effect chain on the composer's
         :class:`Scene`; returns the (H, W, 3) image on the device.
 
         ``dt``: seconds since the previous frame, for frame-rate-dependent
         effects (motion blur); defaults to the wall clock between calls,
-        clamped to >= 1 ms (`MotionBlurEffect.js:87-89`)."""
+        clamped to >= 1 ms (`MotionBlurEffect.js:87-89`).
+
+        ``mesh`` (``parallel.sharding.make_mesh``): run the split frame
+        (``_build_frame_fn(mesh)``); the image comes back as
+        ``RowBlocks``, and the temporal state is kept as row blocks
+        (:meth:`state` and :meth:`save_state` join them)."""
         if not hasattr(self.scene, "meshes"):
             raise ValueError("render() rasterizes the composer's Scene; "
                              "without one, drive the effects with "
                              "render_external()")
-        return self._render_frame(None, dt)
+        return self._render_frame(None, dt, mesh)
 
     def render_external(self, gbuffer: GBuffer, velocity: VelocityBuffer,
                         scene_color: torch.Tensor, dt: float | None = None):
@@ -252,22 +270,26 @@ class EffectComposer:
                              f"composer of {(self.height, self.width)}")
         return self._render_frame((gbuffer, velocity, scene_color), dt)
 
-    def _raster(self, cam, unjit, prev, env, frame_index):
+    def _stage_scene(self):
+        """(packed scene, lighting) on the device, staged once."""
+        if self._packed is None:
+            self._packed = self.scene.pack(self.device)
+        if self._lighting is None:
+            self._lighting = self.scene.lighting_params(self.device)
+        return self._packed, self._lighting
+
+    def _raster(self, packed, model_mats, prev_model_mats, cam, unjit, prev,
+                env, lighting, frame_index, params, shade: bool = True):
         """The frame's (G-buffer, velocity, lit colour, restricted
         G-buffer or None) from the scene, rasterized and shaded at
-        ``msaa`` times the frame's size and resolved to it."""
+        ``msaa`` times the frame's size and resolved to it. The skinning
+        and morph inputs come from the scene; without ``shade`` (and
+        ``msaa`` 1) the colour is None."""
         scene, dev = self.scene, self.device
-        if self._packed is None:
-            self._packed = scene.pack(dev)
-        if self._lighting is None:
-            self._lighting = scene.lighting_params(dev)
         ss = self.msaa
-        packed, h, w = self._packed, self.height * ss, self.width * ss
+        h, w = self.height * ss, self.width * ss
         t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-        if scene.meshes:
-            mm, pmm = t(scene.model_matrices()), t(scene.prev_model_matrices())
-        else:  # an empty scene rasterizes nothing
-            mm = pmm = t(np.eye(4)[None])
+        mm, pmm = t(model_mats), t(prev_model_mats)
         bones = prev_bones = morph = prev_morph = None
         if scene.num_bones() > 1:
             bones, prev_bones = t(scene.bone_matrices()), t(scene.bone_matrices(prev=True))
@@ -275,17 +297,16 @@ class EffectComposer:
             morph = t(scene.morph_weight_matrix())
             prev_morph = t(scene.morph_weight_matrix(prev=True))
         dither = None
-        cnmf = float(self.camera_not_moved_frames)
+        cnmf = params["camera_not_moved_frames"]
         if any(m.material.diffuse[3] < 1.0 or m.material.alpha_map is not None
                for m in scene.meshes):
             # the dither, animated by the still-frame counter so TRAA/TAA
             # converge transparency (`GBufferPass.js:59,78-82`): the blue
             # noise's first channel, taken on the tile before it is tiled
             # out, so the z-scan reads a plane with unit x stride
-            dither = blue_noise_transform(h, w, self.camera_not_moved_frames
-                                          + frame_index, lambda t: t[..., :1],
-                                          device=dev)[..., 0]
-        alpha = dict(dither=dither, cnmf=cnmf, alpha_peels=self.alpha_peels)
+            dither = blue_noise_transform(h, w, int(cnmf) + frame_index,
+                                          lambda t: t[..., :1], device=dev)[..., 0]
+        alpha = dict(dither=dither, cnmf=float(cnmf), alpha_peels=self.alpha_peels)
         gbuffer = rasterize_gbuffer(packed, mm, cam.projection_view_matrix, h, w,
                                     bones=bones, morph_weights=morph,
                                     return_ids=self.share_visibility, **alpha)
@@ -297,9 +318,13 @@ class EffectComposer:
             prev.projection_view_matrix, h, w, bones=bones,
             prev_bones=prev_bones, morph_weights=morph,
             prev_morph_weights=prev_morph, share_ids=ids, **alpha)
-        color = shade_direct(gbuffer, cam, self._lighting, env)
+        color = None
+        if shade or ss > 1:
+            color = shade_direct(gbuffer, cam, lighting, env)
         gi_gbuffer = None
-        excluded = scene.gi_mask() < 0.5
+        gi_w = params.get("gi_mask_meshes")
+        excluded = (np.zeros(0, bool) if gi_w is None
+                    else np.asarray(gi_w) < 0.5)
         if excluded.any() and any(getattr(e, "selection", "mask") == "rerender"
                                   for e in self.effects):
             # exact Selection: a second raster pass without the excluded
@@ -320,9 +345,34 @@ class EffectComposer:
                 gi_gbuffer = pick(gi_gbuffer)
         return gbuffer, velocity, color, gi_gbuffer
 
-    def _render_frame(self, external, dt):
-        """The frame driver of :meth:`render` (``external`` None) and
-        :meth:`render_external` (``external`` = the buffers)."""
+    def build_params(self, moved: bool = False) -> dict:
+        """The frame's uniform dict, as the frame function reads it (the
+        JAX package's ``build_params``): the global flags from the
+        composer's counters, each effect's :meth:`uniforms` as host
+        floats."""
+        gi_mask = getattr(self.scene, "gi_mask", None)
+        params = {"__global__": {
+            "keep_data": 0.0 if self._reset_pending else 1.0,
+            "camera_moved": bool(moved),
+            "camera_not_moved_frames": self.camera_not_moved_frames,
+            # per-mesh SSGI participation, a host array
+            "gi_mask_meshes": gi_mask() if gi_mask is not None else None,
+        }}
+        for e in self.effects:
+            params[e.name] = {k: float(v) for k, v in e.uniforms().items()}
+        return params
+
+    def _model_matrices(self):
+        """(model matrices, previous ones) of the scene, host arrays; an
+        empty scene rasterizes nothing under one identity."""
+        if self.scene.meshes:
+            return self.scene.model_matrices(), self.scene.prev_model_matrices()
+        return np.eye(4)[None], np.eye(4)[None]
+
+    def _render_frame(self, external, dt, mesh=None):
+        """The host side of :meth:`render` (``external`` None) and
+        :meth:`render_external` (``external`` = the buffers) around the
+        frame body."""
         if self._state is None:
             self._state = self._init_state()
 
@@ -354,47 +404,16 @@ class EffectComposer:
         unjit = _camera(self.camera, world, proj)
         cam = unjit if jit_proj is proj else _camera(self.camera, world, jit_proj)
         prev_cam = _camera(self.camera, prev_world, prev_proj)
-        gi_mask = getattr(self.scene, "gi_mask", None)
-        params = {"__global__": {
-            "keep_data": 0.0 if self._reset_pending else 1.0,
-            "camera_moved": bool(moved),
-            "camera_not_moved_frames": self.camera_not_moved_frames,
-            # per-mesh SSGI participation, a host array
-            "gi_mask_meshes": gi_mask() if gi_mask is not None else None,
-        }}
-        for e in self.effects:
-            params[e.name] = {k: float(v) for k, v in e.uniforms().items()}
-
-        timer = _StageTimer(self.device) if self.collect_timings else None
+        params = self.build_params(moved)
         if external is None:
-            if timer:
-                timer.start("raster")
-            with torch.profiler.record_function("stage:raster"):
-                gbuffer, velocity, color, gi_gbuffer = self._raster(
-                    cam, unjit, prev_cam, env, self.frame % 4096)
-            if timer:
-                timer.stop()
+            packed, lighting = self._stage_scene()
+            image, self._state = self._build_frame_fn(mesh)(
+                packed, *self._model_matrices(), cam, unjit, prev_cam,
+                self._state, params, self.frame % 4096, env, lighting)
         else:
-            (gbuffer, velocity, color), gi_gbuffer = external, None
-        ctx = FrameContext(
-            gbuffer=gbuffer, velocity=velocity,
-            last_velocity=self._state["__global__"]["last_velocity"],
-            scene_color=color, cam=cam, unjittered_cam=unjit,
-            prev_cam=prev_cam, frame_index=self.frame % 4096, params=params,
-            env=env, gi_gbuffer=gi_gbuffer)
-
-        new_state = {"__global__": {"last_velocity": velocity}}
-        image = color
-        for e in self.effects:
-            if timer:
-                timer.start(e.name)
-            with torch.profiler.record_function(f"stage:{e.name}"):
-                image, new_state[e.name] = e.apply(ctx, image, self._state[e.name])
-            if timer:
-                timer.stop()
-        if timer:
-            self.last_timings = timer.read()
-        self._state = new_state
+            image, self._state = self._frame(
+                external, mesh, None, None, None, cam, unjit, prev_cam,
+                self._state, params, self.frame % 4096, env, None)
 
         self._prev_world = world
         self._prev_proj = proj
@@ -405,10 +424,105 @@ class EffectComposer:
         self._reset_pending = False
         return image
 
+    def _build_frame_fn(self, mesh=None):
+        """The frame function of the JAX package's method of this name:
+        ``frame_fn(packed, model_mats, prev_model_mats, cam, unjit_cam,
+        prev_cam, state, params, frame_index, env, lighting) -> (image,
+        new_state)``, the frame body of :meth:`render` with its inputs
+        given (``params`` as :meth:`build_params` makes them; the
+        skinning, morph and alpha inputs come from the scene).
+
+        With ``mesh``, the split frame: ``image`` and every image-like
+        leaf of ``new_state`` come back as ``RowBlocks`` (block ``i`` on
+        ``mesh[i]``); ``state`` may be given whole or as blocks. Each
+        stage runs per shard or whole as ``parallel/__init__.py`` sets out,
+        and :attr:`last_placement` reports where."""
+        def frame_fn(packed, model_mats, prev_model_mats, cam, unjit_cam,
+                     prev_cam, state, params, frame_index, env, lighting):
+            return self._frame(None, mesh, packed, model_mats, prev_model_mats,
+                               cam, unjit_cam, prev_cam, state, params,
+                               int(frame_index), env, lighting)
+
+        return frame_fn
+
+    def _frame(self, external, mesh, packed, model_mats, prev_model_mats, cam,
+               unjit_cam, prev_cam, state, params, frame_index, env, lighting):
+        """The frame body: raster (or the ``external`` buffers), shade,
+        the effect chain; split over ``mesh`` when one is given. Returns
+        (image, new state)."""
+        timer = _StageTimer(self.device) if self.collect_timings else None
+        sf = (None if mesh is None else
+              SplitFrame(tuple(torch.device(d) for d in mesh), self.device,
+                         self.height, self.width))
+
+        def stage(name, fn):
+            if timer:
+                timer.start(name)
+            with torch.profiler.record_function(f"stage:{name}"):
+                out = fn()
+            if timer:
+                timer.stop()
+            return out
+
+        color = None
+        if external is None:
+            gbuffer, velocity, color, gi_gbuffer = stage("raster", lambda: self._raster(
+                packed, model_mats, prev_model_mats, cam, unjit_cam, prev_cam,
+                env, lighting, frame_index, params["__global__"],
+                shade=sf is None))
+        else:
+            (gbuffer, velocity, color), gi_gbuffer = external, None
+        if sf is None:
+            state = gather_pytree(state, self.device)
+        else:
+            sf.placement["raster"] = "whole"
+            state = sf.split(state)
+            gbuffer, velocity, gi_gbuffer = sf.split((gbuffer, velocity,
+                                                      gi_gbuffer))
+            if color is None:
+                color = stage("shade", lambda: sf.map(
+                    lambda row0, gb: shade_direct(gb, cam, lighting, env, row0,
+                                                  self.height), 0, gbuffer))
+                sf.placement["shade"] = "shard"
+            else:
+                if external is None:
+                    sf.placement["shade"] = "whole"
+                color = sf.split(color)
+        ctx = FrameContext(
+            gbuffer=gbuffer, velocity=velocity,
+            last_velocity=state["__global__"]["last_velocity"],
+            scene_color=color, cam=cam, unjittered_cam=unjit_cam,
+            prev_cam=prev_cam, frame_index=frame_index, params=params,
+            env=env, gi_gbuffer=gi_gbuffer)
+
+        new_state = {"__global__": {"last_velocity": velocity}}
+        image = color
+        whole_ctx = None
+        for e in self.effects:
+            if sf is None:
+                run = lambda e=e: e.apply(ctx, image, state[e.name])
+            elif e.split_placement() == "shard":
+                sf.placement[e.name] = "shard"
+                run = lambda e=e: e.apply_split(sf, ctx, image, state[e.name])
+            else:
+                sf.placement[e.name] = "whole"
+                if whole_ctx is None:
+                    whole_ctx = sf.gather(ctx)
+                run = lambda e=e: sf.split(e.apply(
+                    whole_ctx, sf.gather(image), sf.gather(state[e.name])))
+            image, new_state[e.name] = stage(e.name, run)
+        if timer:
+            self.last_timings = timer.read()
+        self.last_placement = {} if sf is None else sf.placement
+        return image, new_state
+
     # ------------------------------------------------------------------
     def state(self, effect_name: str):
-        """An effect's state dict (observability hook)."""
-        return self._state[effect_name] if self._state else None
+        """An effect's state dict (observability hook); row blocks of a
+        split frame are joined on the composer's device."""
+        if not self._state:
+            return None
+        return gather_pytree(self._state[effect_name], self.device)
 
     def save_state(self, path: str):
         """Write the temporal state and frame counters to ``path`` (.npz).
@@ -418,7 +532,8 @@ class EffectComposer:
 
         if self._state is None:
             raise RuntimeError("no state yet: render at least one frame")
-        arrays = flatten_state(state_to_numpy(self._state))
+        arrays = flatten_state(state_to_numpy(gather_pytree(self._state,
+                                                            self.device)))
         arrays["__frame__"] = np.asarray(self.frame)
         arrays["__cnmf__"] = np.asarray(self.camera_not_moved_frames)
         arrays["__prev_world__"] = np.asarray(

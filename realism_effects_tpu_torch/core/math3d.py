@@ -159,20 +159,35 @@ def screen_to_world(uv, depth, camera_matrix_world, projection_matrix_inverse):
     return transform_point(camera_matrix_world, clip)
 
 
-def fwidth(v):
+def fwidth(v, row_offset: int = 0, frame_height: int | None = None):
     """Per-pixel |ddx| + |ddy| over an ``(H, W, ...)`` tensor: forward
-    differences, zero at the last column and row (edge replication)."""
+    differences, zero at the last column and row (edge replication).
+
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the frame's height: the difference is then zero
+    at the frame's last row wherever that falls in the block (a row past
+    it has no successor in the frame)."""
     dx = torch.zeros_like(v)
     dy = torch.zeros_like(v)
     dx[:, :-1] = v[:, 1:] - v[:, :-1]
     dy[:-1] = v[1:] - v[:-1]
+    if frame_height is not None:
+        dy[max(0, int(frame_height) - 1 - int(row_offset)):] = 0.0
     return dx.abs() + dy.abs()
 
 
-def uv_grid(height: int, width: int, device=None):
-    """Pixel-center uv coordinates, shape ``(H, W, 2)``; row 0 is v=0."""
+def uv_grid(height: int, width: int, device=None, row_offset: int = 0,
+            frame_height: int | None = None):
+    """Pixel-center uv coordinates, shape ``(H, W, 2)``; row 0 is v=0.
+
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the frame's height: v is then the frame's own."""
+    fh = height if frame_height is None else int(frame_height)
     u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
-    v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
+    v = torch.arange(height, dtype=torch.float32, device=device)
+    if row_offset:
+        v = v + float(row_offset)
+    v = (v + 0.5) / fh
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     return torch.stack([uu, vv], dim=-1)
 

@@ -7,9 +7,11 @@ from __future__ import annotations
 from ..core.framebuffers import GBuffer
 from ..core.math3d import uv_grid
 from ..core.sampling import sample_bilinear, sample_nearest
+from ..ops import ao as ops_ao
 from ..ops.ao import AOConfig, gtao, hbao
 from ..ops.compose import ao_compose
 from ..ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise_ao
+from ..parallel.halo import poisson_denoise_ao_blocks
 from .base import Effect
 
 
@@ -77,9 +79,34 @@ class AOEffect(Effect):
         if self.denoise_cfg.iterations > 0:
             ao = poisson_denoise_ao(ao, normal, gb, ctx.frame_index,
                                     self.denoise_cfg)
-        out = ao_compose(color, ao, gb.depth,
-                         power=ctx.params[self.name]["power"],
-                         ao_color=self.color)
+        return self._compose(ctx, color, ao, gb.depth), state
+
+    def _compose(self, ctx, color, ao, depth):
+        return ao_compose(color, ao, depth, power=ctx.params[self.name]["power"],
+                          ao_color=self.color)
+
+    def split_placement(self):
+        """Per shard on the fused HBAO kernel with the G-buffer's normals
+        at full resolution; whole otherwise (GTAO, the unfused route, a
+        depth-derived normal or a scaled pass)."""
+        fused = (self.kind == "hbao" and ops_ao.USE_FUSED_KERNEL
+                 and self.cfg.use_normal_texture)
+        return "shard" if fused and self.resolution_scale >= 1.0 else "whole"
+
+    def apply_split(self, sf, ctx, color, state):
+        """HBAO per shard, halo-extended by its window (``window_ky``
+        rows); the AO Poisson passes with their own halo each; the
+        compose per shard."""
+        gb = ctx.gbuffer
+        ao = sf.map(lambda row0, depth, normal: ops_ao.hbao(
+            depth, normal, ctx.unjittered_cam, ctx.frame_index, self.cfg,
+            row0, sf.height)[1], int(self.cfg.window_ky), gb.depth, gb.normal)
+        if self.denoise_cfg.iterations > 0:
+            ao = poisson_denoise_ao_blocks(ao, gb, ctx.frame_index,
+                                           self.denoise_cfg, sf.mesh,
+                                           (sf.height, sf.width))
+        out = sf.map(lambda _row0, c, a, d: self._compose(ctx, c, a, d), 0,
+                     color, ao, gb.depth)
         return out, state
 
 

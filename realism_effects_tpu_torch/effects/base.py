@@ -32,3 +32,16 @@ class Effect:
     def apply(self, ctx, color, state: dict):
         """Returns (new_color (H, W, 3), new_state)."""
         raise NotImplementedError
+
+    def split_placement(self) -> str:
+        """Where a split frame runs this effect: ``"shard"`` (per shard,
+        through :meth:`apply_split`) or ``"whole"`` (its inputs gathered
+        on the composer's device, :meth:`apply` there, its outputs split
+        again: the same values by construction)."""
+        return "whole"
+
+    def apply_split(self, sf, ctx, color, state: dict):
+        """:meth:`apply` in a split frame (``parallel.halo.SplitFrame``
+        ``sf``): the image-like leaves of ``ctx``, ``color`` and ``state``
+        are row blocks, and so are those of the result."""
+        raise NotImplementedError(f"{type(self).__name__} runs whole")

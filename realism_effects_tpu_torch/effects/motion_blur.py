@@ -11,6 +11,7 @@ parity mode).
 from __future__ import annotations
 
 from ..ops import motion_blur as _op
+from ..parallel.context import replicate_for_rolls
 from .base import Effect
 
 
@@ -45,14 +46,28 @@ class MotionBlurEffect(Effect):
                 "delta_time": float(self.delta_time)}
 
     def apply(self, ctx, color, state):
+        return self._blur(ctx, color, ctx.velocity.velocity), state
+
+    def _blur(self, ctx, color, velocity, row_offset: int = 0, source=None):
         u = ctx.params[self.name]
         args = dict(intensity=u["intensity"], jitter=u["jitter"],
-                    delta_time=u["delta_time"])
+                    delta_time=u["delta_time"], row_offset=row_offset,
+                    source=source)
         if self.mode == "sweep":
-            out = _op.motion_blur_sweep(color, ctx.velocity.velocity,
-                                        ctx.frame_index, dirs=self.sweep_dirs,
-                                        steps=self.sweep_steps, **args)
-        else:
-            out = _op.motion_blur(color, ctx.velocity.velocity,
-                                  ctx.frame_index, samples=self.samples, **args)
+            return _op.motion_blur_sweep(color, velocity, ctx.frame_index,
+                                         dirs=self.sweep_dirs,
+                                         steps=self.sweep_steps, **args)
+        return _op.motion_blur(color, velocity, ctx.frame_index,
+                               samples=self.samples, **args)
+
+    def split_placement(self):
+        return "shard"
+
+    def apply_split(self, sf, ctx, color, state):
+        """The colour gathered once (``replicate_for_rolls``: a blur
+        reads up to a quarter of the diagonal away, the taps anywhere);
+        each shard blurs its own rows from it."""
+        source = replicate_for_rolls(color, device=sf.home)
+        out = sf.map(lambda row0, c, v, src: self._blur(ctx, c, v, row0, src),
+                     0, color, ctx.velocity.velocity, source)
         return out, state

@@ -25,8 +25,10 @@ from ..core.sampling import sample_bilinear, sample_nearest
 from ..ops.compose import ssgi_compose
 from ..ops.denoiser_compose import denoiser_compose
 from ..ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise
-from ..ops.ssgi import SSGIConfig, ssgi
-from ..ops.temporal_reproject import TemporalReprojectConfig, temporal_reproject
+from ..ops.ssgi import SSGIConfig, ssgi, ssgi_split
+from ..ops.temporal_reproject import (TemporalReprojectConfig, halo_rows,
+                                      temporal_reproject)
+from ..parallel.halo import poisson_denoise_blocks
 from .base import Effect
 
 
@@ -149,24 +151,50 @@ class SSGIEffect(Effect):
         gi_w = ctx.params["__global__"].get("gi_mask_meshes")
         if gbuffer.mesh_id is None or gi_w is None or not (gi_w < 0.5).any():
             return gbuffer  # nothing excluded: the identity
-        weights = torch.as_tensor(gi_w, device=gbuffer.device)
-        mesh_id = gbuffer.mesh_id
-        sel = torch.where(mesh_id >= 0, weights[mesh_id.clamp(min=0).long()],
-                          1.0) > 0.5
-        s1 = sel[..., None]
-        return GBuffer(
-            diffuse=torch.where(s1, gbuffer.diffuse, 0.0),
-            normal=torch.where(s1, gbuffer.normal, 0.0),
-            roughness=torch.where(sel, gbuffer.roughness, 0.0),
-            metalness=torch.where(sel, gbuffer.metalness, 0.0),
-            emissive=torch.where(s1, gbuffer.emissive, 0.0),
-            depth=torch.where(sel, gbuffer.depth, 1.0),
-            mesh_id=torch.where(sel, mesh_id, -1),
-            ao=None if gbuffer.ao is None else torch.where(sel, gbuffer.ao, 1.0))
+        return _mask_gbuffer(gbuffer, gi_w)
+
+    def _reproject(self, ctx, inputs, history, velocity, last_velocity,
+                   roughness, row_offset: int = 0,
+                   frame_height: int | None = None):
+        """2. temporal reprojection (`Denoiser.js:33-42`)."""
+        g = ctx.params["__global__"]
+        return temporal_reproject(
+            inputs, history, velocity, last_velocity, ctx.cam, ctx.prev_cam,
+            self.temporal_cfg, max_blend=1.0, neighborhood_clamp_intensity=0.5,
+            full_accumulate=not g["camera_moved"], keep_data=g["keep_data"],
+            roughness_tex=roughness, row_offset=row_offset,
+            frame_height=frame_height)
+
+    def _compose(self, ctx, gbuffer, color, traced, temporal, denoised,
+                 row_offset: int = 0, frame_height: int | None = None):
+        """4. GI composition (SSR: the specular texture over the scene
+        colour), 5. over the scene (+ fog), and the debug routing.
+        Returns (output, composed)."""
+        rows = dict(row_offset=row_offset, frame_height=frame_height)
+        if self.mode == "ssgi":
+            composed = denoiser_compose(denoised[0], denoised[1], gbuffer,
+                                        ctx.cam, **rows)
+        else:
+            composed = denoiser_compose(denoised[0], denoised[0], gbuffer,
+                                        ctx.cam, scene_color=color,
+                                        input_type="specular", **rows)
+        out = ssgi_compose(composed, color, gbuffer.depth, ctx.cam,
+                           fog_color=self.fog_color,
+                           fog_density=self.fog_density)
+        if self.output_texture is not None:
+            out = {
+                "diffuse": traced[0][..., :3],
+                "specular": traced[1][..., :3],
+                "temporal_diffuse": temporal[0][..., :3],
+                "temporal_specular": temporal[-1][..., :3],
+                "denoised_diffuse": denoised[0][..., :3],
+                "denoised_specular": denoised[-1][..., :3],
+                "composed": composed,
+            }[self.output_texture]
+        return out, composed
 
     def apply(self, ctx, color, state):
         u = ctx.params[self.name]
-        g = ctx.params["__global__"]
         gbuffer = self._selected(ctx)
 
         # 1. the trace; its radiance is last frame's composed output.
@@ -192,15 +220,9 @@ class SSGIEffect(Effect):
             g_diffuse, g_specular = ssgi(gbuffer, ctx.velocity,
                                          state["composed"], color, **trace_args)
 
-        # 2. temporal reprojection (`Denoiser.js:33-42`)
-        ssgi_mode = self.mode == "ssgi"
-        inputs = [g_diffuse, g_specular] if ssgi_mode else [g_specular]
-        temporal = temporal_reproject(
-            inputs, state["history"], ctx.velocity,
-            ctx.last_velocity, ctx.cam, ctx.prev_cam, self.temporal_cfg,
-            max_blend=1.0, neighborhood_clamp_intensity=0.5,
-            full_accumulate=not g["camera_moved"], keep_data=g["keep_data"],
-            roughness_tex=gbuffer.roughness)
+        inputs = [g_diffuse, g_specular] if self.mode == "ssgi" else [g_specular]
+        temporal = self._reproject(ctx, inputs, state["history"], ctx.velocity,
+                                   ctx.last_velocity, gbuffer.roughness)
 
         # 3. spatial Poisson denoise (skipped by the *_temporal modes)
         if self.denoise_mode in ("full", "denoised"):
@@ -208,31 +230,71 @@ class SSGIEffect(Effect):
                                        self.denoise_cfg)
         else:
             denoised = temporal
+        out, composed = self._compose(ctx, gbuffer, color,
+                                      (g_diffuse, g_specular), temporal,
+                                      denoised)
+        return out, {"history": list(denoised), "composed": composed}
 
-        # 4. GI composition (SSR: the specular texture over the scene
-        #    colour), 5. over the scene (+ fog)
-        if ssgi_mode:
-            composed = denoiser_compose(denoised[0], denoised[1], gbuffer,
-                                        ctx.cam)
+    def split_placement(self):
+        """Per shard for SSGI at full resolution; whole for SSR and a
+        scaled pass (whose row blocks would not line up at both
+        sizes)."""
+        return ("shard" if self.mode == "ssgi" and self.resolution_scale >= 1.0
+                else "whole")
+
+    def apply_split(self, sf, ctx, color, state):
+        """The trace by ``ops.ssgi.ssgi_split`` (sources gathered once),
+        the reprojection per shard halo-extended by its reach, the
+        Poisson passes with their own halo each, the composes per
+        shard."""
+        u = ctx.params[self.name]
+        fh = sf.height
+        gbuffer = ctx.gbuffer
+        gi_w = ctx.params["__global__"].get("gi_mask_meshes")
+        if self.selection == "rerender" and ctx.gi_gbuffer is not None:
+            gbuffer = ctx.gi_gbuffer
+        elif gbuffer.mesh_id is not None and gi_w is not None and (gi_w < 0.5).any():
+            gbuffer = sf.map(lambda _row0, gb: _mask_gbuffer(gb, gi_w), 0,
+                             gbuffer)
+        traced = ssgi_split(sf, gbuffer, ctx.velocity, state["composed"], color,
+                            ctx.env, ctx.cam, ctx.frame_index, self.cfg,
+                            ray_distance=u["ray_distance"],
+                            thickness=u["thickness"], env_blur=u["env_blur"])
+        temporal = sf.map(
+            lambda row0, inputs, history, vel, last_vel, rough: self._reproject(
+                ctx, inputs, history, vel, last_vel, rough, row0, fh),
+            halo_rows(self.temporal_cfg), list(traced), state["history"],
+            ctx.velocity, ctx.last_velocity, gbuffer.roughness)
+        if self.denoise_mode in ("full", "denoised"):
+            denoised = poisson_denoise_blocks(temporal, gbuffer, ctx.frame_index,
+                                              self.denoise_cfg, sf.mesh,
+                                              (fh, sf.width))
         else:
-            composed = denoiser_compose(denoised[0], denoised[0], gbuffer,
-                                        ctx.cam, scene_color=color,
-                                        input_type="specular")
-        out = ssgi_compose(composed, color, gbuffer.depth, ctx.cam,
-                           fog_color=self.fog_color,
-                           fog_density=self.fog_density)
-        new_state = {"history": list(denoised), "composed": composed}
-        if self.output_texture is not None:
-            return {
-                "diffuse": g_diffuse[..., :3],
-                "specular": g_specular[..., :3],
-                "temporal_diffuse": temporal[0][..., :3],
-                "temporal_specular": temporal[-1][..., :3],
-                "denoised_diffuse": denoised[0][..., :3],
-                "denoised_specular": denoised[-1][..., :3],
-                "composed": composed,
-            }[self.output_texture], new_state
-        return out, new_state
+            denoised = temporal
+        out, composed = sf.map(
+            lambda row0, gb, c, tr, te, de: self._compose(ctx, gb, c, tr, te, de,
+                                                           row0, fh),
+            0, gbuffer, color, list(traced), temporal, denoised)
+        return out, {"history": list(denoised), "composed": composed}
+
+
+def _mask_gbuffer(gbuffer: GBuffer, gi_w) -> GBuffer:
+    """``gbuffer`` with the pixels of the meshes whose weight in the host
+    array ``gi_w`` is below 0.5 sent to background."""
+    weights = torch.as_tensor(gi_w, device=gbuffer.device)
+    mesh_id = gbuffer.mesh_id
+    sel = torch.where(mesh_id >= 0, weights[mesh_id.clamp(min=0).long()],
+                      1.0) > 0.5
+    s1 = sel[..., None]
+    return GBuffer(
+        diffuse=torch.where(s1, gbuffer.diffuse, 0.0),
+        normal=torch.where(s1, gbuffer.normal, 0.0),
+        roughness=torch.where(sel, gbuffer.roughness, 0.0),
+        metalness=torch.where(sel, gbuffer.metalness, 0.0),
+        emissive=torch.where(s1, gbuffer.emissive, 0.0),
+        depth=torch.where(sel, gbuffer.depth, 1.0),
+        mesh_id=torch.where(sel, mesh_id, -1),
+        ao=None if gbuffer.ao is None else torch.where(sel, gbuffer.ao, 1.0))
 
 
 class SSREffect(SSGIEffect):

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.temporal_reproject import TemporalReprojectConfig, temporal_reproject
+from ..ops.temporal_reproject import (TemporalReprojectConfig, halo_rows,
+                                      temporal_reproject)
 from .base import Effect
 
 
@@ -48,6 +49,12 @@ class TRAAEffect(Effect):
         return {"history": torch.zeros((height, width, 4), device=device)}
 
     def apply(self, ctx, color, state):
+        out = self._accumulate(ctx, color, state["history"], ctx.velocity,
+                               ctx.last_velocity)
+        return out[..., :3], {"history": out}
+
+    def _accumulate(self, ctx, color, history, velocity, last_velocity,
+                    row_offset: int = 0, frame_height: int | None = None):
         u = ctx.params[self.name]
         g = ctx.params["__global__"]
         inp = torch.cat([color, torch.ones_like(color[..., :1])], dim=-1)
@@ -55,11 +62,26 @@ class TRAAEffect(Effect):
         # (`TemporalReprojectPass.js:178-183`)
         full_acc = self.full_accumulate and not g["camera_moved"]
         (out,) = temporal_reproject(
-            [inp], [state["history"]], ctx.velocity, ctx.last_velocity,
+            [inp], [history], velocity, last_velocity,
             ctx.unjittered_cam, ctx.prev_cam, self.cfg,
             max_blend=u["max_blend"],
             neighborhood_clamp_intensity=u["neighborhood_clamp_intensity"],
             full_accumulate=full_acc,
             keep_data=g["keep_data"],
+            row_offset=row_offset, frame_height=frame_height,
         )
-        return out[..., :3], {"history": out}
+        return out
+
+    def split_placement(self):
+        return "shard"
+
+    def apply_split(self, sf, ctx, color, state):
+        """Per shard, halo-extended by the reprojection's reach."""
+        def step(row0, color_, history, velocity, last_velocity):
+            out = self._accumulate(ctx, color_, history, velocity,
+                                   last_velocity, row0, sf.height)
+            return out[..., :3], out
+
+        rgb, out = sf.map(step, halo_rows(self.cfg), color, state["history"],
+                          ctx.velocity, ctx.last_velocity)
+        return rgb, {"history": out}

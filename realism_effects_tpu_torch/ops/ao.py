@@ -110,11 +110,19 @@ def depth_world_normals(depth: torch.Tensor, cam) -> torch.Tensor:
 
 
 def hbao(depth: torch.Tensor, normal: torch.Tensor | None, cam, frame: int,
-         cfg: AOConfig):
+         cfg: AOConfig, row_offset: int = 0, frame_height: int | None = None):
     """HBAO. Returns (world normal (H, W, 3), ao (H, W)).
 
     ``normal``: world normals (G-buffer); None selects the depth-derived
-    normals (`hbao_utils.glsl:70-79`)."""
+    normals (`hbao_utils.glsl:70-79`). A row block of a larger frame
+    passes its first row's global index ``row_offset`` and the frame's
+    height; that takes the fused kernel and the G-buffer's normals."""
+    if frame_height is not None:
+        if not (USE_FUSED_KERNEL and normal is not None and cfg.use_normal_texture):
+            raise ValueError("a row block of HBAO runs the fused kernel on "
+                             "the G-buffer's normals")
+        return normal, hbao_fused(depth, normal, cam, frame, cfg, row_offset,
+                                  frame_height)
     if normal is None or not cfg.use_normal_texture:
         world_normal = depth_world_normals(depth, cam)
     else:

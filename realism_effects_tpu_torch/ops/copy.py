@@ -20,18 +20,22 @@ def copy_textures(textures):
     return [t.clone() for t in textures]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, is_leaf=None):
     """``fn`` applied to every leaf of a nested dict/list/tuple/dataclass
     (the ``jax.tree_util.tree_map`` of the JAX package's helpers); the
-    containers keep their types."""
+    containers keep their types. ``is_leaf(node)`` true stops the descent
+    there (a container that is one leaf)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    rec = lambda v: tree_map(fn, v, is_leaf)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: rec(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v) for v in tree]
+        out = [rec(v) for v in tree]
         return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: tree_map(fn, getattr(tree, f.name))
+            f.name: rec(getattr(tree, f.name))
             for f in dataclasses.fields(tree) if f.init})
     return fn(tree)
 

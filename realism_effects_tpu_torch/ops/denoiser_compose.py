@@ -14,9 +14,12 @@ from ..core.math3d import dot, mix, normalize, transform_dir_transpose, uv_grid
 
 def denoiser_compose(diffuse_gi: torch.Tensor, specular_gi: torch.Tensor,
                      gbuffer: GBuffer, cam, scene_color=None,
-                     input_type: str = "diffuse_specular") -> torch.Tensor:
+                     input_type: str = "diffuse_specular", row_offset: int = 0,
+                     frame_height: int | None = None) -> torch.Tensor:
     """The composed (H, W, 3) radiance; background pixels keep the
-    diffuse input (the pass discards there, `DenoiserComposePass.js:56-60`)."""
+    diffuse input (the pass discards there, `DenoiserComposePass.js:56-60`).
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the frame's height (the view ray is the frame's)."""
     h, w = gbuffer.depth.shape
     depth = gbuffer.depth
     roughness = gbuffer.roughness * gbuffer.roughness  # `:56` squared
@@ -24,7 +27,8 @@ def denoiser_compose(diffuse_gi: torch.Tensor, specular_gi: torch.Tensor,
     diffuse = gbuffer.diffuse[..., :3]
 
     view_z = math3d.depth_to_view_z(depth, cam)
-    view_pos = math3d.get_view_position(uv_grid(h, w, depth.device), view_z,
+    view_pos = math3d.get_view_position(uv_grid(h, w, depth.device, row_offset,
+                                                frame_height), view_z,
                                         cam.projection_matrix,
                                         cam.projection_matrix_inverse)
     # world-space frame (`denoiser_compose_functions.glsl:58-70`)

@@ -225,15 +225,21 @@ noise_table.launches = 0
 
 
 def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
-               cfg) -> torch.Tensor:
+               cfg, row_offset: int = 0,
+               frame_height: int | None = None) -> torch.Tensor:
     """Fused HBAO: the AO plane (H, W) of ``depth`` (H, W) and world
-    normals ``normal`` (H, W, 3). Under a row mesh each shard runs on its
+    normals ``normal`` (H, W, 3). A row block of a larger frame passes
+    its first row's global index ``row_offset`` and the frame's height
+    (its rows are exact where it reaches ``cfg.window_ky`` rows past
+    them). Under a row mesh, a whole frame runs per shard on
     halo-extended rows. CUDA tensors launch the kernel; CPU tensors take
     the plain version."""
     h = int(depth.shape[0])
+    if frame_height is not None:
+        return _hbao(depth, normal, cam, frame, cfg, row_offset, frame_height)
     mesh = row_mesh_for(h)
     if mesh is None:
-        return _hbao(depth, normal, cam, frame, cfg, 0, h)
+        return _hbao(depth, normal, cam, frame, cfg, row_offset, h)
     from ..parallel.halo import map_row_blocks
 
     ky = int(cfg.window_ky)

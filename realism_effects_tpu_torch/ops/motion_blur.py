@@ -47,12 +47,19 @@ def _frame_speed(delta_time) -> float:
 
 def motion_blur(color: torch.Tensor, velocity: torch.Tensor, frame: int,
                 intensity=1.0, jitter=1.0, delta_time=1.0 / 60.0,
-                samples: int = 16) -> torch.Tensor:
+                samples: int = 16, row_offset: int = 0,
+                source: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's taps. A row block of a larger frame passes its
+    first row's global index ``row_offset`` and the whole frame's colour
+    as ``source`` (the taps read it anywhere); ``color`` and ``velocity``
+    are the block's."""
     h, w = color.shape[:2]
-    uv = uv_grid(h, w, color.device)
+    src = color if source is None else source
+    uv = uv_grid(h, w, color.device, row_offset, src.shape[0])
     vel = velocity * float(intensity)
     did_move = (velocity * velocity).sum(-1) > 1e-9
-    noise = blue_noise_image(h, w, frame, device=color.device)
+    noise = blue_noise_image(h, w, frame, row_offset=row_offset,
+                             device=color.device)
     jitter_offset = float(jitter) * vel * noise[..., :2]
     frame_speed = _frame_speed(delta_time)
     start_uv = torch.clamp(uv + (jitter_offset - vel * 0.5) * frame_speed, min=0.0)
@@ -63,7 +70,7 @@ def motion_blur(color: torch.Tensor, velocity: torch.Tensor, frame: int,
         # inputTexture is the composer's HalfFloat framebuffer
         # (`example/main.js` frameBufferType): half-precision taps
         tap_uv = mix(start_uv, end_uv, i / float(samples))
-        acc = acc + sample_bilinear(color, tap_uv, half=True)
+        acc = acc + sample_bilinear(src, tap_uv, half=True)
     blurred = acc / (float(samples) + 2.0)
     return torch.where(did_move[..., None], blurred, color)
 
@@ -98,7 +105,8 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
                       intensity=1.0, jitter=1.0, delta_time=1.0 / 60.0,
                       dirs: int = 16, steps: int = 12,
                       min_radius: float = 0.75,
-                      max_radius_frac: float = 0.25) -> torch.Tensor:
+                      max_radius_frac: float = 0.25, row_offset: int = 0,
+                      source: torch.Tensor | None = None) -> torch.Tensor:
     """Direction-binned sweep line integral: the same integral as
     :func:`motion_blur` (`motion_blur.frag:23-42`), the average scene
     colour over the segment ``uv + (jitterOffset +- vel / 2) *
@@ -108,27 +116,34 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
     into cells, and each pixel weights cell k of its bin by the overlap
     of the cell with its own jittered per-side extent. Out-of-frame taps
     drop and renormalise; the uncovered sliver near the origin plus the
-    reference's double-counted centre tap weight the pixel's own colour."""
+    reference's double-counted centre tap weight the pixel's own colour.
+
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the whole frame's colour as ``source`` (the cells
+    read it up to ``max_radius_frac`` of the diagonal away); ``color``
+    and ``velocity`` are the block's, and the cell table is the
+    frame's."""
     h, w = color.shape[:2]
+    fh = h if source is None else source.shape[0]
     dev = color.device
     vel = velocity * float(intensity)
     did_move = (velocity * velocity).sum(-1) > 1e-9
     frame_speed = _frame_speed(delta_time)
 
     # segment geometry in pixel space
-    px = torch.tensor([float(w), float(h)], device=dev)
+    px = torch.tensor([float(w), float(fh)], device=dev)
     seg = vel * frame_speed * px           # full extent, pixels
     seg_len = torch.sqrt(seg[..., 0] * seg[..., 0] + seg[..., 1] * seg[..., 1])
     half = 0.5 * seg_len
     theta = torch.atan2(seg[..., 1], seg[..., 0])
     # the reference's forward segment shift jitter * vel * noise, along
     # the segment with the r noise channel
-    noise = blue_noise_image(h, w, frame, device=dev)
+    noise = blue_noise_image(h, w, frame, row_offset=row_offset, device=dev)
     j_px = float(jitter) * noise[..., 0] * seg_len
     u_pos = torch.clamp(j_px + half, min=0.0)
     u_neg = torch.clamp(half - j_px, min=0.0)
 
-    dys, dxs, e_lo, e_hi, xi = sweep_cells(frame, h, w, dirs, steps,
+    dys, dxs, e_lo, e_hi, xi = sweep_cells(frame, fh, w, dirs, steps,
                                            min_radius, max_radius_frac)
     bin_w = float(np.float32(2.0 * math.pi / dirs))
     bin_pos = torch.remainder(torch.round(theta / bin_w - xi), float(dirs))
@@ -138,7 +153,8 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
     # the float16 frame (the composer's HalfFloat target) with a ones
     # channel, zero-padded so that every cell is an in-bounds slice
     pad = int(max(np.abs(dys).max(), np.abs(dxs).max()))
-    src = torch.cat([color, torch.ones_like(color[..., :1])], -1).to(torch.float16)
+    whole = color if source is None else source
+    src = torch.cat([whole, torch.ones_like(whole[..., :1])], -1).to(torch.float16)
     src = torch.nn.functional.pad(src, (0, 0, pad, pad, pad, pad))
     acc = torch.zeros((h, w, 4), device=dev)   # rgb sum, weight sum
     lo = torch.as_tensor(e_lo, device=dev)[:, None, None]
@@ -154,7 +170,7 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
         wgt = torch.clamp(torch.minimum(u_pos_d, hi) - lo, min=0.0) \
             + torch.clamp(torch.minimum(u_neg_d, hi) - lo, min=0.0)
         for k in range(steps):
-            y0, x0 = pad + int(dys[d, k]), pad + int(dxs[d, k])
+            y0, x0 = pad + row_offset + int(dys[d, k]), pad + int(dxs[d, k])
             # acc += cell * weight in one pass, the f16 cell read in place
             acc.addcmul_(src[y0: y0 + h, x0: x0 + w], wgt[k, ..., None])
 

@@ -210,14 +210,22 @@ def poisson_denoise(textures: Sequence[torch.Tensor], gbuffer: GBuffer,
     return out
 
 
+def ao_texture(ao: torch.Tensor) -> torch.Tensor:
+    """The AO plane as the denoiser's texture: replicated to rgb, zero
+    alpha."""
+    return torch.cat([ao[..., None].expand(*ao.shape, 3),
+                      torch.zeros_like(ao)[..., None]], dim=-1)
+
+
+def ao_config(cfg: PoissonDenoiseConfig) -> PoissonDenoiseConfig:
+    return dataclasses.replace(cfg, is_specular=(False,))
+
+
 def poisson_denoise_ao(ao: torch.Tensor, normal: torch.Tensor,
                        gbuffer: GBuffer, frame: int,
                        cfg: PoissonDenoiseConfig) -> torch.Tensor:
     """AO denoise: the scalar AO rides one packed channel (replicated to
     rgb, zero alpha), with normal and depth edge-stopping weights."""
-    tex = torch.cat([ao[..., None].expand(*ao.shape, 3),
-                     torch.zeros_like(ao)[..., None]], dim=-1)
-    cfg1 = dataclasses.replace(cfg, is_specular=(False,))
-    (out,) = poisson_denoise([tex], gbuffer, frame, cfg1,
+    (out,) = poisson_denoise([ao_texture(ao)], gbuffer, frame, ao_config(cfg),
                              scalar_slots=(True,))
     return torch.clamp(out[..., 0], 0.0, 1.0)

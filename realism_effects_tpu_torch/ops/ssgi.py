@@ -26,7 +26,10 @@ from ..core.math3d import (dot, luminance, mix, normalize, smoothstep,
                            transform_dir_transpose, uv_grid)
 from ..core.rng import blue_noise_image, blue_noise_transform
 from ..core.sampling import sample_bilinear, sample_nearest
-from .ssgi_sweep import sweep_ray_march
+from ..parallel.context import replicate_for_rolls
+from .ssgi_sweep import (MIN_RADIUS, march_inputs, step_table, sweep_ray_march,
+                         sweep_results)
+from .sweep_kernel import sweep_march
 from .warp import bilinear_window
 
 EPS = 1e-5
@@ -120,30 +123,49 @@ def _parallax_correct(reflected_ws, world_pos, cfg: SSGIConfig):
 
 
 def _env_fetch_strided(env, dirs_ws, lod, stride: int, frame: int,
-                       quantize: bool):
+                       quantize: bool, row_offset: int = 0,
+                       frame_height: int | None = None):
     """One environment fetch per stride x stride quad, at the member
     (frame % stride, frame // stride % stride); quads past the frame
-    edge read the edge pixel."""
+    edge read the edge pixel. A row block of a larger frame (first row
+    ``row_offset``) fetches the frame's quads over its rows; a row within
+    ``stride - 1`` of the block's edge may read a member past it, which a
+    halo of that many rows holds."""
     h, w = dirs_ws.shape[:2]
+    fh = h if frame_height is None else int(frame_height)
     fy = frame % stride
     fx = frame // stride % stride
-    hq, wq = -(-h // stride), -(-w // stride)
+    wq = -(-w // stride)
     dev = dirs_ws.device
-    rows = torch.clamp(torch.arange(hq, device=dev) * stride + fy, max=h - 1)
+    g0, g1 = max(row_offset, 0), min(row_offset + h, fh) - 1
+    q0 = g0 // stride
+    nq = g1 // stride - q0 + 1
+    rows = torch.clamp((torch.arange(nq, device=dev) + q0) * stride + fy,
+                       max=fh - 1)
+    if row_offset != 0 or h != fh:
+        rows = torch.clamp(rows - row_offset, 0, h - 1)
     cols = torch.clamp(torch.arange(wq, device=dev) * stride + fx, max=w - 1)
     s = sample_equirect_color(env, dirs_ws[rows][:, cols], lod[rows][:, cols],
                               quantize=quantize)
-    s = s[:, None, :, None, :].expand(hq, stride, wq, stride, 3)
-    return s.reshape(hq * stride, wq * stride, 3)[:h, :w]
+    s = s[:, None, :, None, :].expand(nq, stride, wq, stride, 3)
+    s = s.reshape(nq * stride, wq * stride, 3)
+    if row_offset == 0 and h == fh:
+        return s[:h, :w]
+    # block row j is frame row row_offset + j, of quad row (row_offset +
+    # j) // stride; the halo rows past the frame take its edge row
+    idx = torch.arange(h, device=dev).add_(row_offset).clamp_(g0, g1) - q0 * stride
+    return s[idx, :w]
 
 
 def _get_env_color(env: EquirectEnv | None, l_view, view_matrix, roughness,
                    is_diffuse, is_env_sample, env_blur, cfg: SSGIConfig,
-                   world_pos=None, frame: int | None = None):
+                   world_pos=None, frame: int | None = None,
+                   rows: tuple = (0, None)):
     """`ssgi.frag:311-346`: equirect fetch at a roughness-scaled mip,
     luminance-clamped; the sweep trace rounds the lod to a level and
     shares the fetch among stride x stride quads, the march fetches
-    trilinear per pixel."""
+    trilinear per pixel. ``rows``: a row block's (row_offset,
+    frame_height)."""
     if env is None:
         return torch.zeros(l_view.shape[:-1] + (3,), device=l_view.device)
     reflected_ws = normalize(transform_dir_transpose(view_matrix, l_view))
@@ -156,7 +178,8 @@ def _get_env_color(env: EquirectEnv | None, l_view, view_matrix, roughness,
     sweep = cfg.trace == "sweep"
     if sweep and cfg.env_fetch_stride > 1 and frame is not None:
         sample = _env_fetch_strided(env, reflected_ws, lod,
-                                    cfg.env_fetch_stride, frame, quantize=True)
+                                    cfg.env_fetch_stride, frame, quantize=True,
+                                    row_offset=rows[0], frame_height=rows[1])
     else:
         sample = sample_equirect_color(env, reflected_ws, lod, quantize=sweep)
     if cfg.env_lum_clamp:
@@ -175,24 +198,24 @@ def _saturation(c):
     return torch.where(mx == mn, 0.0, (mx - mn) / torch.clamp(mx, min=EPS))
 
 
-def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
-         accumulated: torch.Tensor, direct_light: torch.Tensor,
-         env: EquirectEnv | None, cam, frame: int, cfg: SSGIConfig,
-         ray_distance: float = 10.0, thickness: float = 10.0,
-         env_blur: float = 0.5):
-    """One SSGI sample per pixel. ``accumulated`` is last frame's composed
-    output (H, W, >=3), ``direct_light`` the lit scene colour (H, W, 3).
-    Returns (g_diffuse (H, W, 4) = (diffuseGI | -1, roughness),
-    g_specular (H, W, 4) = (specularGI, rayLength)) as `ssgi.frag:274-308`
-    packs them."""
-    if cfg.trace not in ("sweep", "march"):
-        raise ValueError("trace must be 'march' or 'sweep'")
+#: the vertical reach of the radiance prewarp: its window (8 rows) and
+#: the bilinear footprint (1)
+PREWARP_HALO = 9
+
+
+def _setup(gbuffer: GBuffer, env, cam, frame: int, cfg: SSGIConfig,
+           row_offset: int = 0, frame_height: int | None = None) -> dict:
+    """The per-pixel sampling before the trace (`ssgi.frag:120-240`): the
+    view and world geometry, the blue noise, the GGX / cosine /
+    environment ray choice and the MIS pdf; ``rays`` is [specular] or
+    [specular, diffuse]. Every value is a function of the pixel alone
+    (and its global row)."""
     sweep = cfg.trace == "sweep"
     h, w = gbuffer.depth.shape
+    fh = h if frame_height is None else int(frame_height)
     dev = gbuffer.depth.device
-    uv = uv_grid(h, w, dev)
+    uv = uv_grid(h, w, dev, row_offset, fh)
     depth = gbuffer.depth
-    is_bg = depth >= 1.0
 
     roughness = gbuffer.roughness
     metalness = gbuffer.metalness
@@ -219,7 +242,7 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
 
     f0 = mix(torch.full_like(diffuse, 0.04), diffuse, metalness[..., None])
 
-    random = blue_noise_image(h, w, frame, device=dev)
+    random = blue_noise_image(h, w, frame, row_offset=row_offset, device=dev)
     r1, r2, r3, r4 = random.unbind(-1)
 
     # GGX-VNDF reflection direction (`ssgi.frag:156-166`)
@@ -250,7 +273,8 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
                                                        fast=sweep)
             return torch.cat([pdf_t[..., None], dir_t], dim=-1)
 
-        packed_env = blue_noise_transform(h, w, frame, cdf_on_tile, device=dev)
+        packed_env = blue_noise_transform(h, w, frame, cdf_on_tile,
+                                          row_offset=row_offset, device=dev)
         env_pdf, env_dir_ws = packed_env[..., 0], packed_env[..., 1:4]
         env_mis_dir = normalize(transform_dir_transpose(
             cam.camera_matrix_world, env_dir_ws))
@@ -266,31 +290,55 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
                                              torch.stack([r1, r2], dim=-1))
     diffuse_ray = torch.where(is_env_sample[..., None], env_mis_dir, cos_hemi)
     specular_ray = torch.where(is_env_sample[..., None], env_mis_dir, l_view)
-
     rays = [specular_ray] + ([diffuse_ray] if cfg.mode == "ssgi" else [])
-    if sweep:
-        # Prewarped accumulated radiance A'(q) = acc(q - vel(q)) through
-        # the bilinear window warp, with a validity channel; the march
-        # reads it at each ray's hit texel
-        acc16 = accumulated[..., :3].to(torch.float16).to(torch.float32)
-        pre_uv = uv - velocity.velocity
-        warped_acc, in_win = bilinear_window(acc16.contiguous(), pre_uv,
-                                             ky=8, kx=30)
-        pre_ok = ((pre_uv[..., 0] >= 0.0) & (pre_uv[..., 0] <= 1.0)
-                  & (pre_uv[..., 1] >= 0.0) & (pre_uv[..., 1] <= 1.0) & in_win)
-        prewarped = torch.cat([warped_acc, pre_ok.to(torch.float32)[..., None]],
-                              dim=-1).to(torch.float16)
-        # stochastic bin rounding: a second blue-noise image, independent
-        # of r1-r4
-        bin_noise = blue_noise_image(h, w, frame + 2048, device=dev)[..., 0]
-        traces = sweep_ray_march(
-            view_pos, rays, depth, cam, frame, thickness, ray_distance,
-            dirs=cfg.sweep_dirs, steps=cfg.sweep_steps, bin_noise=bin_noise,
-            radiance=prewarped, miss_radiance=cfg.missed_rays)
-    else:
-        traces = [view_space_ray_march(view_pos, ray, depth, cam, r3, thickness,
-                                       ray_distance, cfg) for ray in rays]
+    return dict(uv=uv, depth=depth, roughness=roughness, metalness=metalness,
+                diffuse=diffuse, roughness_sq=roughness_sq, view_pos=view_pos,
+                world_pos=world_pos, view_normal=view_normal, n=n, v=v,
+                nov=nov, r3=r3, is_diffuse_sample=is_diffuse_sample,
+                ems_pdf=ems_pdf, is_env_sample=is_env_sample, rays=rays,
+                rows=(row_offset, fh))
 
+
+def _prewarp(accumulated, velocity, uv, row_offset: int = 0,
+             frame_height: int | None = None):
+    """Prewarped accumulated radiance A'(q) = acc(q - vel(q)) through the
+    bilinear window warp, with a validity channel, float16 (H, W, 4): the
+    sweep reads it at each ray's hit texel. Reach: :data:`PREWARP_HALO`."""
+    acc16 = accumulated[..., :3].to(torch.float16).to(torch.float32)
+    pre_uv = uv - velocity.velocity
+    warped_acc, in_win = bilinear_window(acc16.contiguous(), pre_uv,
+                                         ky=8, kx=30, row_offset=row_offset,
+                                         frame_height=frame_height)
+    pre_ok = ((pre_uv[..., 0] >= 0.0) & (pre_uv[..., 0] <= 1.0)
+              & (pre_uv[..., 1] >= 0.0) & (pre_uv[..., 1] <= 1.0) & in_win)
+    return torch.cat([warped_acc, pre_ok.to(torch.float32)[..., None]],
+                     dim=-1).to(torch.float16)
+
+
+def _bin_noise(p: dict, frame: int):
+    """Stochastic bin rounding of the sweep: a second blue-noise image,
+    independent of r1-r4."""
+    h, w = p["depth"].shape
+    return blue_noise_image(h, w, frame + 2048, row_offset=p["rows"][0],
+                            device=p["depth"].device)[..., 0]
+
+
+def _shade(p: dict, traces, velocity_tex, accumulated, direct_light, env, cam,
+           frame: int, cfg: SSGIConfig, env_blur):
+    """`ssgi.frag:241-308` after the trace: each ray's radiance (the
+    march's from ``velocity_tex`` and ``accumulated`` at its hit, read
+    anywhere in the frame; the sweep's from its trace), environment
+    fallback, brdf / pdf / MIS weighting, and the two packed outputs."""
+    sweep = cfg.trace == "sweep"
+    depth, roughness = p["depth"], p["roughness"]
+    metalness, diffuse = p["metalness"], p["diffuse"]
+    roughness_sq, nov = p["roughness_sq"], p["nov"]
+    view_normal, n, v = p["view_normal"], p["n"], p["v"]
+    is_diffuse_sample, is_env_sample = p["is_diffuse_sample"], p["is_env_sample"]
+    ems_pdf = p["ems_pdf"]
+    h, w = depth.shape
+    dev = depth.device
+    is_bg = depth >= 1.0
     sat_desat = (1.0 - roughness) * _saturation(diffuse) * 0.4
 
     def do_sample(l, trace, is_diffuse_mask):
@@ -310,7 +358,8 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
         coords, hit_pos, missed = trace[:3]
         env_color = _get_env_color(
             env, l, cam.view_matrix, roughness, is_diffuse_mask,
-            is_env_sample, env_blur, cfg, world_pos=world_pos, frame=frame)
+            is_env_sample, env_blur, cfg, world_pos=p["world_pos"],
+            frame=frame, rows=p["rows"])
 
         if sweep:
             # the prewarped radiance (+ validity) read at the hit texel
@@ -319,7 +368,7 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
         else:
             # the velocity (NearestFilter) at the hit, then last frame's
             # output there (an rgba16f LinearFilter target)
-            reproj_uv = coords - sample_nearest(velocity.velocity, coords)
+            reproj_uv = coords - sample_nearest(velocity_tex, coords)
             in_bounds = ((reproj_uv[..., 0] >= 0.0) & (reproj_uv[..., 0] <= 1.0)
                          & (reproj_uv[..., 1] >= 0.0) & (reproj_uv[..., 1] <= 1.0))
             reproj_gi = sample_bilinear(accumulated[..., :3], reproj_uv, half=True)
@@ -349,14 +398,15 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
         weight = torch.where(is_env_sample, mis, 1.0 / pdf)
         return gi * (weight / ems_pdf)[..., None]
 
+    rays = p["rays"]
     # the specular ray gets the pixel's isDiffuseSample flag too, as in
     # the reference (`ssgi.frag:245-265`)
     spec_gi, spec_hit_pos, spec_brdf_v, spec_pdf_v = do_sample(
-        specular_ray, traces[0], is_diffuse_sample)
+        rays[0], traces[0], is_diffuse_sample)
     specular_gi = finalize(spec_gi, spec_brdf_v, spec_pdf_v)
     if cfg.mode == "ssgi":
         diff_gi, _, diff_brdf_v, diff_pdf_v = do_sample(
-            diffuse_ray, traces[1], is_diffuse_sample)
+            rays[1], traces[1], is_diffuse_sample)
         diffuse_gi = finalize(diff_gi, diff_brdf_v, diff_pdf_v)
         # pixels that did not take a diffuse sample mark -1 (`:277-278`)
         diffuse_gi = torch.where(is_diffuse_sample[..., None], diffuse_gi, -1.0)
@@ -383,3 +433,103 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
     g_diffuse = torch.where(is_bg[..., None], bg, g_diffuse)
     g_specular = torch.where(is_bg[..., None], bg, g_specular)
     return g_diffuse, g_specular
+
+
+def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
+         accumulated: torch.Tensor, direct_light: torch.Tensor,
+         env: EquirectEnv | None, cam, frame: int, cfg: SSGIConfig,
+         ray_distance: float = 10.0, thickness: float = 10.0,
+         env_blur: float = 0.5):
+    """One SSGI sample per pixel. ``accumulated`` is last frame's composed
+    output (H, W, >=3), ``direct_light`` the lit scene colour (H, W, 3).
+    Returns (g_diffuse (H, W, 4) = (diffuseGI | -1, roughness),
+    g_specular (H, W, 4) = (specularGI, rayLength)) as `ssgi.frag:274-308`
+    packs them."""
+    if cfg.trace not in ("sweep", "march"):
+        raise ValueError("trace must be 'march' or 'sweep'")
+    p = _setup(gbuffer, env, cam, frame, cfg)
+    depth = gbuffer.depth
+    if cfg.trace == "sweep":
+        traces = sweep_ray_march(
+            p["view_pos"], p["rays"], depth, cam, frame, thickness, ray_distance,
+            dirs=cfg.sweep_dirs, steps=cfg.sweep_steps,
+            bin_noise=_bin_noise(p, frame),
+            radiance=_prewarp(accumulated, velocity, p["uv"]),
+            miss_radiance=cfg.missed_rays)
+    else:
+        traces = [view_space_ray_march(p["view_pos"], ray, depth, cam, p["r3"],
+                                       thickness, ray_distance, cfg)
+                  for ray in p["rays"]]
+    return _shade(p, traces, velocity.velocity, accumulated, direct_light, env,
+                  cam, frame, cfg, env_blur)
+
+
+def ssgi_split(sf, gbuffer: GBuffer, velocity: VelocityBuffer, accumulated,
+               direct_light, env, cam, frame: int, cfg: SSGIConfig,
+               ray_distance: float = 10.0, thickness: float = 10.0,
+               env_blur: float = 0.5):
+    """:func:`ssgi` in a split frame (``parallel.halo.SplitFrame`` ``sf``):
+    the G-buffer, velocity, ``accumulated`` and ``direct_light`` as row
+    blocks, the result as row blocks; the values of :func:`ssgi` on the
+    whole frame.
+
+    The trace reads at any distance, so its sources are gathered once
+    (``replicate_for_rolls``). The sweep: each shard computes its rows'
+    planes, view z and prewarped radiance (halo :data:`PREWARP_HALO`),
+    the sweep kernel runs once on the composer's device over the
+    gathered planes, and each shard finishes its rows from the split
+    result. The march: each shard marches its rows against the gathered
+    depth and reads the gathered velocity and composed output at the
+    hits. The glue before and after runs per shard, halo-extended by
+    ``env_fetch_stride - 1`` rows for the shared environment fetch."""
+    from ..parallel.halo import device_scope
+
+    if cfg.trace not in ("sweep", "march"):
+        raise ValueError("trace must be 'march' or 'sweep'")
+    fh, fw = sf.height, sf.width
+    halo = max(cfg.env_fetch_stride - 1, 0) if cfg.trace == "sweep" else 0
+    if cfg.trace == "march":
+        sources = replicate_for_rolls(gbuffer.depth, velocity.velocity,
+                                      accumulated, device=sf.home)
+
+        def march(row0, gb, color, depth_src, vel_src, acc_src):
+            p = _setup(gb, env, cam, frame, cfg, row0, fh)
+            traces = [view_space_ray_march(p["view_pos"], ray, depth_src, cam,
+                                           p["r3"], thickness, ray_distance, cfg)
+                      for ray in p["rays"]]
+            return _shade(p, traces, vel_src, acc_src, color, env, cam, frame,
+                          cfg, env_blur)
+
+        return sf.map(march, halo, gbuffer, direct_light, *sources)
+
+    def planes(row0, gb, vel, acc):
+        p = _setup(gb, env, cam, frame, cfg, row0, fh)
+        z_tex, pl, _, _, _ = march_inputs(
+            p["view_pos"], p["rays"], gb.depth, cam, frame, ray_distance,
+            cfg.sweep_dirs, cfg.sweep_steps, bin_noise=_bin_noise(p, frame),
+            frame_height=fh)
+        return z_tex, pl.permute(1, 2, 0), _prewarp(acc, vel, p["uv"], row0, fh)
+
+    z_b, pl_b, rad_b = sf.map(planes, PREWARP_HALO, gbuffer, velocity,
+                              accumulated)
+    z_tex, pl, radiance = replicate_for_rolls(z_b, pl_b, rad_b, device=sf.home)
+    table, radii_prev, _ = step_table(int(frame), fh, fw, cfg.sweep_dirs,
+                                      cfg.sweep_steps, MIN_RADIUS)
+    with device_scope(sf.home):
+        marched = sweep_march(z_tex, radiance, pl.permute(2, 0, 1).contiguous(),
+                              table, radii_prev, thickness, ray_distance,
+                              2 if cfg.mode == "ssgi" else 1, cfg.sweep_dirs, cfg.sweep_steps,
+                              miss_gi=cfg.missed_rays)
+    marched = sf.split([tuple(m) for m in marched])
+
+    def finish(row0, gb, color, marched_):
+        p = _setup(gb, env, cam, frame, cfg, row0, fh)
+        per_ray = march_inputs(p["view_pos"], p["rays"], gb.depth, cam, frame,
+                               ray_distance, cfg.sweep_dirs, cfg.sweep_steps,
+                               frame_height=fh)[4]
+        traces = sweep_results(p["view_pos"], p["rays"], per_ray, marched_,
+                               fh, fw, ray_distance)
+        return _shade(p, traces, None, None, color, env, cam, frame, cfg,
+                      env_blur)
+
+    return sf.map(finish, halo, gbuffer, direct_light, marched)

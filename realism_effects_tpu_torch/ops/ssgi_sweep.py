@@ -33,6 +33,8 @@ from ..core import math3d
 from .sweep_kernel import sweep_march
 
 EPS = 1e-6
+#: the first radius of the step table, in pixels
+MIN_RADIUS = 1.5
 _R2_PHI = 0.6180339887498949  # golden-ratio rotation per frame
 
 
@@ -114,13 +116,16 @@ def _s_of_t(t, k_len, w0, wd):
 
 
 def march_inputs(view_pos, rays, depth_tex, cam, frame: int, ray_distance,
-                 dirs: int = 16, steps: int = 32, min_radius: float = 1.5,
-                 bin_noise=None):
+                 dirs: int = 16, steps: int = 32, min_radius: float = MIN_RADIUS,
+                 bin_noise=None, frame_height: int | None = None):
     """What the sweep kernel reads, for ``rays`` (list of (H, W, 3)
     view-space directions): (z_tex, planes, table, radii_prev, per_ray),
     ``per_ray`` holding each ray's (q0, e_hat, k_len, w0, wd, s_end) for
-    the steps after the march."""
+    the steps after the march. Every plane is a function of the pixel
+    alone: a row block of a larger frame passes the frame's height, which
+    the step table and the screen projection are defined against."""
     h, w = depth_tex.shape
+    h = h if frame_height is None else int(frame_height)
     table, radii_prev, xi = step_table(int(frame), h, w, dirs, steps,
                                        float(min_radius))
     bin_width = 2.0 * math.pi / dirs
@@ -143,31 +148,15 @@ def march_inputs(view_pos, rays, depth_tex, cam, frame: int, ray_distance,
             table, radii_prev, per_ray)
 
 
-def sweep_ray_march(view_pos, rays, depth_tex, cam, frame: int, thickness,
-                    ray_distance, dirs: int = 16, steps: int = 32,
-                    min_radius: float = 1.5, bin_noise=None, radiance=None,
-                    miss_radiance: bool = False):
-    """Trace ``rays`` (list of (H, W, 3) view-space directions) against
-    the depth buffer. Returns per ray (uv, hit_pos, missed) with uv in
-    [0, 1]^2 and hit_pos in view space (1e9 on a miss), plus ``gi``
-    (H, W, 4) float32 when ``radiance`` ((H, W, 4), stored as float16)
-    is given: the radiance at the hit step's texel, or with
-    ``miss_radiance`` at the march-end texel of a missed ray.
-
-    ``bin_noise`` ((H, W) in [0, 1)) rounds the bin stochastically; None
-    rounds to the nearest bin."""
-    h, w = depth_tex.shape
-    dev = depth_tex.device
+def sweep_results(view_pos, rays, per_ray, marched, h: int, w: int,
+                  ray_distance):
+    """Per ray (uv, hit_pos, missed[, gi]) from the march's (hit, s_hit,
+    s_lo, z_d, gi): the deferred analytic refine, the miss uv (the ray
+    end or the frame exit) and the view-space hit. Per pixel; ``h``,
+    ``w`` the frame's size."""
+    dev = view_pos.device
     diag = float((h * h + w * w) ** 0.5)
     z0 = view_pos[..., 2]
-    z_tex, planes, table, radii_prev, per_ray = march_inputs(
-        view_pos, rays, depth_tex, cam, frame, ray_distance, dirs, steps,
-        min_radius, bin_noise)
-    marched = sweep_march(
-        z_tex, None if radiance is None else radiance.to(torch.float16),
-        planes, table, radii_prev, thickness, ray_distance, len(rays), dirs,
-        steps, miss_gi=miss_radiance)
-
     size = _frame_size(w, h, str(dev))
     results = []
     for l, (q0, e_hat, k_len, w0, wd, s_end), (hit, s_hit, s_lo, z_d, gi) in \
@@ -200,3 +189,27 @@ def sweep_ray_march(view_pos, rays, depth_tex, cam, frame: int, thickness,
         out = (uv, hit_pos, missed)
         results.append(out if gi is None else out + (gi.float(),))
     return results
+
+
+def sweep_ray_march(view_pos, rays, depth_tex, cam, frame: int, thickness,
+                    ray_distance, dirs: int = 16, steps: int = 32,
+                    min_radius: float = MIN_RADIUS, bin_noise=None, radiance=None,
+                    miss_radiance: bool = False):
+    """Trace ``rays`` (list of (H, W, 3) view-space directions) against
+    the depth buffer. Returns per ray (uv, hit_pos, missed) with uv in
+    [0, 1]^2 and hit_pos in view space (1e9 on a miss), plus ``gi``
+    (H, W, 4) float32 when ``radiance`` ((H, W, 4), stored as float16)
+    is given: the radiance at the hit step's texel, or with
+    ``miss_radiance`` at the march-end texel of a missed ray.
+
+    ``bin_noise`` ((H, W) in [0, 1)) rounds the bin stochastically; None
+    rounds to the nearest bin."""
+    h, w = depth_tex.shape
+    z_tex, planes, table, radii_prev, per_ray = march_inputs(
+        view_pos, rays, depth_tex, cam, frame, ray_distance, dirs, steps,
+        min_radius, bin_noise)
+    marched = sweep_march(
+        z_tex, None if radiance is None else radiance.to(torch.float16),
+        planes, table, radii_prev, thickness, ray_distance, len(rays), dirs,
+        steps, miss_gi=miss_radiance)
+    return sweep_results(view_pos, rays, per_ray, marched, h, w, ray_distance)

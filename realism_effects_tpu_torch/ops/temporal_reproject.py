@@ -52,6 +52,14 @@ class TemporalReprojectConfig:
     window_kx: int = 30
 
 
+def halo_rows(cfg: TemporalReprojectConfig) -> int:
+    """The vertical reach of :func:`temporal_reproject`: the warp window
+    ``window_ky``, the Catmull-Rom footprint (2), the widest
+    neighbourhood clamp (2) and ``fwidth``'s forward difference (1);
+    with ``dilation``, 1 more."""
+    return int(cfg.window_ky) + 2 + 2 + 1 + int(cfg.dilation)
+
+
 def _transform_color(c, cfg):
     return torch.log(c + 1.0) if cfg.log_transform else c
 
@@ -61,12 +69,14 @@ def _undo_transform_color(c, cfg):
 
 
 def _validate_reprojected_uv(reproj_uv, depth, world_pos, world_normal,
-                             last_nd_packed, cam, prev_cam, cfg):
-    """Confidence from 3 disocclusion checks (`reproject.frag:130-167`)."""
+                             last_nd_packed, cam, prev_cam, cfg, rows):
+    """Confidence from 3 disocclusion checks (`reproject.frag:130-167`).
+    ``rows``: (row_offset, frame_height) of a row block."""
     in_bounds = ((reproj_uv[..., 0] >= 0.0) & (reproj_uv[..., 0] <= 1.0)
                  & (reproj_uv[..., 1] >= 0.0) & (reproj_uv[..., 1] <= 1.0))
     last_nd, in_win = nearest_window(last_nd_packed, reproj_uv,
-                                     ky=cfg.window_ky, kx=cfg.window_kx)
+                                     ky=cfg.window_ky, kx=cfg.window_kx,
+                                     row_offset=rows[0], frame_height=rows[1])
     in_bounds = in_bounds & in_win
     last_normal = last_nd[..., :3]
     last_depth = last_nd[..., 3]
@@ -146,18 +156,27 @@ def temporal_reproject(
     full_accumulate: bool = False,
     keep_data: float = 1.0,
     roughness_tex=None,
+    row_offset: int = 0,
+    frame_height: int | None = None,
 ):
     """One temporal-reprojection step over ``texture_count`` slots.
 
     ``inputs[i]``/``history[i]``: (H, W, 4) rgb + alpha. Returns the list
     of new accumulated textures; alpha = effective sample count. The
     per-frame scalars (``max_blend``, ``keep_data``, ...) are host values.
+
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the frame's height; its rows are then exact where
+    the block reaches :func:`halo_rows` rows past them on each side (the
+    halo rows themselves are not).
     """
     if not len(inputs) == cfg.texture_count == len(history):
         raise ValueError("inputs, history and texture_count disagree")
     h, w = velocity.depth.shape
     dev = velocity.depth.device
-    uv = uv_grid(h, w, dev)
+    fh = h if frame_height is None else int(frame_height)
+    rows = (row_offset, fh)
+    uv = uv_grid(h, w, dev, row_offset, fh)
 
     if cfg.dilation:
         vel, world_normal, depth = _dilate_closest(velocity)
@@ -165,7 +184,7 @@ def temporal_reproject(
         vel, world_normal, depth = (velocity.velocity, velocity.normal,
                                     velocity.depth)
 
-    curvature = length(fwidth(world_normal))
+    curvature = length(fwidth(world_normal, row_offset, fh))
     world_pos = screen_to_world(uv, depth, cam.camera_matrix_world,
                                 cam.projection_matrix_inverse)
 
@@ -189,14 +208,14 @@ def temporal_reproject(
     diffuse_uv = uv - vel
     diffuse_conf = _validate_reprojected_uv(
         diffuse_uv, depth, world_pos, world_normal, last_nd_packed, cam,
-        prev_cam, cfg)
+        prev_cam, cfg, rows)
 
     if any(cfg.reproject_specular):
         hit_uv, hit_valid = _reproject_hit_point(world_pos, ray_length,
                                                  curvature, cam, prev_cam)
         spec_conf = _validate_reprojected_uv(
             hit_uv, depth, world_pos, world_normal, last_nd_packed, cam,
-            prev_cam, cfg)
+            prev_cam, cfg, rows)
         specular_uv = torch.where(hit_valid[..., None], hit_uv, diffuse_uv)
         specular_conf = torch.where(hit_valid, spec_conf, diffuse_conf)
     else:
@@ -216,7 +235,8 @@ def temporal_reproject(
         # reproject (`temporal_reproject.frag:83-122`): the rgba16f
         # history through the 5-tap Catmull-Rom window fetch
         acc, _ = catmull_rom5_window(history[i], reproj_uv,
-                                     ky=cfg.window_ky, kx=cfg.window_kx)
+                                     ky=cfg.window_ky, kx=cfg.window_kx,
+                                     row_offset=row_offset, frame_height=fh)
         acc_rgb = _transform_color(acc[..., :3], cfg)
         acc_rgb_raw = acc_rgb
         acc_a = acc[..., 3] + 1.0

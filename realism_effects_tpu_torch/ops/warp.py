@@ -202,18 +202,31 @@ def _split(uv, h, w):
     return x, y, x0, y0
 
 
-def catmull_rom_window(tex, uv, ky: int = DEF_KY, kx: int | None = None):
+def _frame_rows(tex, frame_height):
+    """The height uv maps onto: the frame's, for a row block of one."""
+    return int(tex.shape[0]) if frame_height is None else int(frame_height)
+
+
+def catmull_rom_window(tex, uv, ky: int = DEF_KY, kx: int | None = None,
+                       row_offset: int = 0, frame_height: int | None = None):
     """Catmull-Rom fetch on the true 4x4 footprint at ``uv``.
-    Returns (rgba >= 0, in_window flag)."""
-    h, w = tex.shape[0], tex.shape[1]
+    Returns (rgba >= 0, in_window flag).
+
+    A row block of a larger frame (``tex`` and ``uv`` both the block's
+    rows, halo included) passes its first row's global index
+    ``row_offset`` and the frame's height, here and in the fetches
+    below: uv maps onto the frame, and the target row is re-based onto
+    the block."""
+    h, w = _frame_rows(tex, frame_height), tex.shape[1]
     x, y, x0, y0 = _split(uv, h, w)
-    val, ok = window_warp(tex, floor_int32(y0), floor_int32(x0),
+    val, ok = window_warp(tex, floor_int32(y0) - row_offset, floor_int32(x0),
                           fy=y - y0, fx=x - x0, ky=ky, mode="catrom", kx=kx)
     return torch.clamp(val, min=0.0), ok
 
 
 def catmull_rom5_window(tex, uv, ky: int = DEF_KY, half: bool = True,
-                        kx: int | None = None):
+                        kx: int | None = None, row_offset: int = 0,
+                        frame_height: int | None = None):
     """The reference's 5-tap Catmull-Rom history fetch at ``uv``
     (`reproject.frag:212-255`): the corner-zeroed 4x4 footprint,
     normalised by the 5-tap weight total, clamped >= 0. ``half=True``
@@ -221,12 +234,12 @@ def catmull_rom5_window(tex, uv, ky: int = DEF_KY, half: bool = True,
     target, `TemporalReprojectPass.js:141-144`). Returns (rgba, flag)."""
     if half:
         tex = tex.to(torch.float16).to(torch.float32)
-    h, w = tex.shape[0], tex.shape[1]
+    h, w = _frame_rows(tex, frame_height), tex.shape[1]
     x, y, x0, y0 = _split(uv, h, w)
     fx = x - x0
     fy = y - y0
-    val, ok = window_warp(tex, floor_int32(y0), floor_int32(x0), fy=fy,
-                          fx=fx, ky=ky, mode="catrom5", kx=kx)
+    val, ok = window_warp(tex, floor_int32(y0) - row_offset, floor_int32(x0),
+                          fy=fy, fx=fx, ky=ky, mode="catrom5", kx=kx)
     w0x, _, _, w3x = _crw(fx)
     w0y, _, _, w3y = _crw(fy)
     total = 1.0 - (w0x + w3x) * (w0y + w3y)
@@ -235,22 +248,24 @@ def catmull_rom5_window(tex, uv, ky: int = DEF_KY, half: bool = True,
     return torch.clamp(val / total, min=0.0), ok
 
 
-def bilinear_window(tex, uv, ky: int = DEF_KY, kx: int | None = None):
+def bilinear_window(tex, uv, ky: int = DEF_KY, kx: int | None = None,
+                    row_offset: int = 0, frame_height: int | None = None):
     """Bilinear fetch at ``uv`` (LinearFilter with clamp-to-edge)."""
-    h, w = tex.shape[0], tex.shape[1]
+    h, w = _frame_rows(tex, frame_height), tex.shape[1]
     x, y, x0, y0 = _split(uv, h, w)
     fx = torch.where(x0 < 0.0, 0.0, x - x0)
     fy = torch.where(y0 < 0.0, 0.0, y - y0)
-    return window_warp(tex, floor_int32(y0), floor_int32(x0), fy=fy, fx=fx,
-                       ky=ky, mode="bilinear", kx=kx)
+    return window_warp(tex, floor_int32(y0) - row_offset, floor_int32(x0),
+                       fy=fy, fx=fx, ky=ky, mode="bilinear", kx=kx)
 
 
-def nearest_window(tex, uv, ky: int = DEF_KY, kx: int | None = None):
+def nearest_window(tex, uv, ky: int = DEF_KY, kx: int | None = None,
+                   row_offset: int = 0, frame_height: int | None = None):
     """Nearest fetch at ``uv`` (texelFetch)."""
-    h, w = tex.shape[0], tex.shape[1]
+    h, w = _frame_rows(tex, frame_height), tex.shape[1]
     ix = floor_int32(uv[..., 0] * w)
     iy = floor_int32(uv[..., 1] * h)
-    return window_warp(tex, iy, ix, ky=ky, mode="nearest", kx=kx)
+    return window_warp(tex, iy - row_offset, ix, ky=ky, mode="nearest", kx=kx)
 
 
 def window_warp_multi_plain(tex, ty, tx, ky=DEF_KY, kx=None):

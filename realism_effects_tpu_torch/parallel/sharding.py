@@ -3,8 +3,8 @@
 The JAX package shards image rows over a device mesh and lets GSPMD
 place the collectives. The port keeps its single-controller design with
 explicit objects: a mesh is an ordered tuple of ``torch.device`` and a
-row-sharded array is a list of equal row blocks, block ``i`` on device
-``i`` of the mesh.
+row-sharded array is a :class:`RowBlocks`, a list of equal row blocks,
+block ``i`` on device ``i`` of the mesh.
 
 JAX's ``row_sharding(mesh)`` and ``replicated(mesh)`` return
 ``NamedSharding`` objects, which torch has no counterpart of; the port
@@ -15,8 +15,8 @@ Usage::
 
     mesh = make_mesh()                      # every visible CUDA device
     mesh = make_mesh(["cuda:0"] * 4)        # four shards on one card
-    with mesh_context(mesh):
-        image = composer.render()           # the sharded kernel routes
+    frame_fn = composer._build_frame_fn(mesh)   # the split frame
+    image, state = frame_fn(*args)          # RowBlocks, state as blocks
 """
 
 from __future__ import annotations
@@ -27,6 +27,16 @@ from ..ops.copy import tree_map
 from .context import mesh_context
 
 ROW_AXIS = "rows"
+
+
+class RowBlocks(list):
+    """The row blocks of one frame-sized tensor, in order: block ``i``
+    holds rows ``i * h_loc .. (i + 1) * h_loc`` on device ``i`` of the
+    mesh. A list, so a tree walk can tell it from a tensor leaf."""
+
+
+def is_blocks(x) -> bool:
+    return isinstance(x, RowBlocks)
 
 
 def make_mesh(devices=None) -> tuple:
@@ -52,13 +62,13 @@ def is_row_shardable(x, mesh) -> bool:
             and x.shape[0] >= n)
 
 
-def shard_rows(x: torch.Tensor, mesh, dim: int = 0) -> list:
+def shard_rows(x: torch.Tensor, mesh, dim: int = 0) -> RowBlocks:
     """Split ``x`` into ``len(mesh)`` equal blocks along ``dim``, block
     ``i`` on device ``i``."""
     n = len(mesh)
     if x.shape[dim] % n != 0:
         raise ValueError(f"{x.shape[dim]} rows do not divide over {n} shards")
-    return [b.to(d) for b, d in zip(torch.chunk(x, n, dim=dim), mesh)]
+    return RowBlocks(b.to(d) for b, d in zip(torch.chunk(x, n, dim=dim), mesh))
 
 
 def gather_rows(blocks, device=None, dim: int = 0) -> torch.Tensor:
@@ -69,8 +79,9 @@ def gather_rows(blocks, device=None, dim: int = 0) -> torch.Tensor:
 
 def shard_pytree(tree, mesh):
     """Place every tensor leaf of a nested dict/list/tuple/dataclass:
-    image-like leaves as row blocks (a list), the others as one copy per
-    device (a list); other leaves stay as they are."""
+    image-like leaves as :class:`RowBlocks`, the others as one copy per
+    device (a list); leaves already in blocks and other leaves stay as
+    they are."""
     def place(x):
         if not isinstance(x, torch.Tensor):
             return x
@@ -78,24 +89,37 @@ def shard_pytree(tree, mesh):
             return shard_rows(x, mesh)
         return [x.to(d) for d in mesh]
 
-    return tree_map(place, tree)
+    return tree_map(place, tree, is_leaf=is_blocks)
+
+
+def split_images(tree, mesh):
+    """``tree`` with its image-like tensor leaves as :class:`RowBlocks`
+    over ``mesh``; blocks already there and every other leaf stay."""
+    return tree_map(lambda x: shard_rows(x, mesh) if is_row_shardable(x, mesh)
+                    else x, tree, is_leaf=is_blocks)
+
+
+def gather_pytree(tree, device=None):
+    """``tree`` with every :class:`RowBlocks` leaf joined into one tensor
+    on ``device`` (default: each leaf's block 0 device)."""
+    return tree_map(lambda x: gather_rows(x, device) if is_blocks(x) else x,
+                    tree, is_leaf=is_blocks)
 
 
 def shard_frame_fn(frame_fn, mesh):
     """``frame_fn`` run under ``mesh_context(mesh)`` (so the mesh-aware
     kernels shard themselves), its image-like tensor outputs returned as
     row blocks by the rule of :func:`shard_pytree`; other outputs as they
-    are."""
+    are. (The composer's split frame, ``_build_frame_fn(mesh)``, runs its
+    stages per shard itself.)"""
     def sharded(*args, **kwargs):
         with mesh_context(mesh):
             out = frame_fn(*args, **kwargs)
-        return tree_map(
-            lambda x: shard_rows(x, mesh) if is_row_shardable(x, mesh) else x,
-            out)
+        return split_images(out, mesh)
 
     return sharded
 
 
-def constrain_rows(x: torch.Tensor, mesh) -> list:
+def constrain_rows(x: torch.Tensor, mesh) -> RowBlocks:
     """``x`` as row blocks over ``mesh`` (the JAX sharding constraint)."""
     return shard_rows(x, mesh)

@@ -60,10 +60,16 @@ def _specular(l, v, n, gbuffer) -> torch.Tensor:
 
 
 def shade_direct(gbuffer: GBuffer, camera, lighting: dict,
-                 env: EquirectEnv | None = None) -> torch.Tensor:
+                 env: EquirectEnv | None = None, row_offset: int = 0,
+                 frame_height: int | None = None) -> torch.Tensor:
     """(H, W, 3) linear HDR scene colour. ``camera``: ``CameraMatrices``;
-    ``lighting``: ``Scene.lighting_params`` on the G-buffer's device."""
+    ``lighting``: ``Scene.lighting_params`` on the G-buffer's device.
+
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the frame's height: each pixel is then shaded at
+    its place in the frame, the background grid included."""
     h, w = gbuffer.height, gbuffer.width
+    fh = h if frame_height is None else int(frame_height)
     dev = gbuffer.device
     n = gbuffer.normal
     sun_dir = lighting["sun_direction"]
@@ -86,7 +92,7 @@ def shade_direct(gbuffer: GBuffer, camera, lighting: dict,
     wants_surface = "sun_specular" in lighting or "point_positions" in lighting
     uv = view_dir = world_pos = None
     if wants_surface or env is not None:
-        uv = uv_grid(h, w, dev)
+        uv = uv_grid(h, w, dev, row_offset, fh)
     if wants_surface:
         world_pos = screen_to_world(uv, gbuffer.depth, camera.camera_matrix_world,
                                     camera.projection_matrix_inverse)
@@ -122,22 +128,31 @@ def shade_direct(gbuffer: GBuffer, camera, lighting: dict,
 
     # background: the environment along the camera ray, else a flat colour
     is_bg = gbuffer.depth >= 1.0
-    if env is not None and FAST_BACKGROUND and min(h, w) >= 64:
+    if env is not None and FAST_BACKGROUND and min(fh, w) >= 64:
         # half-resolution grid at pixel centres (2i + 0.5), bilinear 2x
         # upsample; ceil so odd frame sizes still give >= h / w rows /
-        # columns before the crop
-        hc, wc = -(-h // 2) + 1, -(-w // 2) + 1
+        # columns before the crop. A block takes the frame's grid rows
+        # from the one at or above its first row to the one below its
+        # last, and crops their upsample to its rows.
+        hc, wc = -(-fh // 2) + 1, -(-w // 2) + 1
+        c0 = min(max(row_offset, 0) // 2, hc - 1)
+        c1 = min(max(row_offset + h - 1, 0) // 2 + 1, hc - 1)
         vv, uu = torch.meshgrid(
-            (torch.arange(hc, dtype=torch.float32, device=dev) * 2.0 + 0.5) / h,
+            (torch.arange(c0, c1 + 1, dtype=torch.float32, device=dev) * 2.0
+             + 0.5) / fh,
             (torch.arange(wc, dtype=torch.float32, device=dev) * 2.0 + 0.5) / w,
             indexing="ij")
         far_c = screen_to_world(torch.stack([uu, vv], -1),
-                                torch.ones((hc, wc), device=dev),
+                                torch.ones((c1 - c0 + 1, wc), device=dev),
                                 camera.camera_matrix_world,
                                 camera.projection_matrix_inverse)
         bg_c = sample_equirect_color(env, normalize(-_from(camera.position, far_c)),
                                      0.0)
-        bg = _upsample2(_upsample2(bg_c, h, 0), w, 1)
+        bg = _upsample2(_upsample2(bg_c, 2 * (c1 - c0), 0), w, 1)
+        # global row g sits at row g - 2 c0 of the upsample; rows of an
+        # extended block outside the frame take its nearest row
+        rows = (torch.arange(h, device=dev) + row_offset).clamp(0, fh - 1) - 2 * c0
+        bg = bg[:h] if (row_offset == 0 and h == fh) else bg[rows]
     elif env is not None:
         far_pos = screen_to_world(uv, torch.ones((h, w), device=dev),
                                   camera.camera_matrix_world,

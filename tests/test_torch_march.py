@@ -142,8 +142,8 @@ def test_ssgi_march_matches_jax(op_by_op, jax_env, monkeypatch, frame, mode,
     for name in ("bilinear_window", "sweep_ray_march", "blue_noise_image"):
         if name == "blue_noise_image":
             real = tssgi.blue_noise_image
-            monkeypatch.setattr(tssgi, name, lambda h, w, f, device=None: (
-                refuse() if f >= 2048 else real(h, w, f, device=device)))
+            monkeypatch.setattr(tssgi, name, lambda h, w, f, **kw: (
+                refuse() if f >= 2048 else real(h, w, f, **kw)))
         else:
             monkeypatch.setattr(tssgi, name, refuse)
     calls = tssgi.view_space_ray_march.calls
