@@ -117,7 +117,13 @@ Phases (any failure raises and the script exits non-zero):
    (steady ms/frame), then 3 frames at 64 x 64 card against CPU within
    its AA pass's DEMO_BOUNDS (the FXAA path's for FXAA; DEMO_BOUNDS says
    why).
-7. Print the ``kernels`` JSON line, then the device JSON line last.
+7. ``[bench]``: the port's bench (``realism_effects_tpu_torch/bench.py``)
+   at full size, one process a mode: the flagship frame, ``--breakdown``
+   (with ``--json``), ``--trace march`` and ``--config 1`` .. ``5``; each
+   must exit 0 with its headline record last (BENCH_RUNS: the metric, a
+   finite positive value no larger than its median), the breakdown with a
+   record a stage and its bytes and the card in its artifact's meta.
+8. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
 """
@@ -241,14 +247,6 @@ BILINEAR_OPS = 12 + 3 * 9  # index and window math, 3 lerps a channel
 ZSCAN_OPS = 35            # per (pixel, triangle whose bbox contains its centre)
 WARP_MULTI_OPS = 12       # per (target, pixel): clip, window and frame clamps, flag
 SHARPNESS_OPS = 14        # per (pixel, channel): 9 adds, 2 fused multiply-adds, max
-
-
-def _smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _bound(nbytes: float, ops: float):
@@ -1647,6 +1645,62 @@ def check_demo(torch, smi):
         raise AssertionError(f"demo: card and CPU disagree at {bad}")
 
 
+#: the bench's modes and the metric each must print last
+BENCH_HEADLINE = "frame_ms_1080p_full_stack_ssgi_hbao_traa_mb"
+BENCH_RUNS = (((), BENCH_HEADLINE), (("--breakdown",), BENCH_HEADLINE),
+              (("--trace", "march"), BENCH_HEADLINE),
+              *((("--config", str(n)), f"baseline_config_{n}_{h}p")
+                for n, h in ((1, 512), (2, 1080), (3, 1080), (4, 1080), (5, 2160))))
+BENCH_STAGES = ("raster_shade", "ssgi", "hbao", "motion_blur", "traa")
+BENCH_TIMEOUT = 300   # seconds a mode
+
+
+def check_bench(smi):
+    """The port's bench (``python -m realism_effects_tpu_torch.bench``) in
+    a subprocess a mode (BENCH_RUNS; ``--breakdown`` also with ``--json``):
+    it must exit 0, and its last stdout line must be the headline record
+    of the mode's metric with a finite positive value no larger than its
+    median; the breakdown must print a record a stage with its bytes and
+    write its artifact with the card's name and power limit."""
+    out_dir = os.path.join(ROOT, "build", "bench_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    for args, metric in BENCH_RUNS:
+        argv = list(args)
+        art = os.path.join(out_dir, "breakdown.json")
+        if "--breakdown" in args:
+            argv += ["--json", art]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "realism_effects_tpu_torch.bench", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        mode = " ".join(argv) or "default"
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"bench {mode}: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+        records = [json.loads(line) for line in lines]
+        for rec in records:
+            print(f"[bench] {mode}: {json.dumps(rec)}", flush=True)
+        head = records[-1]
+        if set(head) != {"metric", "value", "unit", "median_ms"} or head["metric"] != metric:
+            raise AssertionError(f"bench {mode}: last line {head}, expected {metric}")
+        if not (np.isfinite(head["value"]) and 0 < head["value"] <= head["median_ms"]):
+            raise AssertionError(f"bench {mode}: value {head['value']} "
+                                 f"median {head['median_ms']}")
+        if "--breakdown" in args:
+            passes = [r for r in records if r["metric"].startswith("pass_ms_1080p.")]
+            if [r["metric"].split(".", 1)[1] for r in passes] != list(BENCH_STAGES):
+                raise AssertionError(f"bench {mode}: stages {passes}")
+            if not all(r["gbytes"] > 0 and r["value"] > 0 for r in passes):
+                raise AssertionError(f"bench {mode}: a stage without time or bytes")
+            with open(art) as f:
+                meta = json.load(f)["meta"]
+            if meta.get("card") != smi:
+                raise AssertionError(f"bench {mode}: meta {meta}, card {smi}")
+        print(f"[bench] {mode}: {time.perf_counter() - t0:.1f} s in all; card: {smi}",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1657,11 +1711,12 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from realism_effects_tpu_torch import analytic, native
+    from realism_effects_tpu_torch.bench import card_line
     from realism_effects_tpu_torch.core.camera import PerspectiveCamera
     from realism_effects_tpu_torch.ops import cuda_build
 
     # phase 1: card, precision, build
-    smi = _smi()
+    smi = card_line()
     name = torch.cuda.get_device_name(0)
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1847,6 +1902,10 @@ def main() -> int:
     check_mesh(torch, analytic, timer, smi, kernels)
     check_split(torch, analytic, smi)
     check_demo(torch, smi)
+
+    # phase 5: the bench, each mode in its own process
+    torch.cuda.empty_cache()
+    check_bench(smi)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """The port's paths, as ``chip_smoke.py`` and ``profile_slice.py`` drive
-them, with the camera orbiting as the animated configurations of
-``bench.py`` do:
+them, with the camera orbiting 0.02 rad a frame (:func:`orbit`, as
+``bench.py``'s config 3; its flagship frame orbits 0.01, as the port's
+``bench.py`` does):
 
 - the flagship frame (``bench.py:180-207``): ``EffectComposer.render`` of
   a plane, a box and a metallic sphere under the procedural sky, with
@@ -223,19 +224,28 @@ def run_frames(comp, cam, frames, steps):
     return images
 
 
-def flagship_scene(device) -> Scene:
-    """The flagship scene of ``bench.py:188-197``: a 20 x 20 plane, a unit
-    box and the metallic sphere of :data:`SPHERE` (734 triangles) under
+def flagship_meshes(plane: float = 20) -> list:
+    """The flagship's meshes (``bench.py:190-197``): a ``plane`` x
+    ``plane`` ground plane, a unit box on it and the metallic sphere of
+    :data:`SPHERE` (734 triangles); ``bench.py``'s staged configurations
+    take a plane of 24 (``bench.py:293-310``)."""
+    box = make_box((1, 1, 1), Material(diffuse=(0.9, 0.3, 0.2, 1.0)))
+    box.set_matrix(translation(0, 0.5, 0))
+    (cx, cy, cz), rad, albedo, rough, metal = SPHERE
+    sph = make_sphere(rad, material=Material(
+        diffuse=albedo + (1.0,), roughness=rough, metalness=metal))
+    sph.set_matrix(translation(cx, cy, cz))
+    return [make_plane(plane, Material(diffuse=(0.6, 0.6, 0.65, 1.0))), box, sph]
+
+
+def flagship_scene(device, meshes=None) -> Scene:
+    """The flagship scene of ``bench.py:188-197``: ``meshes`` (by default
+    :func:`flagship_meshes`) under
     ``build_equirect_env(procedural_sky(64, 128))``."""
     scene = Scene()
     scene.environment = build_equirect_env(procedural_sky(64, 128), device=device)
-    scene.add(make_plane(20, Material(diffuse=(0.6, 0.6, 0.65, 1.0))))
-    box = scene.add(make_box((1, 1, 1), Material(diffuse=(0.9, 0.3, 0.2, 1.0))))
-    box.set_matrix(translation(0, 0.5, 0))
-    (cx, cy, cz), rad, albedo, rough, metal = SPHERE
-    sph = scene.add(make_sphere(rad, material=Material(
-        diffuse=albedo + (1.0,), roughness=rough, metalness=metal)))
-    sph.set_matrix(translation(cx, cy, cz))
+    for mesh in flagship_meshes() if meshes is None else meshes:
+        scene.add(mesh)
     return scene
 
 
@@ -308,7 +318,7 @@ def alpha_asset_meshes():
     it ``BLEND``) and a 1.2 x 1.2 quad standing in front of it whose
     alpha map is a 64 x 64 checker of 0 and 1 (8-texel squares) in the
     green channel, under a white base map of the same size."""
-    meshes = list(flagship_scene("cpu").meshes)
+    meshes = flagship_meshes()
     white = np.ones((8, 8, 4), np.float32)
     box = make_box((0.8, 0.8, 0.8), Material(diffuse=(0.3, 0.6, 0.9, 0.5),
                                              map=white, alpha_map=white))

@@ -42,13 +42,13 @@ import argparse
 import bisect
 import contextlib
 import json
-import subprocess
 import sys
 import time
 
 import torch
 
 from . import analytic
+from .bench import card_line
 from .core.camera import PerspectiveCamera
 from .ops import cuda_build
 
@@ -188,10 +188,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     cuda_build.build_all()
     rc = 0
     for path in (PATHS if args.path == "all" else [args.path]):

@@ -33,9 +33,17 @@ import time
 import numpy as np
 import torch
 
-_REFERENCE = os.environ.get("REALISM_EFFECTS_REFERENCE", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "reference"))
+
+def reference_dir() -> str:
+    """The reference project's checkout: the directory
+    ``REALISM_EFFECTS_REFERENCE`` names, by default ``reference/`` inside
+    this repository."""
+    return os.environ.get("REALISM_EFFECTS_REFERENCE", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "reference"))
+
+
+_REFERENCE = reference_dir()
 SPONZA = os.path.join(_REFERENCE, "example", "public", "gltf",
                       "sponza_no_textures.optimized.glb")
 LUT_3DL = os.path.join(_REFERENCE, "example", "public", "lut_v2.3dl")
