@@ -1,0 +1,186 @@
+"""Motion-blur line integral (K12).
+
+`src/motion-blur/shader/motion_blur.frag`: early-out when static (as a
+mask), blue-noise jittered start/end uvs centred on the pixel (John
+Chapman's per-object motion blur), ``samples + 1`` taps averaged with the
+centre colour counted twice (`:35-42`).
+
+Two discretisations of the same integral, as in the JAX package's
+``ops/motion_blur.py``:
+
+* :func:`motion_blur` -- the reference's: ``samples + 1`` bilinear taps
+  at per-pixel uvs (the parity mode).
+* :func:`motion_blur_sweep` (the default) -- pixels bin by velocity
+  direction (R2-rotated per frame), the segment integrates over a shared
+  geometric radius ladder, and every (direction, radius) cell is one
+  shifted read of the whole frame. Each pixel weights a cell by its
+  overlap with the pixel's own jittered segment.
+
+The JAX package serves a cell with a whole-frame ``jnp.roll`` of the
+float16-packed frame and masks out-of-frame taps; here a cell is a
+shifted slice of the float16 frame zero-padded by the largest offset,
+with a fourth channel of ones that is 0 in the padding: out-of-frame taps
+get weight 0 either way, so the values are the same. The cell table
+(offsets, radii) is built on the host in float32 with the C library's
+``cosf``/``sinf``/``powf``, the functions XLA's CPU backend calls.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core.math3d import mix, uv_grid
+from ..core.rng import blue_noise_image
+from ..core.sampling import sample_bilinear
+from .ssgi_sweep import _libm
+
+_R2_PHI = 0.6180339887498949
+
+
+def _frame_speed(delta_time) -> float:
+    """(1 / 100) / deltaTime in float32 (`motion_blur.frag:27`)."""
+    return float(np.float32(1.0 / 100.0) / np.float32(delta_time))
+
+
+def motion_blur(color: torch.Tensor, velocity: torch.Tensor, frame: int,
+                intensity=1.0, jitter=1.0, delta_time=1.0 / 60.0,
+                samples: int = 16, row_offset: int = 0,
+                source: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's taps. A row block of a larger frame passes its
+    first row's global index ``row_offset`` and the whole frame's colour
+    as ``source`` (the taps read it anywhere); ``color`` and ``velocity``
+    are the block's."""
+    h, w = color.shape[:2]
+    src = color if source is None else source
+    uv = uv_grid(h, w, color.device, row_offset, src.shape[0])
+    vel = velocity * float(intensity)
+    did_move = (velocity * velocity).sum(-1) > 1e-9
+    noise = blue_noise_image(h, w, frame, row_offset=row_offset,
+                             device=color.device)
+    jitter_offset = float(jitter) * vel * noise[..., :2]
+    frame_speed = _frame_speed(delta_time)
+    start_uv = torch.clamp(uv + (jitter_offset - vel * 0.5) * frame_speed, min=0.0)
+    end_uv = torch.clamp(uv + (jitter_offset + vel * 0.5) * frame_speed, max=1.0)
+
+    acc = color
+    for i in range(samples + 1):
+        # inputTexture is the composer's HalfFloat framebuffer
+        # (`example/main.js` frameBufferType): half-precision taps
+        tap_uv = mix(start_uv, end_uv, i / float(samples))
+        acc = acc + sample_bilinear(src, tap_uv, half=True)
+    blurred = acc / (float(samples) + 2.0)
+    return torch.where(did_move[..., None], blurred, color)
+
+
+def sweep_cells(frame: int, h: int, w: int, dirs: int, steps: int,
+                min_radius: float, max_radius_frac: float):
+    """The host cell table of :func:`motion_blur_sweep`, in float32:
+    (dy (dirs, steps) int, dx (dirs, steps) int, e_lo (steps,), e_hi
+    (steps,), xi). Cell (d, k) reads the frame at (y + dy, x + dx) and
+    covers the radii [e_lo[k], e_hi[k]) of direction bin d."""
+    f32 = np.float32
+    lib = _libm()
+    xi = np.mod(f32(frame) * f32(_R2_PHI), f32(1.0))
+    bin_w = f32(2.0 * math.pi / dirs)
+    r_max = max_radius_frac * float((h * h + w * w) ** 0.5)
+    expo = np.arange(steps, dtype=f32) / f32(steps - 1)
+    base = f32(r_max / min_radius)
+    nodes = f32(min_radius) * np.array(
+        [lib.powf(float(base), float(e)) for e in expo], f32)
+    edges_mid = np.sqrt(nodes[:-1] * nodes[1:])
+    e_lo = np.concatenate([np.zeros(1, f32), edges_mid])
+    e_hi = np.concatenate([edges_mid, nodes[-1:]])
+    ang = (np.arange(dirs, dtype=f32) + xi) * bin_w
+    cos = np.array([lib.cosf(float(a)) for a in ang], f32)[:, None]
+    sin = np.array([lib.sinf(float(a)) for a in ang], f32)[:, None]
+    dxs = np.round(nodes[None, :] * cos).astype(np.int64)
+    dys = np.round(nodes[None, :] * sin).astype(np.int64)
+    return dys, dxs, e_lo, e_hi, float(xi)
+
+
+def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
+                      intensity=1.0, jitter=1.0, delta_time=1.0 / 60.0,
+                      dirs: int = 16, steps: int = 12,
+                      min_radius: float = 0.75,
+                      max_radius_frac: float = 0.25, row_offset: int = 0,
+                      source: torch.Tensor | None = None) -> torch.Tensor:
+    """Direction-binned sweep line integral: the same integral as
+    :func:`motion_blur` (`motion_blur.frag:23-42`), the average scene
+    colour over the segment ``uv + (jitterOffset +- vel / 2) *
+    frameSpeed``. The segment's pixel-space direction picks one of
+    ``dirs`` R2-rotated bins per side (+/-); a shared geometric radius
+    ladder ``min_radius .. max_radius_frac * diagonal`` cuts [0, r_max)
+    into cells, and each pixel weights cell k of its bin by the overlap
+    of the cell with its own jittered per-side extent. Out-of-frame taps
+    drop and renormalise; the uncovered sliver near the origin plus the
+    reference's double-counted centre tap weight the pixel's own colour.
+
+    A row block of a larger frame passes its first row's global index
+    ``row_offset`` and the whole frame's colour as ``source`` (the cells
+    read it up to ``max_radius_frac`` of the diagonal away); ``color``
+    and ``velocity`` are the block's, and the cell table is the
+    frame's."""
+    h, w = color.shape[:2]
+    fh = h if source is None else source.shape[0]
+    dev = color.device
+    vel = velocity * float(intensity)
+    did_move = (velocity * velocity).sum(-1) > 1e-9
+    frame_speed = _frame_speed(delta_time)
+
+    # segment geometry in pixel space
+    px = torch.tensor([float(w), float(fh)], device=dev)
+    seg = vel * frame_speed * px           # full extent, pixels
+    seg_len = torch.sqrt(seg[..., 0] * seg[..., 0] + seg[..., 1] * seg[..., 1])
+    half = 0.5 * seg_len
+    theta = torch.atan2(seg[..., 1], seg[..., 0])
+    # the reference's forward segment shift jitter * vel * noise, along
+    # the segment with the r noise channel
+    noise = blue_noise_image(h, w, frame, row_offset=row_offset, device=dev)
+    j_px = float(jitter) * noise[..., 0] * seg_len
+    u_pos = torch.clamp(j_px + half, min=0.0)
+    u_neg = torch.clamp(half - j_px, min=0.0)
+
+    dys, dxs, e_lo, e_hi, xi = sweep_cells(frame, fh, w, dirs, steps,
+                                           min_radius, max_radius_frac)
+    bin_w = float(np.float32(2.0 * math.pi / dirs))
+    bin_pos = torch.remainder(torch.round(theta / bin_w - xi), float(dirs))
+    bin_neg = torch.remainder(torch.round((theta + math.pi) / bin_w - xi),
+                              float(dirs))
+
+    # the float16 frame (the composer's HalfFloat target) with a ones
+    # channel, zero-padded so that every cell is an in-bounds slice
+    pad = int(max(np.abs(dys).max(), np.abs(dxs).max()))
+    whole = color if source is None else source
+    src = torch.cat([whole, torch.ones_like(whole[..., :1])], -1).to(torch.float16)
+    src = torch.nn.functional.pad(src, (0, 0, pad, pad, pad, pad))
+    acc = torch.zeros((h, w, 4), device=dev)   # rgb sum, weight sum
+    lo = torch.as_tensor(e_lo, device=dev)[:, None, None]
+    hi = torch.as_tensor(e_hi, device=dev)[:, None, None]
+    neg_inf = float("-inf")
+    for d in range(dirs):
+        # each side's extent where that side's bin is d, -inf elsewhere:
+        # clamp(min(u, hi) - lo, 0) is then the side's weight of each of
+        # the bin's cells (steps, H, W), and 0 off the bin (as the JAX
+        # package's weight * (bin == d))
+        u_pos_d = torch.where(bin_pos == float(d), u_pos, neg_inf)
+        u_neg_d = torch.where(bin_neg == float(d), u_neg, neg_inf)
+        wgt = torch.clamp(torch.minimum(u_pos_d, hi) - lo, min=0.0) \
+            + torch.clamp(torch.minimum(u_neg_d, hi) - lo, min=0.0)
+        for k in range(steps):
+            y0, x0 = pad + row_offset + int(dys[d, k]), pad + int(dxs[d, k])
+            # acc += cell * weight in one pass, the f16 cell read in place
+            acc.addcmul_(src[y0: y0 + h, x0: x0 + w], wgt[k, ..., None])
+
+    # centre: the near-origin sliver both sides leave uncovered when the
+    # extent is shorter than cell 0, plus the reference's double-counted
+    # centre tap (2 of samples + 2, a 2 / 18 fraction of the extent)
+    r_end = float(e_hi[-1])
+    covered = torch.clamp(u_pos, max=r_end) + torch.clamp(u_neg, max=r_end)
+    w_center = torch.clamp(u_pos + u_neg - covered, min=0.0) \
+        + (u_pos + u_neg) * (2.0 / 18.0) + 1e-6
+    rgb = acc[..., :3] + color * w_center[..., None]
+    blurred = rgb / (acc[..., 3] + w_center)[..., None]
+    return torch.where(did_move[..., None], blurred, color)

@@ -1,0 +1,126 @@
+"""The SSGI sweep march: first hit per ray along its direction bin, with
+the prewarped radiance read during the march.
+
+The plain version of the port's kernel ``csrc/sweep.cu``, which replaces
+the JAX package's
+``ops/pallas/sweep.py::_sweep_kernel`` (``sweep_march_vmem``); the plain
+version below is the JAX package's jnp executor
+(``ops/ssgi_sweep.py:264-313``) written as a per-step gather at each
+pixel's own bin, which computes the same values as its whole-frame
+rolls. Kernel and plain version agree bit for bit: the same float32
+operations in the same order (the kernel is built with ``-fmad=false``).
+
+Inputs (``ops/ssgi_sweep.py`` builds them):
+
+- ``z_tex`` (H, W) float32 view-space z of the depth buffer;
+- ``radiance`` (H, W, 4) float16 prewarped radiance + validity, or None;
+- ``planes`` (1 + 6 * n_rays, H, W) float32: z0, then per ray
+  [k_len, w0^2, w0 * wd, lz, bin, s_end];
+- ``table`` (dirs * steps, 3) float32 host array (dy, dx, s) of bin d,
+  step k at row d * steps + k, and ``radii_prev`` (steps,) float32.
+
+Per ray it returns (hit bool, s_hit, s_lo, z_d_hit, gi (H, W, 4) float16
+or None); a ray that never hits keeps zeros.
+
+The kernel reads the table as :func:`packed_table` lays it out: one
+16-byte record a step, rows of an odd stride. A table of any size runs:
+in shared memory up to the card's opt-in limit (227 KB on the H100),
+from device memory above it. On the H100 the first kernel was held back
+by shared-memory bank conflicts on the table, not by bytes; see the
+source for the design that removes them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+EPS = 1e-6
+_PLANES_PER_RAY = 6
+
+
+def _split_planes(planes, r):
+    b = 1 + _PLANES_PER_RAY * r
+    return planes[b: b + _PLANES_PER_RAY].unbind(0)
+
+
+def sweep_march_plain(z_tex, radiance, planes, table, radii_prev, thickness,
+                      ray_distance, n_rays: int, dirs: int, steps: int,
+                      miss_gi: bool = False):
+    """The kernel's function in PyTorch; same arguments and results as
+    :func:`sweep_march`."""
+    h, w = z_tex.shape
+    dev = z_tex.device
+    tab = torch.tensor(np.asarray(table, np.float32), device=dev)
+    slo = torch.tensor(np.asarray(radii_prev, np.float32), device=dev)
+    thickness = float(np.float32(thickness))
+    ray_distance = float(np.float32(ray_distance))
+    ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    z_flat = z_tex.reshape(-1)
+    rad_flat = None if radiance is None else radiance.reshape(h * w, 4)
+    z0 = planes[0]
+    out = []
+    for r in range(n_rays):
+        k_len, p2, rwd, lz, bin_, s_end = _split_planes(planes, r)
+        ok_bin = (bin_ >= 0.0) & (bin_ < float(dirs)) & (bin_ == torch.floor(bin_))
+        row0 = torch.where(ok_bin, bin_, 0.0).long() * steps
+        hit = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        s_hit = torch.zeros((h, w), device=dev)
+        s_lo = torch.zeros((h, w), device=dev)
+        z_d_hit = torch.zeros((h, w), device=dev)
+        gi = (None if rad_flat is None else
+              torch.zeros((h, w, 4), dtype=torch.float16, device=dev))
+        for k in range(steps):
+            row = tab[row0 + k]
+            yy = ys + row[..., 0].to(torch.int32)
+            xx = xs + row[..., 1].to(torch.int32)
+            s = row[..., 2]
+            in_frame = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            denom = k_len - s * rwd
+            t_s = s * p2 / torch.where(denom.abs() > EPS, denom, EPS)
+            valid = ((denom > EPS) & (t_s >= 0.0) & (t_s <= ray_distance)
+                     & (s <= s_end))
+            q = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
+            z_d = z_flat[q]
+            diff = z_d - (z0 + t_s * lz)
+            live = ok_bin & ~hit & in_frame & valid
+            upd = live & (diff >= 0.0) & (diff < thickness)
+            hit = hit | upd
+            s_hit = torch.where(upd, s, s_hit)
+            s_lo = torch.where(upd, slo[k], s_lo)
+            z_d_hit = torch.where(upd, z_d, z_d_hit)
+            if gi is not None:
+                upd_gi = live if miss_gi else upd
+                gi = torch.where(upd_gi[..., None], rad_flat[q], gi)
+        out.append((hit, s_hit, s_lo, z_d_hit, gi))
+    return out
+
+
+def sweep_march(z_tex, radiance, planes, table, radii_prev, thickness,
+                ray_distance, n_rays: int, dirs: int, steps: int,
+                miss_gi: bool = False):
+    """The march of ``n_rays`` rays (see the module docstring). CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    return sweep_march_plain(z_tex, radiance, planes, table, radii_prev,
+                                 thickness, ray_distance, n_rays, dirs,
+                                 steps, miss_gi)
+
+
+def packed_table(table, radii_prev, dirs: int, steps: int) -> np.ndarray:
+    """The (dirs, stride, 4) int32 table the kernel reads: per step
+    (dy, dx) truncated to int32 as the plain version does, then the
+    float32 bits of s and of radii_prev[k]; ``stride`` is ``steps``
+    rounded up to odd, so that rows of different bins start in different
+    shared-memory bank groups."""
+    tab = np.asarray(table, np.float32).reshape(dirs, steps, 3)
+    stride = steps | 1
+    out = np.zeros((dirs, stride, 4), np.int32)
+    out[:, :steps, 0] = tab[..., 0].astype(np.int32)
+    out[:, :steps, 1] = tab[..., 1].astype(np.int32)
+    out[:, :steps, 2] = tab[..., 2].view(np.int32)
+    out[:, :steps, 3] = np.asarray(radii_prev, np.float32).view(np.int32)[None]
+    return out
+
+
