@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from . import tracing
 from .core.camera import Camera, CameraMatrices
 from .core.envmap import EquirectEnv, build_equirect_env, cube_to_equirect
 from .core.framebuffers import GBuffer, VelocityBuffer
@@ -146,11 +147,11 @@ class EffectComposer:
         #: renders, clamped to >= 1 ms, overridable with ``dt=``
         self.delta_time = 1.0 / 60.0
         self._last_frame_walltime = None
-        #: set True to fill :attr:`last_timings` (ms per stage: ``raster``
-        #: for render(), then one per effect; CUDA events on the card, the
-        #: host clock on the CPU); adds one synchronisation per frame
+        #: set True to time each stage span (``tracing.stage``: CUDA
+        #: events on the card, the host clock on the CPU), read by
+        #: :attr:`last_timings`
         self.collect_timings = False
-        self.last_timings: dict[str, float] = {}
+        self._timed_stages = []
         #: where the last frame ran each stage: "shard" or "whole" by
         #: stage name (``raster``, ``shade``, then the effects' names);
         #: empty after a frame with no mesh
@@ -270,6 +271,14 @@ class EffectComposer:
                              f"composer of {(self.height, self.width)}")
         return self._render_frame((gbuffer, velocity, scene_color), dt)
 
+    @property
+    def last_timings(self) -> dict[str, float]:
+        """ms per stage of the last frame rendered with
+        :attr:`collect_timings` on (``raster`` for render(), then one per
+        effect); reading it synchronises once. Empty after a frame with
+        it off."""
+        return tracing.stage_ms(self._timed_stages)
+
     def _stage_scene(self):
         """(packed scene, lighting) on the device, staged once."""
         if self._packed is None:
@@ -288,39 +297,46 @@ class EffectComposer:
         scene, dev = self.scene, self.device
         ss = self.msaa
         h, w = self.height * ss, self.width * ss
-        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-        mm, pmm = t(model_mats), t(prev_model_mats)
-        bones = prev_bones = morph = prev_morph = None
-        if scene.num_bones() > 1:
-            bones, prev_bones = t(scene.bone_matrices()), t(scene.bone_matrices(prev=True))
-        if scene.max_morph_targets() > 0:
-            morph = t(scene.morph_weight_matrix())
-            prev_morph = t(scene.morph_weight_matrix(prev=True))
-        dither = None
-        cnmf = params["camera_not_moved_frames"]
-        if any(m.material.diffuse[3] < 1.0 or m.material.alpha_map is not None
-               for m in scene.meshes):
-            # the dither, animated by the still-frame counter so TRAA/TAA
-            # converge transparency (`GBufferPass.js:59,78-82`): the blue
-            # noise's first channel, taken on the tile before it is tiled
-            # out, so the z-scan reads a plane with unit x stride
-            dither = blue_noise_transform(h, w, int(cnmf) + frame_index,
-                                          lambda t: t[..., :1], device=dev)[..., 0]
-        alpha = dict(dither=dither, cnmf=float(cnmf), alpha_peels=self.alpha_peels)
-        gbuffer = rasterize_gbuffer(packed, mm, cam.projection_view_matrix, h, w,
-                                    bones=bones, morph_weights=morph,
-                                    return_ids=self.share_visibility, **alpha)
-        ids = None
-        if self.share_visibility:
-            gbuffer, ids = gbuffer
-        velocity = rasterize_velocity(
-            packed, mm, pmm, unjit.projection_view_matrix,
-            prev.projection_view_matrix, h, w, bones=bones,
-            prev_bones=prev_bones, morph_weights=morph,
-            prev_morph_weights=prev_morph, share_ids=ids, **alpha)
+        t = lambda a, site: tracing.to_device(a, dev, torch.float32, site)
+        with tracing.span("pass:raster.upload"):
+            mm = t(model_mats, "composer.model_matrices")
+            pmm = t(prev_model_mats, "composer.prev_model_matrices")
+            bones = prev_bones = morph = prev_morph = None
+            if scene.num_bones() > 1:
+                bones = t(scene.bone_matrices(), "composer.bones")
+                prev_bones = t(scene.bone_matrices(prev=True), "composer.prev_bones")
+            if scene.max_morph_targets() > 0:
+                morph = t(scene.morph_weight_matrix(), "composer.morph_weights")
+                prev_morph = t(scene.morph_weight_matrix(prev=True),
+                               "composer.prev_morph_weights")
+        with tracing.span("pass:raster.gbuffer"):
+            dither = None
+            cnmf = params["camera_not_moved_frames"]
+            if any(m.material.diffuse[3] < 1.0 or m.material.alpha_map is not None
+                   for m in scene.meshes):
+                # the dither, animated by the still-frame counter so TRAA/TAA
+                # converge transparency (`GBufferPass.js:59,78-82`): the blue
+                # noise's first channel, taken on the tile before it is tiled
+                # out, so the z-scan reads a plane with unit x stride
+                dither = blue_noise_transform(h, w, int(cnmf) + frame_index,
+                                              lambda t: t[..., :1], device=dev)[..., 0]
+            alpha = dict(dither=dither, cnmf=float(cnmf), alpha_peels=self.alpha_peels)
+            gbuffer = rasterize_gbuffer(packed, mm, cam.projection_view_matrix, h, w,
+                                        bones=bones, morph_weights=morph,
+                                        return_ids=self.share_visibility, **alpha)
+            ids = None
+            if self.share_visibility:
+                gbuffer, ids = gbuffer
+        with tracing.span("pass:raster.velocity"):
+            velocity = rasterize_velocity(
+                packed, mm, pmm, unjit.projection_view_matrix,
+                prev.projection_view_matrix, h, w, bones=bones,
+                prev_bones=prev_bones, morph_weights=morph,
+                prev_morph_weights=prev_morph, share_ids=ids, **alpha)
         color = None
         if shade or ss > 1:
-            color = shade_direct(gbuffer, cam, lighting, env)
+            with tracing.span("pass:raster.shade"):
+                color = shade_direct(gbuffer, cam, lighting, env)
         gi_gbuffer = None
         gi_w = params.get("gi_mask_meshes")
         excluded = (np.zeros(0, bool) if gi_w is None
@@ -329,20 +345,23 @@ class EffectComposer:
                                   for e in self.effects):
             # exact Selection: a second raster pass without the excluded
             # meshes' faces (`SSGIPass.js:71-79`)
-            face_keep = ~torch.as_tensor(excluded, device=dev)[packed.face_mesh]
-            gi_gbuffer = rasterize_gbuffer(
-                packed, mm, cam.projection_view_matrix, h, w, bones=bones,
-                morph_weights=morph, face_keep=face_keep, **alpha)
+            with tracing.span("pass:raster.gbuffer"):
+                face_keep = ~tracing.to_device(excluded, dev, site="composer.face_keep")[
+                    packed.face_mesh]
+                gi_gbuffer = rasterize_gbuffer(
+                    packed, mm, cam.projection_view_matrix, h, w, bones=bones,
+                    morph_weights=morph, face_keep=face_keep, **alpha)
         if ss > 1:
             # the resolve: the box average of each ss x ss block of the
             # shaded colour; the centre sample of the planes the effects
             # read (depth, normals and ids do not average)
-            color = color.reshape(self.height, ss, self.width, ss, 3).mean((1, 3))
-            pick = lambda buf: _map_planes(
-                buf, lambda a: a[ss // 2::ss, ss // 2::ss].contiguous())
-            gbuffer, velocity = pick(gbuffer), pick(velocity)
-            if gi_gbuffer is not None:
-                gi_gbuffer = pick(gi_gbuffer)
+            with tracing.span("pass:raster.shade"):
+                color = color.reshape(self.height, ss, self.width, ss, 3).mean((1, 3))
+                pick = lambda buf: _map_planes(
+                    buf, lambda a: a[ss // 2::ss, ss // 2::ss].contiguous())
+                gbuffer, velocity = pick(gbuffer), pick(velocity)
+                if gi_gbuffer is not None:
+                    gi_gbuffer = pick(gi_gbuffer)
         return gbuffer, velocity, color, gi_gbuffer
 
     def build_params(self, moved: bool = False) -> dict:
@@ -372,7 +391,11 @@ class EffectComposer:
     def _render_frame(self, external, dt, mesh=None):
         """The host side of :meth:`render` (``external`` None) and
         :meth:`render_external` (``external`` = the buffers) around the
-        frame body."""
+        frame body, inside the frame's ``frame`` span."""
+        with tracing.frame(self.frame):
+            return self._render_body(external, dt, mesh)
+
+    def _render_body(self, external, dt, mesh):
         if self._state is None:
             self._state = self._init_state()
 
@@ -450,18 +473,17 @@ class EffectComposer:
         """The frame body: raster (or the ``external`` buffers), shade,
         the effect chain; split over ``mesh`` when one is given. Returns
         (image, new state)."""
-        timer = _StageTimer(self.device) if self.collect_timings else None
+        timed = []
         sf = (None if mesh is None else
               SplitFrame(tuple(torch.device(d) for d in mesh), self.device,
                          self.height, self.width))
 
         def stage(name, fn):
-            if timer:
-                timer.start(name)
-            with torch.profiler.record_function(f"stage:{name}"):
+            span = tracing.stage(name, self.device, self.collect_timings)
+            with span:
                 out = fn()
-            if timer:
-                timer.stop()
+            if span.timed:
+                timed.append(span)
             return out
 
         color = None
@@ -511,8 +533,7 @@ class EffectComposer:
                 run = lambda e=e: sf.split(e.apply(
                     whole_ctx, sf.gather(image), sf.gather(state[e.name])))
             image, new_state[e.name] = stage(e.name, run)
-        if timer:
-            self.last_timings = timer.read()
+        self._timed_stages = timed
         self.last_placement = {} if sf is None else sf.placement
         return image, new_state
 
@@ -576,7 +597,12 @@ class EffectComposer:
         """Render ``frames`` frames under ``torch.profiler`` (CPU and, on
         the card, CUDA activity) and write a Chrome trace into
         ``trace_dir`` (the JAX package's ``jax.profiler`` trace); returns
-        the trace's path."""
+        the trace's path. Tracing stays as it is: off, each ``stage:``
+        range holds its stage's device work; on (``tracing.enable()``),
+        the trace also carries the ``frame``, ``pass:`` and ``wait:``
+        ranges, but the profiler places a device operation under its
+        innermost range only, so a stage's device range then keeps just
+        the work launched outside its passes."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -590,33 +616,3 @@ class EffectComposer:
         prof.export_chrome_trace(path)
         return path
 
-
-class _StageTimer:
-    """Milliseconds per named stage: CUDA events on the card, the host
-    clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def start(self, name: str):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        else:
-            ev = time.perf_counter()
-        self.marks.append([name, ev, None])
-
-    def stop(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        else:
-            ev = time.perf_counter()
-        self.marks[-1][2] = ev
-
-    def read(self) -> dict[str, float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return {n: a.elapsed_time(b) for n, a, b in self.marks}
-        return {n: (b - a) * 1e3 for n, a, b in self.marks}

@@ -10,6 +10,7 @@ import math
 
 import torch
 
+from .. import tracing
 from .math3d import dot, normalize
 
 EPSILON = 1e-5
@@ -78,8 +79,8 @@ def sample_ggx_vndf(v, ax, ay, r1, r2):
     """GGX visible-normal sampling (`ssgi_utils.frag:153-170`): the half
     vector in the local frame (z up) of the local view vector ``v``.
     ``r1``/``r2`` are tensors or floats."""
-    r1 = torch.as_tensor(r1, dtype=v.dtype, device=v.device)
-    r2 = torch.as_tensor(r2, dtype=v.dtype, device=v.device)
+    r1 = tracing.to_device(r1, v.device, v.dtype, "brdf.ggx_r1")
+    r2 = tracing.to_device(r2, v.device, v.dtype, "brdf.ggx_r2")
     vh = normalize(torch.stack([ax * v[..., 0], ay * v[..., 1], v[..., 2]],
                                dim=-1))
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2

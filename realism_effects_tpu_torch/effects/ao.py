@@ -4,6 +4,7 @@ GTAO wiring is the repaired one (the reference's is unexported)."""
 
 from __future__ import annotations
 
+from .. import tracing
 from ..core.framebuffers import GBuffer
 from ..core.math3d import uv_grid
 from ..core.sampling import sample_bilinear, sample_nearest
@@ -28,6 +29,8 @@ class AOEffect(Effect):
 
     name = "ao"
     kind = "hbao"
+    #: the ``pass:<kind>.<pass>`` span names, built once
+    pass_spans = {p: f"pass:hbao.{p}" for p in ("ao", "denoise", "compose")}
 
     def __init__(self, spp: int = 8, distance: float = 2.0,
                  distance_power: float = 1.0, power: float = 2.0,
@@ -64,22 +67,28 @@ class AOEffect(Effect):
         raise NotImplementedError
 
     def apply(self, ctx, color, state):
+        """AO, its Poisson denoise and the compose, one
+        ``pass:<kind>.<pass>`` span each."""
         gb = ctx.gbuffer
-        if self.resolution_scale < 1.0:
-            h, w = gb.depth.shape
-            h2 = max(int(h * self.resolution_scale), 8)
-            w2 = max(int(w * self.resolution_scale), 8)
-            gb_lo = nearest_downsampled(gb, uv_grid(h2, w2, gb.device))
-            normal_lo, ao_lo = self._ao(ctx, gb_lo)
-            full_uv = uv_grid(h, w, gb.device)
-            ao = sample_bilinear(ao_lo, full_uv)
-            normal = sample_nearest(normal_lo, full_uv)
-        else:
-            normal, ao = self._ao(ctx, gb)
+        spans = self.pass_spans
+        with tracing.span(spans["ao"]):
+            if self.resolution_scale < 1.0:
+                h, w = gb.depth.shape
+                h2 = max(int(h * self.resolution_scale), 8)
+                w2 = max(int(w * self.resolution_scale), 8)
+                gb_lo = nearest_downsampled(gb, uv_grid(h2, w2, gb.device))
+                normal_lo, ao_lo = self._ao(ctx, gb_lo)
+                full_uv = uv_grid(h, w, gb.device)
+                ao = sample_bilinear(ao_lo, full_uv)
+                normal = sample_nearest(normal_lo, full_uv)
+            else:
+                normal, ao = self._ao(ctx, gb)
         if self.denoise_cfg.iterations > 0:
-            ao = poisson_denoise_ao(ao, normal, gb, ctx.frame_index,
-                                    self.denoise_cfg)
-        return self._compose(ctx, color, ao, gb.depth), state
+            with tracing.span(spans["denoise"]):
+                ao = poisson_denoise_ao(ao, normal, gb, ctx.frame_index,
+                                        self.denoise_cfg)
+        with tracing.span(spans["compose"]):
+            return self._compose(ctx, color, ao, gb.depth), state
 
     def _compose(self, ctx, color, ao, depth):
         return ao_compose(color, ao, depth, power=ctx.params[self.name]["power"],
@@ -128,6 +137,7 @@ class GTAOEffect(AOEffect):
 
     name = "gtao"
     kind = "gtao"
+    pass_spans = {p: f"pass:gtao.{p}" for p in ("ao", "denoise", "compose")}
 
     def __init__(self, spp: int = 16, **kw):
         super().__init__(spp=spp, **kw)

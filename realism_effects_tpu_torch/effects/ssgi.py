@@ -19,13 +19,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core.framebuffers import GBuffer, VelocityBuffer
 from ..core.math3d import uv_grid
 from ..core.sampling import sample_bilinear, sample_nearest
 from ..ops.compose import ssgi_compose
 from ..ops.denoiser_compose import denoiser_compose
 from ..ops.poisson_denoise import PoissonDenoiseConfig, poisson_denoise
-from ..ops.ssgi import SSGIConfig, ssgi, ssgi_split
+from ..ops.ssgi import PASS_SPANS, SSGIConfig, ssgi, ssgi_split
 from ..ops.temporal_reproject import (TemporalReprojectConfig, halo_rows,
                                       temporal_reproject)
 from ..parallel.halo import poisson_denoise_blocks
@@ -194,8 +195,12 @@ class SSGIEffect(Effect):
         return out, composed
 
     def apply(self, ctx, color, state):
+        """The unsplit chain, one ``pass:<mode>.<pass>`` span a pass (the
+        trace's own in ``ops.ssgi.ssgi``)."""
         u = ctx.params[self.name]
-        gbuffer = self._selected(ctx)
+        spans = PASS_SPANS[self.mode]
+        with tracing.span(spans["setup"]):
+            gbuffer = self._selected(ctx)
 
         # 1. the trace; its radiance is last frame's composed output.
         #    With resolution_scale < 1 it runs on a downsampled G-buffer
@@ -207,32 +212,38 @@ class SSGIEffect(Effect):
             h, w = gbuffer.depth.shape
             h2 = max(int(h * self.resolution_scale), 8)
             w2 = max(int(w * self.resolution_scale), 8)
-            g_diffuse, g_specular = ssgi(
-                _resize_gbuffer(gbuffer, h2, w2),
-                _resize_velocity(ctx.velocity, h2, w2),
-                _resize_bilinear(state["composed"], h2, w2),
-                _resize_bilinear(color, h2, w2), **trace_args)
-            # nearest for diffuse: bilinear would blend the -1 "no
-            # diffuse sample" mark into valid radiance
-            g_diffuse = _resize_nearest(g_diffuse, h, w)
-            g_specular = _resize_bilinear(g_specular, h, w)
+            with tracing.span(spans["setup"]):
+                small = (_resize_gbuffer(gbuffer, h2, w2),
+                         _resize_velocity(ctx.velocity, h2, w2),
+                         _resize_bilinear(state["composed"], h2, w2),
+                         _resize_bilinear(color, h2, w2))
+            g_diffuse, g_specular = ssgi(*small, **trace_args)
+            del small
+            with tracing.span(spans["shade"]):
+                # nearest for diffuse: bilinear would blend the -1 "no
+                # diffuse sample" mark into valid radiance
+                g_diffuse = _resize_nearest(g_diffuse, h, w)
+                g_specular = _resize_bilinear(g_specular, h, w)
         else:
             g_diffuse, g_specular = ssgi(gbuffer, ctx.velocity,
                                          state["composed"], color, **trace_args)
 
         inputs = [g_diffuse, g_specular] if self.mode == "ssgi" else [g_specular]
-        temporal = self._reproject(ctx, inputs, state["history"], ctx.velocity,
-                                   ctx.last_velocity, gbuffer.roughness)
+        with tracing.span(spans["reproject"]):
+            temporal = self._reproject(ctx, inputs, state["history"], ctx.velocity,
+                                       ctx.last_velocity, gbuffer.roughness)
 
         # 3. spatial Poisson denoise (skipped by the *_temporal modes)
         if self.denoise_mode in ("full", "denoised"):
-            denoised = poisson_denoise(temporal, gbuffer, ctx.frame_index,
-                                       self.denoise_cfg)
+            with tracing.span(spans["denoise"]):
+                denoised = poisson_denoise(temporal, gbuffer, ctx.frame_index,
+                                           self.denoise_cfg)
         else:
             denoised = temporal
-        out, composed = self._compose(ctx, gbuffer, color,
-                                      (g_diffuse, g_specular), temporal,
-                                      denoised)
+        with tracing.span(spans["compose"]):
+            out, composed = self._compose(ctx, gbuffer, color,
+                                          (g_diffuse, g_specular), temporal,
+                                          denoised)
         return out, {"history": list(denoised), "composed": composed}
 
     def split_placement(self):
@@ -281,7 +292,7 @@ class SSGIEffect(Effect):
 def _mask_gbuffer(gbuffer: GBuffer, gi_w) -> GBuffer:
     """``gbuffer`` with the pixels of the meshes whose weight in the host
     array ``gi_w`` is below 0.5 sent to background."""
-    weights = torch.as_tensor(gi_w, device=gbuffer.device)
+    weights = tracing.to_device(gi_w, gbuffer.device, site="ssgi.gi_weights")
     mesh_id = gbuffer.mesh_id
     sel = torch.where(mesh_id >= 0, weights[mesh_id.clamp(min=0).long()],
                       1.0) > 0.5

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.temporal_reproject import (TemporalReprojectConfig, halo_rows,
                                       temporal_reproject)
 from .base import Effect
@@ -57,19 +58,21 @@ class TRAAEffect(Effect):
                     row_offset: int = 0, frame_height: int | None = None):
         u = ctx.params[self.name]
         g = ctx.params["__global__"]
-        inp = torch.cat([color, torch.ones_like(color[..., :1])], dim=-1)
+        with tracing.span("pass:traa.input"):
+            inp = torch.cat([color, torch.ones_like(color[..., :1])], dim=-1)
         # fullAccumulate engages only while the camera is still
         # (`TemporalReprojectPass.js:178-183`)
         full_acc = self.full_accumulate and not g["camera_moved"]
-        (out,) = temporal_reproject(
-            [inp], [history], velocity, last_velocity,
-            ctx.unjittered_cam, ctx.prev_cam, self.cfg,
-            max_blend=u["max_blend"],
-            neighborhood_clamp_intensity=u["neighborhood_clamp_intensity"],
-            full_accumulate=full_acc,
-            keep_data=g["keep_data"],
-            row_offset=row_offset, frame_height=frame_height,
-        )
+        with tracing.span("pass:traa.reproject"):
+            (out,) = temporal_reproject(
+                [inp], [history], velocity, last_velocity,
+                ctx.unjittered_cam, ctx.prev_cam, self.cfg,
+                max_blend=u["max_blend"],
+                neighborhood_clamp_intensity=u["neighborhood_clamp_intensity"],
+                full_accumulate=full_acc,
+                keep_data=g["keep_data"],
+                row_offset=row_offset, frame_height=frame_height,
+            )
         return out
 
     def split_placement(self):

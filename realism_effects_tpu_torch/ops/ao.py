@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import math3d
 from ..core.brdf import cosine_sample_hemisphere, hemisphere_basis
 from ..core.math3d import floor_int32, screen_to_world, smoothstep, uv_grid
@@ -100,8 +101,8 @@ def depth_world_normals(depth: torch.Tensor, cam) -> torch.Tensor:
     dt = (2.0 * t1 - t2 - c0).abs()
 
     ce = world_pos(c0, uv)
-    px = torch.tensor([1.0 / w, 0.0], device=depth.device)
-    py = torch.tensor([0.0, 1.0 / h], device=depth.device)
+    px = tracing.to_device([1.0 / w, 0.0], depth.device, site="ao.px")
+    py = tracing.to_device([0.0, 1.0 / h], depth.device, site="ao.py")
     dpdx = torch.where((dl < dr)[..., None], ce - world_pos(l1, uv - px),
                        world_pos(r1, uv + px) - ce)
     dpdy = torch.where((db < dt)[..., None], ce - world_pos(b1, uv - py),
@@ -167,7 +168,7 @@ def hbao_unfused(depth: torch.Tensor, world_normal: torch.Tensor, cam,
     sample_depths, _ = window_warp_multi(depth, iy, ix, ky=cfg.window_ky,
                                          kx=cfg.window_kx)
 
-    cam_pos = torch.as_tensor(cam.position, dtype=torch.float32, device=dev)
+    cam_pos = tracing.to_device(cam.position, dev, torch.float32, "ao.cam_pos")
     th = cfg.thickness * 0.01
     ao = torch.zeros_like(depth)
     total_weight = torch.zeros_like(depth)
@@ -221,8 +222,8 @@ def _depth_world_normals_at(stencil9: torch.Tensor, uv: torch.Tensor, cam):
         return screen_to_world(uvx, d, cam.camera_matrix_world,
                                cam.projection_matrix_inverse)
 
-    px = torch.tensor([1.0 / w, 0.0], device=uv.device)
-    py = torch.tensor([0.0, 1.0 / h], device=uv.device)
+    px = tracing.to_device([1.0 / w, 0.0], uv.device, site="ao.gtao_px")
+    py = tracing.to_device([0.0, 1.0 / h], uv.device, site="ao.gtao_py")
     ce = world_pos(c0, uv)
     dpdx = torch.where((dl < dr)[..., None], ce - world_pos(l1, uv - px),
                        world_pos(r1, uv + px) - ce)

@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.math3d import mix, uv_grid
 from ..core.rng import blue_noise_image
 from ..core.sampling import sample_bilinear
@@ -126,61 +127,64 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
     h, w = color.shape[:2]
     fh = h if source is None else source.shape[0]
     dev = color.device
-    vel = velocity * float(intensity)
-    did_move = (velocity * velocity).sum(-1) > 1e-9
-    frame_speed = _frame_speed(delta_time)
+    with tracing.span("pass:motion_blur.setup"):
+        vel = velocity * float(intensity)
+        did_move = (velocity * velocity).sum(-1) > 1e-9
+        frame_speed = _frame_speed(delta_time)
 
-    # segment geometry in pixel space
-    px = torch.tensor([float(w), float(fh)], device=dev)
-    seg = vel * frame_speed * px           # full extent, pixels
-    seg_len = torch.sqrt(seg[..., 0] * seg[..., 0] + seg[..., 1] * seg[..., 1])
-    half = 0.5 * seg_len
-    theta = torch.atan2(seg[..., 1], seg[..., 0])
-    # the reference's forward segment shift jitter * vel * noise, along
-    # the segment with the r noise channel
-    noise = blue_noise_image(h, w, frame, row_offset=row_offset, device=dev)
-    j_px = float(jitter) * noise[..., 0] * seg_len
-    u_pos = torch.clamp(j_px + half, min=0.0)
-    u_neg = torch.clamp(half - j_px, min=0.0)
+        # segment geometry in pixel space
+        px = tracing.to_device([float(w), float(fh)], dev, site="motion_blur.px")
+        seg = vel * frame_speed * px           # full extent, pixels
+        seg_len = torch.sqrt(seg[..., 0] * seg[..., 0] + seg[..., 1] * seg[..., 1])
+        half = 0.5 * seg_len
+        theta = torch.atan2(seg[..., 1], seg[..., 0])
+        # the reference's forward segment shift jitter * vel * noise, along
+        # the segment with the r noise channel
+        noise = blue_noise_image(h, w, frame, row_offset=row_offset, device=dev)
+        j_px = float(jitter) * noise[..., 0] * seg_len
+        u_pos = torch.clamp(j_px + half, min=0.0)
+        u_neg = torch.clamp(half - j_px, min=0.0)
 
-    dys, dxs, e_lo, e_hi, xi = sweep_cells(frame, fh, w, dirs, steps,
-                                           min_radius, max_radius_frac)
-    bin_w = float(np.float32(2.0 * math.pi / dirs))
-    bin_pos = torch.remainder(torch.round(theta / bin_w - xi), float(dirs))
-    bin_neg = torch.remainder(torch.round((theta + math.pi) / bin_w - xi),
-                              float(dirs))
+        dys, dxs, e_lo, e_hi, xi = sweep_cells(frame, fh, w, dirs, steps,
+                                               min_radius, max_radius_frac)
+        bin_w = float(np.float32(2.0 * math.pi / dirs))
+        bin_pos = torch.remainder(torch.round(theta / bin_w - xi), float(dirs))
+        bin_neg = torch.remainder(torch.round((theta + math.pi) / bin_w - xi),
+                                  float(dirs))
 
-    # the float16 frame (the composer's HalfFloat target) with a ones
-    # channel, zero-padded so that every cell is an in-bounds slice
-    pad = int(max(np.abs(dys).max(), np.abs(dxs).max()))
-    whole = color if source is None else source
-    src = torch.cat([whole, torch.ones_like(whole[..., :1])], -1).to(torch.float16)
-    src = torch.nn.functional.pad(src, (0, 0, pad, pad, pad, pad))
-    acc = torch.zeros((h, w, 4), device=dev)   # rgb sum, weight sum
-    lo = torch.as_tensor(e_lo, device=dev)[:, None, None]
-    hi = torch.as_tensor(e_hi, device=dev)[:, None, None]
+        # the float16 frame (the composer's HalfFloat target) with a ones
+        # channel, zero-padded so that every cell is an in-bounds slice
+        pad = int(max(np.abs(dys).max(), np.abs(dxs).max()))
+        whole = color if source is None else source
+        src = torch.cat([whole, torch.ones_like(whole[..., :1])], -1).to(torch.float16)
+        src = torch.nn.functional.pad(src, (0, 0, pad, pad, pad, pad))
+        acc = torch.zeros((h, w, 4), device=dev)   # rgb sum, weight sum
+        lo = tracing.to_device(e_lo, dev, site="motion_blur.cell_lo")[:, None, None]
+        hi = tracing.to_device(e_hi, dev, site="motion_blur.cell_hi")[:, None, None]
     neg_inf = float("-inf")
-    for d in range(dirs):
-        # each side's extent where that side's bin is d, -inf elsewhere:
-        # clamp(min(u, hi) - lo, 0) is then the side's weight of each of
-        # the bin's cells (steps, H, W), and 0 off the bin (as the JAX
-        # package's weight * (bin == d))
-        u_pos_d = torch.where(bin_pos == float(d), u_pos, neg_inf)
-        u_neg_d = torch.where(bin_neg == float(d), u_neg, neg_inf)
-        wgt = torch.clamp(torch.minimum(u_pos_d, hi) - lo, min=0.0) \
-            + torch.clamp(torch.minimum(u_neg_d, hi) - lo, min=0.0)
-        for k in range(steps):
-            y0, x0 = pad + row_offset + int(dys[d, k]), pad + int(dxs[d, k])
-            # acc += cell * weight in one pass, the f16 cell read in place
-            acc.addcmul_(src[y0: y0 + h, x0: x0 + w], wgt[k, ..., None])
+    with tracing.span("pass:motion_blur.accumulate"):
+        for d in range(dirs):
+            # each side's extent where that side's bin is d, -inf elsewhere:
+            # clamp(min(u, hi) - lo, 0) is then the side's weight of each of
+            # the bin's cells (steps, H, W), and 0 off the bin (as the JAX
+            # package's weight * (bin == d))
+            u_pos_d = torch.where(bin_pos == float(d), u_pos, neg_inf)
+            u_neg_d = torch.where(bin_neg == float(d), u_neg, neg_inf)
+            wgt = torch.clamp(torch.minimum(u_pos_d, hi) - lo, min=0.0) \
+                + torch.clamp(torch.minimum(u_neg_d, hi) - lo, min=0.0)
+            for k in range(steps):
+                y0, x0 = pad + row_offset + int(dys[d, k]), pad + int(dxs[d, k])
+                # acc += cell * weight in one pass, the f16 cell read in place
+                acc.addcmul_(src[y0: y0 + h, x0: x0 + w], wgt[k, ..., None])
 
     # centre: the near-origin sliver both sides leave uncovered when the
     # extent is shorter than cell 0, plus the reference's double-counted
     # centre tap (2 of samples + 2, a 2 / 18 fraction of the extent)
-    r_end = float(e_hi[-1])
-    covered = torch.clamp(u_pos, max=r_end) + torch.clamp(u_neg, max=r_end)
-    w_center = torch.clamp(u_pos + u_neg - covered, min=0.0) \
-        + (u_pos + u_neg) * (2.0 / 18.0) + 1e-6
-    rgb = acc[..., :3] + color * w_center[..., None]
-    blurred = rgb / (acc[..., 3] + w_center)[..., None]
-    return torch.where(did_move[..., None], blurred, color)
+    with tracing.span("pass:motion_blur.resolve"):
+        r_end = float(e_hi[-1])
+        covered = torch.clamp(u_pos, max=r_end) + torch.clamp(u_neg, max=r_end)
+        w_center = torch.clamp(u_pos + u_neg - covered, min=0.0) \
+            + (u_pos + u_neg) * (2.0 / 18.0) + 1e-6
+        rgb = acc[..., :3] + color * w_center[..., None]
+        blurred = rgb / (acc[..., 3] + w_center)[..., None]
+        return torch.where(did_move[..., None], blurred, color)

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..core import brdf, math3d
 from ..core.envmap import (EquirectEnv, sample_equirect_color,
                            sample_equirect_probability)
@@ -33,6 +34,15 @@ from .sweep_kernel import sweep_march
 from .warp import bilinear_window
 
 EPS = 1e-5
+
+#: the ``pass:<mode>.<pass>`` span names of the chain by mode ("ssgi" |
+#: "ssr"), built once: setup (selection, sampling, the sweep's bin
+#: noise), prewarp (the sweep's radiance), trace, shade (radiance,
+#: brdf / pdf / MIS and the packed outputs), and the effect's
+#: reproject, denoise and compose
+PASS_SPANS = {mode: {p: f"pass:{mode}.{p}" for p in (
+    "setup", "prewarp", "trace", "shade", "reproject", "denoise", "compose")}
+    for mode in ("ssgi", "ssr")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,10 +120,10 @@ view_space_ray_march.calls = 0
 
 def _parallax_correct(reflected_ws, world_pos, cfg: SSGIConfig):
     """Box-projected env correction (`ssgi_utils.frag:44-56`)."""
-    size = torch.tensor(cfg.env_box[0], dtype=torch.float32,
-                        device=world_pos.device)
-    pos = torch.tensor(cfg.env_box[1], dtype=torch.float32,
-                       device=world_pos.device)
+    size = tracing.to_device(cfg.env_box[0], world_pos.device, torch.float32,
+                             "ssgi.env_box_size")
+    pos = tracing.to_device(cfg.env_box[1], world_pos.device, torch.float32,
+                            "ssgi.env_box_position")
     safe = torch.where(reflected_ws.abs() > 1e-8, reflected_ws, 1e-8)
     rbmax = (0.5 * size + pos - world_pos) / safe
     rbmin = (-0.5 * size + pos - world_pos) / safe
@@ -447,21 +457,31 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
     packs them."""
     if cfg.trace not in ("sweep", "march"):
         raise ValueError("trace must be 'march' or 'sweep'")
-    p = _setup(gbuffer, env, cam, frame, cfg)
+    sweep = cfg.trace == "sweep"
+    spans = PASS_SPANS[cfg.mode]
+    with tracing.span(spans["setup"]):
+        p = _setup(gbuffer, env, cam, frame, cfg)
+        bin_noise = _bin_noise(p, frame) if sweep else None
     depth = gbuffer.depth
-    if cfg.trace == "sweep":
-        traces = sweep_ray_march(
-            p["view_pos"], p["rays"], depth, cam, frame, thickness, ray_distance,
-            dirs=cfg.sweep_dirs, steps=cfg.sweep_steps,
-            bin_noise=_bin_noise(p, frame),
-            radiance=_prewarp(accumulated, velocity, p["uv"]),
-            miss_radiance=cfg.missed_rays)
+    if sweep:
+        with tracing.span(spans["prewarp"]):
+            radiance = _prewarp(accumulated, velocity, p["uv"])
+        with tracing.span(spans["trace"]):
+            traces = sweep_ray_march(
+                p["view_pos"], p["rays"], depth, cam, frame, thickness,
+                ray_distance, dirs=cfg.sweep_dirs, steps=cfg.sweep_steps,
+                bin_noise=bin_noise, radiance=radiance,
+                miss_radiance=cfg.missed_rays)
+        # freed before the shade, as arguments of the call would be
+        del bin_noise, radiance
     else:
-        traces = [view_space_ray_march(p["view_pos"], ray, depth, cam, p["r3"],
-                                       thickness, ray_distance, cfg)
-                  for ray in p["rays"]]
-    return _shade(p, traces, velocity.velocity, accumulated, direct_light, env,
-                  cam, frame, cfg, env_blur)
+        with tracing.span(spans["trace"]):
+            traces = [view_space_ray_march(p["view_pos"], ray, depth, cam, p["r3"],
+                                           thickness, ray_distance, cfg)
+                      for ray in p["rays"]]
+    with tracing.span(spans["shade"]):
+        return _shade(p, traces, velocity.velocity, accumulated, direct_light,
+                      env, cam, frame, cfg, env_blur)
 
 
 def ssgi_split(sf, gbuffer: GBuffer, velocity: VelocityBuffer, accumulated,

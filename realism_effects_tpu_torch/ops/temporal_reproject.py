@@ -16,6 +16,7 @@ from typing import Sequence
 
 import torch
 
+from .. import tracing
 from ..core import math3d
 from ..core.framebuffers import VelocityBuffer
 from ..core.math3d import (fwidth, length, mix, rdiv, screen_to_world,
@@ -103,7 +104,8 @@ def _reproject_hit_point(world_pos, ray_length, curvature, cam, prev_cam):
     """Specular parallax reprojection (`reproject.frag:169-193`).
     Returns (uv, valid)."""
     valid = (curvature <= 0.05) & (ray_length >= 0.01)
-    cam_pos = torch.as_tensor(cam.position, device=world_pos.device)
+    cam_pos = tracing.to_device(cam.position, world_pos.device,
+                                site="temporal_reproject.cam_pos")
     cam_ray = math3d.normalize(world_pos - cam_pos)
     hit_point = cam_pos + cam_ray * ray_length[..., None]
     view = transform_point(prev_cam.view_matrix, hit_point)

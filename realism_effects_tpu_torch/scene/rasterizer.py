@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.brdf import cross
 from ..core.framebuffers import GBuffer, VelocityBuffer
 from ..core.math3d import fma, length
@@ -50,8 +51,8 @@ def _as_device(a, dev) -> torch.Tensor | None:
     """A per-frame host array (or tensor) as float32 on ``dev``."""
     if a is None:
         return None
-    return torch.as_tensor(np.asarray(a, np.float32) if not torch.is_tensor(a)
-                           else a, dtype=torch.float32, device=dev)
+    return tracing.to_device(np.asarray(a, np.float32) if not torch.is_tensor(a)
+                             else a, dev, torch.float32, "rasterizer.as_device")
 
 
 def _rotate(rot, v):
@@ -537,7 +538,8 @@ def rasterize_velocity(packed: PackedScene, model_mats, prev_model_mats,
     valid = ids >= 0
     faces = packed.faces.long()
     edge9 = _face_edge_coeffs(clip, faces, height, width)
-    xyw = lambda c: c[faces][..., [0, 1, 3]]
+    xyw = lambda c: c[faces][..., tracing.to_device([0, 1, 3], dev, torch.int64,
+                                                    "rasterizer.xyw_index")]
     cols = [
         _face_attr_coeffs(edge9, xyw(clip)),                # 0..8
         _face_attr_coeffs(edge9, xyw(prev_clip)),           # 9..17
