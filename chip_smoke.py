@@ -44,6 +44,10 @@ Phases (any failure raises and the script exits non-zero):
    cube-map routines, which have no kernel of their own
    (``cube_to_equirect``, ``ggx_prefilter_mips``, ``blur_env(..., 0.5)``
    at a 128 x 256 map), on the card against the CPU with their ms.
+   Motion blur's accumulate kernel on the inputs of the flagship's
+   frame 3 at 1920x1080 (the entry's numbers) and at 3840x2160, each
+   against the plain loop (exact) with the mean cells a pixel reads of
+   the loop's dirs x steps, counted from the inputs by a plain reduction.
 3. Run the nine paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
@@ -247,6 +251,9 @@ BILINEAR_OPS = 12 + 3 * 9  # index and window math, 3 lerps a channel
 ZSCAN_OPS = 35            # per (pixel, triangle whose bbox contains its centre)
 WARP_MULTI_OPS = 12       # per (target, pixel): clip, window and frame clamps, flag
 SHARPNESS_OPS = 14        # per (pixel, channel): 9 adds, 2 fused multiply-adds, max
+MB_OPS_CELL = 4           # per cell of a pixel's bins: min, subtract, max, zero test
+MB_OPS_READ = 8           # per cell read: 4 fused multiply-adds
+MB_BYTES_PIXEL = 40       # u and bin planes 16, its own texel 8, the sums 16
 
 
 def _bound(nbytes: float, ops: float):
@@ -1052,11 +1059,80 @@ def check_alpha_kernels(torch, analytic, timer, results):
     results[-1]["runs"] = runs
 
 
+def mb_cells_read(torch, u_pos, u_neg, bin_pos, bin_neg, e_lo, e_hi, dirs):
+    """(H, W) cells of nonzero weight a pixel has, so reads in the
+    accumulate kernel: a plain reduction over the whole cell ladder."""
+    dev = u_pos.device
+    lo = torch.as_tensor(e_lo, device=dev)[:, None, None]
+    hi = torch.as_tensor(e_hi, device=dev)[:, None, None]
+    wp = torch.clamp(torch.minimum(u_pos, hi) - lo, min=0.0)
+    wn = torch.clamp(torch.minimum(u_neg, hi) - lo, min=0.0)
+    on = lambda b: (b >= 0) & (b < dirs) & (b == torch.round(b))
+    same = on(bin_pos) & (bin_pos == bin_neg)
+    apart = (wp != 0).sum(0) * on(bin_pos) + (wn != 0).sum(0) * on(bin_neg)
+    return torch.where(same, (wp + wn != 0).sum(0), apart)
+
+
+def check_motion_blur_kernel(torch, analytic, timer, results):
+    """Motion blur's accumulate kernel against the plain loop on the
+    inputs of the flagship's frame 3 at 1920x1080 (the entry) and
+    3840x2160 (a ``[kernel]`` line)."""
+    from realism_effects_tpu_torch.ops import motion_blur
+
+    for h, w in ((HEIGHT, WIDTH), (2160, 3840)):
+        comp, cam = analytic.flagship_composer(h, w, "cuda")
+        seen = []
+        real = motion_blur._launch
+
+        def record(*args):
+            seen.append(args)
+            return real(*args)
+
+        motion_blur._launch = record
+        try:
+            analytic.render_frames(comp, cam, range(4))
+        finally:
+            motion_blur._launch = real
+        del comp
+        args = seen[-1]
+        u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi = args[1:9]
+        dirs, steps = dys.shape
+        got = motion_blur._launch(*args)
+        want = motion_blur.accumulate_plain(*args)
+        err = _maxerr(torch, got, want)
+        cells = mb_cells_read(torch, u_pos, u_neg, bin_pos, bin_neg, e_lo, e_hi,
+                              dirs).float()
+        mean_cells = float(cells.mean())
+        walked = float((steps * (1 + (bin_pos != bin_neg))).float().mean())
+        nbytes = MB_BYTES_PIXEL * h * w
+        ops = h * w * (walked * MB_OPS_CELL + mean_cells * MB_OPS_READ)
+        ms = timer(lambda: motion_blur._launch(*args))
+        plain_ms = timer(lambda: motion_blur.accumulate_plain(*args))
+        print(f"[kernel] motion_blur at {w}x{h}: mean cells read a pixel "
+              f"{mean_cells} of {dirs * steps} (moving pixels "
+              f"{float((cells > 0).float().mean())} of all, their mean "
+              f"{float(cells[cells > 0].mean())}); acc max {float(want.abs().max())}",
+              flush=True)
+        if (h, w) == (HEIGHT, WIDTH):
+            results.add("motion_blur", "motion_blur.cu",
+                        "none (ops/motion_blur.py accumulate_plain)", err, 0.0,
+                        ms, plain_ms, nbytes, ops)
+            results[-1]["mean_cells_read"] = mean_cells
+        else:
+            bound_ms, bound_by = _bound(nbytes, ops)
+            print(f"[kernel] motion_blur at {w}x{h}: max_abs_err={err} (tol 0.0) "
+                  f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})",
+                  flush=True)
+            if not err <= 0.0:
+                raise AssertionError(f"motion_blur at {w}x{h}: kernel vs plain "
+                                     f"max abs error {err} > 0.0")
+
+
 def counters():
-    from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                               poisson_taps, raster_kernel,
-                                               ssgi, stencil, sweep_kernel,
-                                               table_kernel, warp)
+    from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
+                                               poisson_kernel, poisson_taps,
+                                               raster_kernel, ssgi, stencil,
+                                               sweep_kernel, table_kernel, warp)
     slots = poisson_kernel.poisson_pass_fused.slot_launches
     rays = sweep_kernel.sweep_march.ray_launches
     return {
@@ -1080,14 +1156,15 @@ def counters():
         "hbao_noise": hbao_kernel.noise_table.launches,
         # the per-pixel march (torch ops, no kernel of its own): calls
         "march": ssgi.view_space_ray_march.calls,
+        "motion_blur": motion_blur.accumulate.launches,
     }
 
 
 def reset_counters():
-    from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                               poisson_taps, raster_kernel,
-                                               ssgi, stencil, sweep_kernel,
-                                               table_kernel, warp)
+    from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
+                                               poisson_kernel, poisson_taps,
+                                               raster_kernel, ssgi, stencil,
+                                               sweep_kernel, table_kernel, warp)
     warp.window_warp.launches = 0
     for m in warp.window_warp.mode_launches:
         warp.window_warp.mode_launches[m] = 0
@@ -1105,6 +1182,7 @@ def reset_counters():
     poisson_taps.poisson_taps.launches = 0
     stencil.sharpness_3x3.launches = 0
     ssgi.view_space_ray_march.calls = 0
+    motion_blur.accumulate.launches = 0
 
 
 def check_env_extras(torch):
@@ -1753,6 +1831,7 @@ def main() -> int:
     check_alpha_kernels(torch, analytic, timer, kernels)
     check_unfused_kernels(torch, analytic, timer, frames, kernels)
     check_ssr_kernels(torch, analytic, timer, kernels)
+    check_motion_blur_kernel(torch, analytic, timer, kernels)
     check_env_extras(torch)
 
     # phase 3: the paths at 1920 x 1080
@@ -1779,7 +1858,8 @@ def main() -> int:
     comp, cam = analytic.ssgi_hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["ssgi_hbao_traa"] = run_path(
         torch, comp, external(comp, cam, sph_frames), "SSGI+HBAO+TRAA", FRAMES,
-        [k for k in names if k not in ("zscan", "lookup") + new_kernels], smi,
+        [k for k in names if k not in ("zscan", "lookup", "motion_blur") + new_kernels],
+        smi,
         forbidden=("march",))
     del comp, sph_frames
     comp, cam = analytic.flagship_composer(HEIGHT, WIDTH, "cuda")

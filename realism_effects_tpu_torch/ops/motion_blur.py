@@ -17,12 +17,32 @@ Two discretisations of the same integral, as in the JAX package's
   overlap with the pixel's own jittered segment.
 
 The JAX package serves a cell with a whole-frame ``jnp.roll`` of the
-float16-packed frame and masks out-of-frame taps; here a cell is a
-shifted slice of the float16 frame zero-padded by the largest offset,
+float16-packed frame and masks out-of-frame taps; here a cell reads a
+shifted position of the float16 frame zero-padded by the largest offset,
 with a fourth channel of ones that is 0 in the padding: out-of-frame taps
 get weight 0 either way, so the values are the same. The cell table
 (offsets, radii) is built on the host in float32 with the C library's
 ``cosf``/``sinf``/``powf``, the functions XLA's CPU backend calls.
+
+The sweep's accumulate pass (:func:`accumulate`) has two routes:
+
+* CPU tensors: :func:`accumulate_plain`, every one of the ``dirs x
+  steps`` cells a shifted slice of the whole frame added to every pixel
+  with ``addcmul_``, weighted 0 off the pixel's two direction bins.
+* CUDA tensors: one hand-written kernel, ``csrc/motion_blur.cu``. A
+  pixel lies in exactly two bins (``bin_pos``, ``bin_neg``; one where
+  they coincide), so its thread walks only those, in ascending bin order
+  as the loop does, and skips each cell whose weight is 0 (past the
+  first radius ``e_lo[k] >= u`` on the increasing ladder): at most
+  ``2 x steps`` texel reads a pixel, 24 at the defaults, instead of 192,
+  and no (steps, H, W) weight planes. A skipped cell adds ``texel * +-0
+  = +-0`` in the loop, which leaves a sum unchanged, and the kernel's
+  products and sums are the loop's fused multiply-adds in the loop's
+  order, so the two routes give the same sums bit for bit. The one
+  exception: a texel that is not finite in float16 (HDR above 65504)
+  makes ``0 * inf`` NaN in every zero-weight cell of the loop, which the
+  kernel never reads. The cell table travels in the launch's
+  parameters, so nothing is uploaded.
 """
 
 from __future__ import annotations
@@ -36,6 +56,7 @@ from .. import tracing
 from ..core.math3d import mix, uv_grid
 from ..core.rng import blue_noise_image
 from ..core.sampling import sample_bilinear
+from . import cuda_build
 from .ssgi_sweep import _libm
 
 _R2_PHI = 0.6180339887498949
@@ -158,24 +179,9 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
         whole = color if source is None else source
         src = torch.cat([whole, torch.ones_like(whole[..., :1])], -1).to(torch.float16)
         src = torch.nn.functional.pad(src, (0, 0, pad, pad, pad, pad))
-        acc = torch.zeros((h, w, 4), device=dev)   # rgb sum, weight sum
-        lo = tracing.to_device(e_lo, dev, site="motion_blur.cell_lo")[:, None, None]
-        hi = tracing.to_device(e_hi, dev, site="motion_blur.cell_hi")[:, None, None]
-    neg_inf = float("-inf")
     with tracing.span("pass:motion_blur.accumulate"):
-        for d in range(dirs):
-            # each side's extent where that side's bin is d, -inf elsewhere:
-            # clamp(min(u, hi) - lo, 0) is then the side's weight of each of
-            # the bin's cells (steps, H, W), and 0 off the bin (as the JAX
-            # package's weight * (bin == d))
-            u_pos_d = torch.where(bin_pos == float(d), u_pos, neg_inf)
-            u_neg_d = torch.where(bin_neg == float(d), u_neg, neg_inf)
-            wgt = torch.clamp(torch.minimum(u_pos_d, hi) - lo, min=0.0) \
-                + torch.clamp(torch.minimum(u_neg_d, hi) - lo, min=0.0)
-            for k in range(steps):
-                y0, x0 = pad + row_offset + int(dys[d, k]), pad + int(dxs[d, k])
-                # acc += cell * weight in one pass, the f16 cell read in place
-                acc.addcmul_(src[y0: y0 + h, x0: x0 + w], wgt[k, ..., None])
+        acc = accumulate(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo,
+                         e_hi, pad, row_offset)
 
     # centre: the near-origin sliver both sides leave uncovered when the
     # extent is shorter than cell 0, plus the reference's double-counted
@@ -188,3 +194,75 @@ def motion_blur_sweep(color: torch.Tensor, velocity: torch.Tensor, frame: int,
         rgb = acc[..., :3] + color * w_center[..., None]
         blurred = rgb / (acc[..., 3] + w_center)[..., None]
         return torch.where(did_move[..., None], blurred, color)
+
+
+def accumulate(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
+               pad: int, row_offset: int = 0) -> torch.Tensor:
+    """The accumulate pass of :func:`motion_blur_sweep`: (H, W, 4) float32,
+    the weighted rgb sum and the weight sum over the pixel's cells.
+    ``src`` is the padded float16 RGB1 frame, ``u_pos``/``u_neg`` and
+    ``bin_pos``/``bin_neg`` the (H, W) extents and direction bins of the
+    two sides, (``dys``, ``dxs``, ``e_lo``, ``e_hi``) the host cell table,
+    ``pad`` the source's padding and ``row_offset`` the block's first
+    global row. CUDA tensors launch ``csrc/motion_blur.cu``; CPU tensors
+    take :func:`accumulate_plain`."""
+    if src.device.type == "cpu":
+        return accumulate_plain(src, u_pos, u_neg, bin_pos, bin_neg, dys,
+                                dxs, e_lo, e_hi, pad, row_offset)
+    acc = _launch(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
+                  pad, row_offset)
+    accumulate.launches += 1
+    return acc
+
+
+accumulate.launches = 0
+
+
+def accumulate_plain(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo,
+                     e_hi, pad: int, row_offset: int = 0) -> torch.Tensor:
+    """:func:`accumulate` as whole-frame torch ops: every one of the
+    ``dirs x steps`` cells is a shifted read of the whole frame, weighted
+    per pixel (0 off the pixel's two bins)."""
+    h, w = u_pos.shape
+    dirs, steps = dys.shape
+    dev = u_pos.device
+    acc = torch.zeros((h, w, 4), device=dev)   # rgb sum, weight sum
+    lo = torch.as_tensor(e_lo, device=dev)[:, None, None]
+    hi = torch.as_tensor(e_hi, device=dev)[:, None, None]
+    neg_inf = float("-inf")
+    for d in range(dirs):
+        # each side's extent where that side's bin is d, -inf elsewhere:
+        # clamp(min(u, hi) - lo, 0) is then the side's weight of each of
+        # the bin's cells (steps, H, W), and 0 off the bin (as the JAX
+        # package's weight * (bin == d))
+        u_pos_d = torch.where(bin_pos == float(d), u_pos, neg_inf)
+        u_neg_d = torch.where(bin_neg == float(d), u_neg, neg_inf)
+        wgt = torch.clamp(torch.minimum(u_pos_d, hi) - lo, min=0.0) \
+            + torch.clamp(torch.minimum(u_neg_d, hi) - lo, min=0.0)
+        for k in range(steps):
+            y0, x0 = pad + row_offset + int(dys[d, k]), pad + int(dxs[d, k])
+            # acc += cell * weight in one pass, the f16 cell read in place
+            acc.addcmul_(src[y0: y0 + h, x0: x0 + w], wgt[k, ..., None])
+    return acc
+
+
+def _launch(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
+            pad: int, row_offset: int = 0) -> torch.Tensor:
+    h, w = u_pos.shape
+    dirs, steps = dys.shape
+    planes = [t.contiguous() for t in (u_pos, u_neg, bin_pos, bin_neg)]
+    src = src.contiguous()
+    if src.dtype != torch.float16 or src.dim() != 3 or src.shape[2] != 4:
+        raise ValueError("the source must be (rows, cols, 4) float16, not "
+                         f"{tuple(src.shape)} {src.dtype}")
+    cuda_build.require_cuda(*planes, src)
+    acc = torch.empty((h, w, 4), dtype=torch.float32, device=src.device)
+    offsets = np.concatenate([dys.reshape(-1), dxs.reshape(-1)]).astype(np.int32)
+    radii = np.concatenate([e_lo, e_hi]).astype(np.float32)
+    fn = cuda_build.bind("motion_blur", "re_motion_blur", 6, 8, 2)
+    err = fn(*(t.data_ptr() for t in planes), src.data_ptr(), acc.data_ptr(),
+             h, w, int(src.shape[0]), int(src.shape[1]), pad + row_offset, pad,
+             dirs, steps, offsets.ctypes.data, radii.ctypes.data,
+             cuda_build.stream_ptr(src))
+    cuda_build.check(err, "motion blur kernel")
+    return acc

@@ -33,9 +33,10 @@ from realism_effects_tpu_torch.core.framebuffers import GBuffer
 from realism_effects_tpu_torch import analytic
 from realism_effects_tpu_torch.core import math3d
 from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
-                                           poisson_kernel, poisson_taps,
-                                           raster_kernel, ssgi_sweep, stencil,
-                                           sweep_kernel, table_kernel, warp)
+                                           motion_blur, poisson_kernel,
+                                           poisson_taps, raster_kernel,
+                                           ssgi_sweep, stencil, sweep_kernel,
+                                           table_kernel, warp)
 from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
 from realism_effects_tpu_torch.ops.poisson_denoise import (POISSON8,
@@ -774,6 +775,56 @@ def test_lookup_source(host_kernels, k, offset):
     ids[0, :3] = torch.tensor([-(1 << 31), (1 << 31) - 1, 3 * 128])
     got = table_kernel._launch(table, ids)
     assert torch.equal(got, table_kernel.face_lookup_plain(table, ids))
+
+
+def _blur_inputs(h, w, seed):
+    """HDR colour (up to 4) and a velocity field: small motion, fast
+    segments whose cells reach out of the frame on the left and at the
+    top, and a static block."""
+    rng = np.random.default_rng(seed)
+    color = rng.uniform(0.0, 4.0, (h, w, 3))
+    vel = rng.normal(0.0, 0.02, (h, w, 2))
+    vel[:, :8] = (-0.4, 0.1)
+    vel[-6:, :, 1] = 0.5
+    vel[20:30, 40:60] = 0.0
+    return (torch.tensor(color, dtype=torch.float32),
+            torch.tensor(vel, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("dirs,steps,rows", [
+    pytest.param(16, 12, None, id="frame"),
+    pytest.param(16, 12, (20, 44), id="row-block"),
+    pytest.param(1, 12, None, id="one-bin"),
+    pytest.param(24, 12, None, id="two-launches"),
+    pytest.param(7, 5, (8, 30), id="odd-row-block")])
+def test_motion_blur_source(host_kernels, monkeypatch, dirs, steps, rows):
+    """The accumulate pass of ``motion_blur_sweep`` on a 48 x 80 frame:
+    the kernel's sums and the image resolved from them equal the plain
+    loop's bit for bit (PyTorch's CPU ``addcmul_`` is a fused
+    multiply-add, as the kernel's ``fmaf``). ``rows``: a row block at a
+    row offset, reading the whole frame's colour; one bin: the two sides
+    share every cell; 24 x 12 cells: two launches, the sums carried."""
+    color, vel = _blur_inputs(48, 80, dirs * steps)
+    kw = dict(dirs=dirs, steps=steps)
+    if rows is not None:
+        kw.update(row_offset=rows[0], source=color)
+        color, vel = color[rows[0]:rows[1]], vel[rows[0]:rows[1]]
+    sums = []
+
+    def kernel_and_plain(*args):
+        sums.append((motion_blur._launch(*args), motion_blur.accumulate_plain(*args)))
+        assert torch.equal(args[3], args[4]) == (dirs == 1)   # bin_pos, bin_neg
+        return sums[-1][0]
+
+    monkeypatch.setattr(motion_blur, "accumulate", kernel_and_plain)
+    got = motion_blur.motion_blur_sweep(color, vel, 3, **kw)
+    monkeypatch.setattr(motion_blur, "accumulate", motion_blur.accumulate_plain)
+    want = motion_blur.motion_blur_sweep(color, vel, 3, **kw)
+    (acc_k, acc_p), = sums
+    assert torch.equal(acc_k, acc_p)
+    assert float(acc_p[..., 3].min()) == 0.0 and float(acc_p[..., 3].max()) > 5.0
+    assert torch.equal(got, want)
+    assert float((got - color).abs().max()) > 0.1
 
 
 @pytest.mark.parametrize("name,entry", [
