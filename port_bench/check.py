@@ -23,8 +23,11 @@ and composed output, TRAA's history and the raster's velocity buffer
 ``stages``: the frozen copy shares the port's glue, so on the last
 warm-up frame of ``start`` each stage's inputs and outputs in the copy
 are recorded (:class:`Recorder`) and each stage that has an independent
-reference (``reference/stages/<effect>.py``) is given the same inputs;
-its outputs are held against the copy's (:func:`stage_numbers`).
+reference is given the same inputs; its outputs are held against the
+copy's (:func:`stage_numbers`). The reference is chosen by the stage's
+name and mode (:func:`reference_name`): ``reference/stages/<stage>.py``
+in the stage's default mode, ``<stage>_<mode>.py`` in another, so a
+stage is never held against another mode's reference.
 """
 
 from __future__ import annotations
@@ -98,15 +101,23 @@ def numbers(prog: dict, ref: dict) -> tuple:
             "state_mean": max(v[1] for v in state)}, per
 
 
+#: the stages whose algorithm is an option of their effect: {stage:
+#: (the option, read from the effect, and the mode whose reference keeps
+#: the stage's own name)}
+MODES = {"ssgi_trace": (lambda effect: effect.cfg.trace, "sweep"),
+         "motion_blur": (lambda effect: effect.mode, "sweep")}
+
+
 class Recorder:
     """While entered, records each stage of the reference composer
-    ``comp``: {effect name: {"ctx", "color", "state", "out"}} of the last
-    frame rendered. SSGI's trace outputs go under its ``"trace"``, and
-    the trace is recorded as a stage of its own, ``ssgi_trace``, whose
-    output is (g_diffuse, {"specular": g_specular}); the raster and
-    shade as ``raster``, with the scene, matrices, cameras and
-    environment it was given, its output (lit colour, {"gbuffer",
-    "velocity"})."""
+    ``comp``: {effect name: {"ctx", "color", "state", "out", "effect",
+    "mode"}} of the last frame rendered, ``effect`` the stage's effect
+    and ``mode`` its mode where :data:`MODES` names the stage (else
+    None). SSGI's trace outputs go under its ``"trace"``, and the trace
+    is recorded as a stage of its own, ``ssgi_trace``, whose output is
+    (g_diffuse, {"specular": g_specular}); the raster and shade as
+    ``raster``, with the scene, matrices, cameras and environment it was
+    given, its output (lit colour, {"gbuffer", "velocity"})."""
 
     def __init__(self, comp):
         self.comp = comp
@@ -145,16 +156,18 @@ class Recorder:
         comp._raster = rastered
         self._applies = [e.__dict__.get("apply") for e in self.comp.effects]
         for e in self.comp.effects:
-            def apply(ctx, color, state, _apply=e.apply, _name=e.name):
+            def apply(ctx, color, state, _apply=e.apply, _name=e.name, _effect=e):
                 traced_out.clear()
                 out = _apply(ctx, color, state)
-                rec = dict(ctx=ctx, color=color, state=state, out=out)
+                rec = dict(ctx=ctx, color=color, state=state, out=out, effect=_effect,
+                           mode=_mode(_name, _effect))
                 if traced_out:
                     # the trace as a stage of its own: its two textures
                     g_diffuse, g_specular = traced_out[0]
                     rec["trace"] = traced_out[0]
                     self.records[f"{_name}_trace"] = dict(
-                        rec, out=(g_diffuse, {"specular": g_specular}))
+                        rec, out=(g_diffuse, {"specular": g_specular}),
+                        mode=_mode(f"{_name}_trace", _effect))
                 self.records[_name] = rec
                 return out
             e.apply = apply
@@ -174,6 +187,20 @@ class Recorder:
                 e.apply = apply
 
 
+def _mode(stage: str, effect):
+    """The mode of ``stage`` on ``effect`` (:data:`MODES`), or None."""
+    return MODES[stage][0](effect) if stage in MODES else None
+
+
+def reference_name(stage: str, mode) -> str:
+    """The name of ``stage``'s reference in ``mode``: the stage's own in
+    its default mode (or where it has none), ``<stage>_<mode>`` in
+    another."""
+    if mode is None or mode == MODES[stage][1]:
+        return stage
+    return f"{stage}_{mode}"
+
+
 def stage_module(name: str):
     """``reference/stages/<name>.py``, or None where the stage has none."""
     full = f"{__package__}.reference.stages.{name}"
@@ -183,19 +210,27 @@ def stage_module(name: str):
 
 
 def stage_numbers(records: dict) -> tuple:
-    """({"<stage>_mean"}, gaps by leaf) of each recorded stage that has an
-    independent reference: its outputs given the recorded inputs, against
-    the frozen copy's; the number is the worst leaf's mean gap over its
-    mean magnitude (:func:`gaps`), or what the stage's module computes
-    where it defines ``numbers(prog, ref) -> (numbers, gaps by leaf)``.
+    """({"<reference>_mean"}, gaps by leaf) of each recorded stage that
+    has an independent reference of its mode (:func:`reference_name`):
+    its outputs given the recorded inputs, against the frozen copy's; the
+    number is the worst leaf's mean gap over its mean magnitude
+    (:func:`gaps`), or what the stage's module computes where it defines
+    ``numbers(prog, ref) -> (numbers, gaps by leaf)``. A stage that has
+    a reference in its default mode but none in its own raises
+    ``LookupError``: it is neither skipped nor held against another
+    mode's reference.
     The largest gaps are printed but not compared: a per-pixel threshold
     (a hit, a window edge, a weight's cut-off, a triangle's edge) that two
     float orderings decide differently moves single pixels by as much as
     the control does."""
     nums, per_all = {}, {}
-    for name, rec in records.items():
+    for stage, rec in records.items():
+        name = reference_name(stage, rec.get("mode"))
         mod = stage_module(name)
         if mod is None:
+            if name != stage and stage_module(stage) is not None:
+                raise LookupError(f"stage {stage!r} in mode {rec['mode']!r} has no "
+                                  f"reference: reference/stages/{name}.py is missing")
             continue
         image, state = mod.step(rec)
         prog, ref = outputs(*rec["out"]), outputs(image, state)
