@@ -48,7 +48,12 @@ Phases (any failure raises and the script exits non-zero):
    frame 3 at 1920x1080 (the entry's numbers) and at 3840x2160, each
    against the plain loop (exact) with the mean cells a pixel reads of
    the loop's dirs x steps, counted from the inputs by a plain reduction.
-3. Run the nine paths at 1920x1080. Through
+   SSGI's per-pixel march (both rays of a frame) and motion blur's taps
+   on the inputs of frame 3 of the flagship with upstream's per-pixel
+   stack (``analytic.flagship_march_composer``), each against its plain
+   route (exact), with the share of lanes that hit and of pixels that
+   move.
+3. Run the ten paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
    ray-cast per pixel on the card with the camera orbiting):
@@ -57,7 +62,10 @@ Phases (any failure raises and the script exits non-zero):
    over 24 frames. Through ``EffectComposer.render`` (the plane, box and
    sphere rasterized and shaded): the flagship stack, ``SSGIEffect()`` +
    ``HBAOEffect()`` + ``MotionBlurEffect()`` + ``TRAAEffect()``, over 24
-   frames; the reference demo's stack, ``SSGIEffect()`` ->
+   frames; the same stack with ``SSGIEffect(trace="march")`` and
+   ``MotionBlurEffect(mode="taps")`` over 12 frames (it must launch the
+   march and taps kernels and neither sweep); the reference demo's
+   stack, ``SSGIEffect()`` ->
    ``ToneMappingEffect()`` -> ``TRAAEffect()`` -> ``SharpnessEffect()`` ->
    ``VignetteEffect()`` -> ``BloomEffect()`` -> ``LUT3DEffect`` (a 32^3
    cube built in code), over 12 frames. Then HBAO + TRAA again over 12
@@ -106,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
    ``<kernel>@mesh<n>``.
 5. ``[split]``: the split frame (``EffectComposer._build_frame_fn(mesh)``,
    driven through ``render(mesh=...)``) on ``_mesh(torch, 4)``: the
-   flagship and HBAO + TRAA on the flagship scene at 1920x1080, 3 frames
+   flagship, the flagship with the march and the taps (both kernels per
+   shard) and HBAO + TRAA on the flagship scene at 1920x1080, 3 frames
    each, every frame's image and every leaf of the final state against
    the unsplit frames on the card within SPLIT_TOL (the JAX package's
    bounds, 2e-4 and 5e-4; 0 expected); it prints the differences, each
@@ -158,7 +167,7 @@ SPLIT_SHARDS = 4
 #: the split frame against the unsplit one: tests/test_parallel.py's
 #: bounds for its sharded frame (0 expected: the same kernels on the
 #: same values)
-SPLIT_TOL = {"HBAO+TRAA": 2e-4, "flagship": 5e-4}
+SPLIT_TOL = {"HBAO+TRAA": 2e-4, "flagship": 5e-4, "flagship march + taps": 5e-4}
 DEMO_FRAMES = 12
 DEMO_SIZE = 1024
 
@@ -254,6 +263,11 @@ SHARPNESS_OPS = 14        # per (pixel, channel): 9 adds, 2 fused multiply-adds,
 MB_OPS_CELL = 4           # per cell of a pixel's bins: min, subtract, max, zero test
 MB_OPS_READ = 8           # per cell read: 4 fused multiply-adds
 MB_BYTES_PIXEL = 40       # u and bin planes 16, its own texel 8, the sums 16
+RM_OPS_LANE = 31          # per march lane: step vector, start's projection, results
+RM_OPS_STEP = 50          # per step: eased step, projection, texel, view z, hit test
+RM_BYTES_LANE = 49        # view position, ray 12 each, random 4, uv 8, hit 12, flag 1
+TAPS_OPS_PIXEL = 8        # per taps pixel: its uv and the still test
+TAPS_BYTES_PIXEL = 32     # colour (the taps' source) 12, velocity 8, output 12
 
 
 def _bound(nbytes: float, ops: float):
@@ -1128,6 +1142,73 @@ def check_motion_blur_kernel(torch, analytic, timer, results):
                                      f"max abs error {err} > 0.0")
 
 
+def march_bytes_ops(h, w, dh, dw, steps):
+    """A march launch's least bytes and operations (``port_bench/kernels/
+    ray_march_kernel.py``): a lane stops at its hit, so only its first
+    step is work every lane must do."""
+    lanes = h * w
+    return (RM_BYTES_LANE * lanes + 4 * dh * dw,
+            lanes * (RM_OPS_LANE + (RM_OPS_STEP if steps > 1 else 0)))
+
+
+def check_march_taps_kernels(torch, analytic, timer, results):
+    """SSGI's per-pixel march (both rays of a frame) and motion blur's
+    taps against their plain routes on the inputs of frame 3 of the
+    flagship with upstream's per-pixel stack at 1920x1080: bit for bit,
+    with the share of lanes that hit and the mean steps a lane walks."""
+    from realism_effects_tpu_torch.ops import march_kernel, motion_blur, ssgi
+
+    comp, cam = analytic.flagship_march_composer(HEIGHT, WIDTH, "cuda")
+    seen = {"march": [], "taps": []}
+    real_march, real_taps = march_kernel.launch, motion_blur._launch_taps
+
+    def record(kind, real):
+        def run(*args):
+            seen[kind].append(args)
+            return real(*args)
+        return run
+
+    march_kernel.launch = record("march", real_march)
+    motion_blur._launch_taps = record("taps", real_taps)
+    try:
+        analytic.render_frames(comp, cam, range(4))
+    finally:
+        march_kernel.launch, motion_blur._launch_taps = real_march, real_taps
+    cfg = comp.effects[0].cfg
+    del comp
+    rays = seen["march"][-2:]
+    got = [march_kernel.launch(*a) for a in rays]
+    want = [ssgi.view_space_ray_march_plain(*a[:7], cfg) for a in rays]
+    err = max(_maxerr(torch, x, y) for g, w_ in zip(got, want) for x, y in zip(g, w_))
+    hit = [float((~w_[2]).float().mean()) for w_ in want]
+    nbytes = ops = 0
+    for a in rays:
+        b, o = march_bytes_ops(HEIGHT, WIDTH, *a[2].shape, cfg.steps)
+        nbytes, ops = nbytes + b, ops + o
+    ms = timer(lambda: [march_kernel.launch(*a) for a in rays])
+    plain_ms = timer(lambda: [ssgi.view_space_ray_march_plain(*a[:7], cfg) for a in rays])
+    print(f"[kernel] ray_march: share of lanes that hit, by ray {hit}", flush=True)
+    results.add("ray_march", "sweep.cu",
+                "none (ops/ssgi.py view_space_ray_march_plain, both rays)", err, 0.0,
+                ms, plain_ms, nbytes, ops)
+    results[-1]["hit_share"] = hit
+
+    args = seen["taps"][-1]
+    got = motion_blur._launch_taps(*args)
+    want = motion_blur.motion_blur_plain(*args)
+    err = _maxerr(torch, got, want)
+    vel = args[1]
+    moving = float(((vel * vel).sum(-1) > 1e-9).float().mean())
+    nbytes = TAPS_BYTES_PIXEL * HEIGHT * WIDTH + 128 * 128 * 16
+    ms = timer(lambda: motion_blur._launch_taps(*args))
+    plain_ms = timer(lambda: motion_blur.motion_blur_plain(*args))
+    print(f"[kernel] motion_blur_taps: share of pixels that move {moving}", flush=True)
+    results.add("motion_blur_taps", "motion_blur.cu",
+                "none (ops/motion_blur.py motion_blur_plain)", err, 0.0, ms, plain_ms,
+                nbytes, TAPS_OPS_PIXEL * HEIGHT * WIDTH)
+    results[-1]["moving_share"] = moving
+
+
 def counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
                                                poisson_kernel, poisson_taps,
@@ -1154,9 +1235,11 @@ def counters():
         "sharpness": stencil.sharpness_3x3.launches,
         # HBAO's noise table: built once per distance and power, not a frame
         "hbao_noise": hbao_kernel.noise_table.launches,
-        # the per-pixel march (torch ops, no kernel of its own): calls
+        # the per-pixel march: calls (each launches ray_march on the card)
         "march": ssgi.view_space_ray_march.calls,
+        "ray_march": ssgi.view_space_ray_march.launches,
         "motion_blur": motion_blur.accumulate.launches,
+        "motion_blur_taps": motion_blur.motion_blur.launches,
     }
 
 
@@ -1182,7 +1265,9 @@ def reset_counters():
     poisson_taps.poisson_taps.launches = 0
     stencil.sharpness_3x3.launches = 0
     ssgi.view_space_ray_march.calls = 0
+    ssgi.view_space_ray_march.launches = 0
     motion_blur.accumulate.launches = 0
+    motion_blur.motion_blur.launches = 0
 
 
 def check_env_extras(torch):
@@ -1592,8 +1677,9 @@ def _state_leaves(torch, state):
 
 def check_split(torch, analytic, smi):
     """The split frame at 1920 x 1080 on ``_mesh(torch, SPLIT_SHARDS)``:
-    3 frames of HBAO + TRAA on the flagship scene and 3 of the flagship
-    through ``render(mesh=...)`` (``_build_frame_fn(mesh)``) against the
+    3 frames of HBAO + TRAA on the flagship scene, 3 of the flagship and
+    3 of the flagship with the march and the taps through
+    ``render(mesh=...)`` (``_build_frame_fn(mesh)``) against the
     same frames without a mesh, every image and every final state leaf
     within SPLIT_TOL; the host ms per frame of both runs (first frames,
     each run ending in a synchronise)."""
@@ -1624,7 +1710,8 @@ def check_split(torch, analytic, smi):
         return comp, images, (time.perf_counter() - t0) * 1e3 / 3
 
     for label, make in (("HBAO+TRAA", hbao_traa),
-                        ("flagship", analytic.flagship_composer)):
+                        ("flagship", analytic.flagship_composer),
+                        ("flagship march + taps", analytic.flagship_march_composer)):
         tol = SPLIT_TOL[label]
         ref, want, ref_ms = run(make, None)
         reset_counters()
@@ -1651,6 +1738,9 @@ def check_split(torch, analytic, smi):
                   "zscan": 3}
         if label == "flagship":
             want_n.update(sweep=3, poisson_2tex=3 * 2 * SPLIT_SHARDS)
+        if label == "flagship march + taps":   # both per shard, a march a ray
+            want_n.update(ray_march=3 * 2 * SPLIT_SHARDS,
+                          motion_blur_taps=3 * SPLIT_SHARDS)
         short = {k: launches.get(k, 0) for k, n in want_n.items()
                  if launches.get(k, 0) < n}
         if short or (label == "flagship" and launches.get("sweep") != 3):
@@ -1832,6 +1922,7 @@ def main() -> int:
     check_unfused_kernels(torch, analytic, timer, frames, kernels)
     check_ssr_kernels(torch, analytic, timer, kernels)
     check_motion_blur_kernel(torch, analytic, timer, kernels)
+    check_march_taps_kernels(torch, analytic, timer, kernels)
     check_env_extras(torch)
 
     # phase 3: the paths at 1920 x 1080
@@ -1847,7 +1938,7 @@ def main() -> int:
 
     names = [k["name"] for k in kernels]
     new_kernels = ("warp_multi", "poisson_taps", "sharpness", "sweep_1ray",
-                   "poisson_1tex", "zscan_peels")
+                   "poisson_1tex", "zscan_peels", "ray_march", "motion_blur_taps")
     by_path = {}
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa"] = run_path(
@@ -1868,6 +1959,15 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "flagship", FRAMES, [k for k in names if k not in new_kernels], smi,
         forbidden=("march",))
+    del comp
+    comp, cam = analytic.flagship_march_composer(HEIGHT, WIDTH, "cuda")
+    by_path["flagship_march"] = run_path(
+        torch, comp, lambda first, n: analytic.render_frames(
+            comp, cam, range(first, first + n)),
+        "flagship with the march and the taps", HBAO_TRAA_FRAMES,
+        ("march", "ray_march", "motion_blur_taps", "zscan", "lookup", "hbao", "poisson",
+         "poisson_2tex", "warp_catrom5", "warp_nearest", "minmax"), smi,
+        forbidden=("sweep", "sweep_1ray", "warp_bilinear", "motion_blur"))
     del comp
     comp, cam = analytic.demo_stack_composer(HEIGHT, WIDTH, "cuda")
     by_path["demo_stack"] = run_path(
@@ -1897,16 +1997,16 @@ def main() -> int:
         torch, comp, lambda first, n: analytic.render_frames(
             comp, cam, range(first, first + n)),
         "SSGI march+SMAA under a cube map", HBAO_TRAA_FRAMES,
-        ("march", "zscan", "lookup", "warp_catrom5", "minmax", "poisson_2tex"), smi,
-        forbidden=("sweep", "sweep_1ray", "warp_bilinear"))
+        ("march", "ray_march", "zscan", "lookup", "warp_catrom5", "minmax",
+         "poisson_2tex"), smi, forbidden=("sweep", "sweep_1ray", "warp_bilinear"))
     del comp
     comp, cam = analytic.ortho_ssr_composer(HEIGHT, WIDTH, "cuda")
     by_path["ortho_ssr"] = run_path(
         torch, comp, lambda first, n: analytic.render_frames(
             comp, cam, range(first, first + n)),
         "ortho SSR march+HBAO+FXAA", HBAO_TRAA_FRAMES,
-        ("march", "hbao", "poisson", "poisson_1tex", "minmax", "warp_catrom5",
-         "zscan", "lookup"), smi,
+        ("march", "ray_march", "hbao", "poisson", "poisson_1tex", "minmax",
+         "warp_catrom5", "zscan", "lookup"), smi,
         forbidden=("sweep", "sweep_1ray", "poisson_2tex", "warp_bilinear"))
     del comp
     comp, cam, mixer = analytic.gltf_alpha_msaa_composer(HEIGHT, WIDTH, "cuda")
@@ -1926,7 +2026,8 @@ def main() -> int:
     # stack's for sharpness, the unfused route's for its two kernels
     home = {"sharpness": "demo_stack", "warp_multi": "hbao_traa_unfused",
             "poisson_taps": "hbao_traa_unfused", "sweep_1ray": "ssr_gtao_taa",
-            "poisson_1tex": "ssr_gtao_taa", "zscan_peels": "gltf_alpha_msaa"}
+            "poisson_1tex": "ssr_gtao_taa", "zscan_peels": "gltf_alpha_msaa",
+            "ray_march": "flagship_march", "motion_blur_taps": "flagship_march"}
     for kern in kernels:
         path = home.get(kern["name"], "flagship")
         kern["launches"] = by_path[path][kern["name"]]

@@ -263,6 +263,17 @@ def flagship_composer(h: int, w: int, device):
     return comp, cam
 
 
+def flagship_march_composer(h: int, w: int, device):
+    """:func:`flagship_composer` with upstream's per-pixel stack:
+    ``SSGIEffect(trace="march")`` and ``MotionBlurEffect(mode="taps")``."""
+    comp, cam = flagship_composer(h, w, device)
+    comp.effects = []
+    for effect in (SSGIEffect(trace="march"), HBAOEffect(), MotionBlurEffect(mode="taps"),
+                   TRAAEffect()):
+        comp.add_effect(effect)
+    return comp, cam
+
+
 def render_frames(comp, cam, steps, mixer=None):
     """``comp.render(dt=1/60)`` of a frame at each orbit index of
     ``steps`` (``range(first, first + n)`` or :func:`still_then_step`);

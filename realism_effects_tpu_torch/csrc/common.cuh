@@ -74,6 +74,15 @@ __device__ __forceinline__ void unpack_normal(float packed, float& nx,
   nz = valid ? z / n : 0.0f;
 }
 
+// floor(x) as an int, as core/math3d.py::floor_int32 converts: NaN -> 0,
+// saturated at +-2^30 (every caller clamps further, to the frame).
+__device__ __forceinline__ int floor_int(float x) {
+  constexpr float kLim = 1073741824.0f;
+  const float f = floorf(x);
+  if (f != f) return 0;
+  return static_cast<int>(f < -kLim ? -kLim : (f > kLim ? kLim : f));
+}
+
 // A block's dynamic shared-memory array. (The host build of the sources
 // in tests/test_torch_cuda_sources.py, which runs threads one after the
 // other, defines it and block_load for itself; the other block helpers

@@ -124,9 +124,116 @@ motion_blur_kernel(const float* __restrict__ u_pos, const float* __restrict__ u_
   acc[pix] = re::F4{{a0, a1, a2, a3}};
 }
 
+// ---- the reference's taps: ops/motion_blur.py::motion_blur ----
+// motion_blur.frag:23-42 as the plain route computes it, one thread a
+// pixel: the pixel's uv (uv_grid, at its global row), its velocity
+// scaled by the intensity, the jitter from the blue-noise tile read at
+// the frame's shift, the clamped start and end uvs, then samples + 1
+// bilinear taps at mix(start, end, i / samples) of the float16-rounded
+// source (sample_bilinear(half=True): clamp to edge, the fraction 0
+// where floor lands below 0), summed onto the pixel's own colour and
+// divided by samples + 2; a pixel that does not move keeps its colour
+// and takes no tap (the plain route takes them and discards them).
+// Each texel is rounded through float16 as it is fetched, so no float16
+// copy of the source is made. The same operations in the same order as
+// the plain route (-fmad=false); a division by a host scalar follows the
+// plain route of the device: PyTorch on CUDA multiplies by the scalar's
+// float32 reciprocal, on the CPU it divides (`recip`), so the kernel
+// matches the card's plain route on the card and the CPU's in the host
+// build of the sources.
+//
+// The TPU never had a kernel for it (the JAX package's taps are XLA);
+// the plain route is about 25 whole-frame torch operations a tap. Bound
+// on the H100 by bytes where no pixel moves: the pixel's colour,
+// velocity and output once (the source is the colour, or in a split
+// frame the gathered colour, and the 4 x 17 texels a moving pixel reads
+// lie along its segment, shared by its neighbours through L1 and L2)
+// and the 128 x 128 noise tile once; the taps' arithmetic, about 50
+// operations a tap, depends on which pixels move.
+
+struct TapsParams {
+  int h, w;        // the block's rows and columns
+  int sh, sw;      // the source's rows (the frame's height) and columns
+  int row_offset;  // the block's first global row
+  int tile, sy, sx;  // noise tile size and the frame's shift into it
+  int samples, recip;
+  float intensity, jitter, frame_speed;
+  float inv_w, inv_fh, div, inv_div;  // 1 / w, 1 / sh, samples + 2, 1 / div
+};
+
+__device__ __forceinline__ float scalar_div(float a, float b, float inv, int recip) {
+  return recip ? a * inv : a / b;
+}
+
+__device__ __forceinline__ float half_round(float v) {
+  return __half2float(__float2half_rn(v));
+}
+
+// core/sampling.py::sample_bilinear(src, (u, v), half=True), RGB.
+__device__ __forceinline__ void bilinear_half(const float* __restrict__ src,
+                                              const TapsParams& p, float u, float v,
+                                              float* out) {
+  const float x = u * static_cast<float>(p.sw) - 0.5f;
+  const float y = v * static_cast<float>(p.sh) - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x0 < 0.0f ? 0.0f : x - x0;
+  const float fy = y0 < 0.0f ? 0.0f : y - y0;
+  const int ix = re::floor_int(x0);
+  const int iy = re::floor_int(y0);
+  const int xa = re::clampi(ix, 0, p.sw - 1), xb = re::clampi(ix + 1, 0, p.sw - 1);
+  const int ya = re::clampi(iy, 0, p.sh - 1), yb = re::clampi(iy + 1, 0, p.sh - 1);
+  const float* r0 = src + static_cast<size_t>(ya) * p.sw * 3;
+  const float* r1 = src + static_cast<size_t>(yb) * p.sw * 3;
+  for (int c = 0; c < 3; ++c) {
+    const float c00 = half_round(r0[3 * xa + c]), c01 = half_round(r0[3 * xb + c]);
+    const float c10 = half_round(r1[3 * xa + c]), c11 = half_round(r1[3 * xb + c]);
+    const float top = c00 + (c01 - c00) * fx;
+    const float bot = c10 + (c11 - c10) * fx;
+    out[c] = top + (bot - top) * fy;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+motion_blur_taps_kernel(const float* __restrict__ color, const float* __restrict__ velocity,
+                        const float* __restrict__ tile, const float* __restrict__ src,
+                        float* __restrict__ out, const TapsParams p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y;
+  if (x >= p.w) return;
+  const size_t pix = static_cast<size_t>(y) * p.w + x;
+  const float u = scalar_div(static_cast<float>(x) + 0.5f, static_cast<float>(p.w),
+                             p.inv_w, p.recip);
+  float gy = static_cast<float>(y);
+  if (p.row_offset != 0) gy = gy + static_cast<float>(p.row_offset);
+  const float v = scalar_div(gy + 0.5f, static_cast<float>(p.sh), p.inv_fh, p.recip);
+  const float* c = color + 3 * pix;
+  const float vel0 = velocity[2 * pix], vel1 = velocity[2 * pix + 1];
+  if (!(vel0 * vel0 + vel1 * vel1 > 1e-9f)) {  // a still pixel keeps its colour
+    for (int k = 0; k < 3; ++k) out[3 * pix + k] = c[k];
+    return;
+  }
+  const float vx = vel0 * p.intensity, vy = vel1 * p.intensity;
+  const float* n = tile + 4 * (static_cast<size_t>((y + p.sy) % p.tile) * p.tile +
+                               (x + p.sx) % p.tile);
+  const float jx = vx * p.jitter * n[0], jy = vy * p.jitter * n[1];
+  const float su = re::pmax(u + (jx - vx * 0.5f) * p.frame_speed, 0.0f);
+  const float sv = re::pmax(v + (jy - vy * 0.5f) * p.frame_speed, 0.0f);
+  const float eu = re::pmin(u + (jx + vx * 0.5f) * p.frame_speed, 1.0f);
+  const float ev = re::pmin(v + (jy + vy * 0.5f) * p.frame_speed, 1.0f);
+  float acc[3] = {c[0], c[1], c[2]};
+  for (int i = 0; i <= p.samples; ++i) {
+    const float t = static_cast<float>(i) / static_cast<float>(p.samples);
+    float s[3];
+    bilinear_half(src, p, su + (eu - su) * t, sv + (ev - sv) * t, s);
+    for (int k = 0; k < 3; ++k) acc[k] = acc[k] + s[k];
+  }
+  for (int k = 0; k < 3; ++k) out[3 * pix + k] = scalar_div(acc[k], p.div, p.inv_div, p.recip);
+}
+
 }  // namespace
 
-// ---- host entry point ----
+// ---- host entry points ----
 // u_pos, u_neg, bin_pos, bin_neg: (h, w) float32; src: the padded
 // (src_rows, src_cols, 4) float16 frame; acc: (h, w, 4) float32, written.
 // Block row y reads source row row0 + y + dy, column col0 + x + dx.
@@ -181,4 +288,45 @@ extern "C" int re_motion_blur(const float* u_pos, const float* u_neg,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// color: the block's (h, w, 3) float32; velocity (h, w, 2); tile: the
+// (tile, tile, 4) float32 blue noise; src: the (src_rows, src_cols, 3)
+// float32 frame the taps read; out (h, w, 3), written. fparams (host):
+// intensity, jitter, frame_speed, 1 / w, 1 / src_rows, samples + 2 and
+// its reciprocal, each rounded to float32.
+extern "C" int re_motion_blur_taps(const float* color, const float* velocity,
+                                   const float* tile, const float* src, float* out,
+                                   int h, int w, int src_rows, int src_cols,
+                                   int row_offset, int tile_size, int sy, int sx,
+                                   int samples, int recip, const float* fparams,
+                                   void* stream) {
+  if (h < 0 || w < 0 || src_rows < 1 || src_cols < 1 || tile_size < 1 || sy < 0 ||
+      sx < 0 || samples < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (h == 0 || w == 0) return cudaSuccess;
+  TapsParams p;
+  p.h = h;
+  p.w = w;
+  p.sh = src_rows;
+  p.sw = src_cols;
+  p.row_offset = row_offset;
+  p.tile = tile_size;
+  p.sy = sy;
+  p.sx = sx;
+  p.samples = samples;
+  p.recip = recip;
+  p.intensity = fparams[0];
+  p.jitter = fparams[1];
+  p.frame_speed = fparams[2];
+  p.inv_w = fparams[3];
+  p.inv_fh = fparams[4];
+  p.div = fparams[5];
+  p.inv_div = fparams[6];
+  const dim3 block(kBlock);
+  const dim3 grid((w + kBlock - 1) / kBlock, h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  motion_blur_taps_kernel<<<grid, block, 0, st>>>(color, velocity, tile, src, out, p);
+  return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // SSGI sweep march: for each pixel and each of n_rays rays, the first
 // step along the ray's own direction bin at which the depth buffer lies
 // within [0, thickness) in front of the ray, and the prewarped radiance
-// at that texel.
+// at that texel. Below it, the reference's per-pixel march
+// (ray_march_kernel), the other of SSGI's and SSR's two traces.
 //
 // Replaces ops/pallas/sweep.py::_sweep_kernel (sweep_march_vmem), whose
 // semantics are the jnp executor's (ops/ssgi_sweep.py:264-313). A ray in
@@ -156,6 +157,118 @@ int launch(const float* z_tex, const uint64_t* rad, const float* planes,
   return cudaGetLastError();
 }
 
+// ---- the per-pixel march: ops/ssgi.py::view_space_ray_march ----
+// RayMarch + BinarySearch (ssgi.frag:441-503), one thread a lane (a
+// pixel's ray), with the plain route's operations in its order: steps
+// 1 .. steps - 1 of step_dir = l * (ray_distance / steps), each eased by
+// 1 - exp(-0.25 x^2), x = (i + random_b) - 0.5; the view position
+// projected to uv (rows 0, 1 and 3 of the projection, summed left to
+// right), the nearest depth texel through sample_nearest's floor and
+// clamp, depth_to_view_z, and the hit test 0 <= diff < thickness. The
+// plain route holds a lane's position once it has hit and goes on
+// stepping it; nothing it computes after the hit changes the lane's
+// result, so the thread stops there. A hit lane then takes refine_steps
+// bisections from half a step back; a missed lane returns the uv of its
+// last step and the 1e9 sentinel. The same operations in the same order
+// as the plain route (-fmad=false), so on the card the two agree bit for
+// bit: expf is the one libm call, the same on both.
+//
+// The TPU never had a kernel for it (the JAX package marches in XLA);
+// the plain route is some 30 whole-frame torch operations a step, about
+// 750 launches a ray. Bound on the H100 by bytes: the lane's view
+// position, ray, random number and its three outputs once, the depth
+// texture once (its texels are re-read from L1 and L2: a ray's steps
+// stay near the pixel, and a warp's 32 lanes are neighbours).
+
+constexpr int kMarchBlock = 256;
+
+struct MarchParams {
+  float m[3][4];      // rows 0, 1 and 3 of the projection matrix
+  float step_scale;   // ray_distance / steps, rounded to float32
+  float thickness;
+  // perspective: near * far, far - near, far; orthographic: near - far, near
+  float z0, z1, z2;
+  int perspective;
+  int n, dh, dw, steps, refine_steps;
+  long long rb_stride;  // elements between two lanes' random numbers
+};
+
+// math3d.view_to_screen: (xy / w) * 0.5 + 0.5 of the projected point.
+__device__ __forceinline__ void to_screen(const MarchParams& p, float x, float y,
+                                          float z, float& u, float& v) {
+  const float cx = p.m[0][0] * x + p.m[0][1] * y + p.m[0][2] * z + p.m[0][3];
+  const float cy = p.m[1][0] * x + p.m[1][1] * y + p.m[1][2] * z + p.m[1][3];
+  const float cw = p.m[2][0] * x + p.m[2][1] * y + p.m[2][2] * z + p.m[2][3];
+  u = cx / cw * 0.5f + 0.5f;
+  v = cy / cw * 0.5f + 0.5f;
+}
+
+// depth_to_view_z(sample_nearest(depth, uv)).
+__device__ __forceinline__ float view_z_at(const float* __restrict__ depth,
+                                           const MarchParams& p, float u, float v) {
+  const int ix = re::clampi(re::floor_int(u * static_cast<float>(p.dw)), 0, p.dw - 1);
+  const int iy = re::clampi(re::floor_int(v * static_cast<float>(p.dh)), 0, p.dh - 1);
+  const float d = depth[static_cast<size_t>(iy) * p.dw + ix];
+  return p.perspective ? p.z0 / (d * p.z1 - p.z2) : d * p.z0 - p.z1;
+}
+
+__global__ void __launch_bounds__(kMarchBlock)
+ray_march_kernel(const float* __restrict__ view_pos, const float* __restrict__ ray,
+                 const float* __restrict__ random_b, const float* __restrict__ depth,
+                 float* __restrict__ uv_out, float* __restrict__ pos_out,
+                 uint8_t* __restrict__ missed_out, const MarchParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * kMarchBlock + threadIdx.x;
+  if (i >= p.n) return;
+  float hx = view_pos[3 * i], hy = view_pos[3 * i + 1], hz = view_pos[3 * i + 2];
+  const float sx = ray[3 * i] * p.step_scale;
+  const float sy = ray[3 * i + 1] * p.step_scale;
+  const float sz = ray[3 * i + 2] * p.step_scale;
+  const float rb = random_b[i * p.rb_stride];
+  float u, v;
+  to_screen(p, hx, hy, hz, u, v);
+  bool hit = false;
+  for (int k = 1; k < p.steps && !hit; ++k) {
+    const float x = (static_cast<float>(k) + rb) - 0.5f;
+    const float cs = 1.0f - expf(x * x * -0.25f);
+    hx = hx + sx * cs;
+    hy = hy + sy * cs;
+    hz = hz + sz * cs;
+    to_screen(p, hx, hy, hz, u, v);
+    const float diff = view_z_at(depth, p, u, v) - hz;
+    hit = diff >= 0.0f && diff < p.thickness;
+  }
+  if (hit && p.refine_steps > 0) {
+    float bx = sx * 0.5f, by = sy * 0.5f, bz = sz * 0.5f;
+    hx = hx - bx;
+    hy = hy - by;
+    hz = hz - bz;
+    for (int k = 0; k < p.refine_steps; ++k) {
+      float bu, bv;
+      to_screen(p, hx, hy, hz, bu, bv);
+      const float diff = view_z_at(depth, p, bu, bv) - hz;
+      bx = bx * 0.5f;
+      by = by * 0.5f;
+      bz = bz * 0.5f;
+      if (diff >= 0.0f) {
+        hx = hx - bx;
+        hy = hy - by;
+        hz = hz - bz;
+      } else {
+        hx = hx + bx;
+        hy = hy + by;
+        hz = hz + bz;
+      }
+    }
+    to_screen(p, hx, hy, hz, u, v);
+  }
+  uv_out[2 * i] = u;
+  uv_out[2 * i + 1] = v;
+  pos_out[3 * i] = hit ? hx : 1.0e9f;
+  pos_out[3 * i + 1] = hit ? hy : 1.0e9f;
+  pos_out[3 * i + 2] = hit ? hz : 1.0e9f;
+  missed_out[i] = hit ? 0 : 1;
+}
+
 }  // namespace
 
 // ---- host entry point ----
@@ -197,4 +310,41 @@ extern "C" int re_sweep(const float* z_tex, const void* rad,
     return launch<true>(z_tex, zr, planes, tb, hit, fout, go, smem, p, st);
   }
   return launch<false>(z_tex, zr, planes, tb, hit, fout, go, smem, p, st);
+}
+
+// view_pos, ray: (n, 3) float32; random_b: lane i at random_b[i *
+// rb_stride]; depth: (dh, dw) float32. Out: uv (n, 2), hit_pos (n, 3)
+// float32, missed (n) bytes. fparams (host): the projection's rows 0, 1
+// and 3 (12 floats), step_scale, thickness, then the depth law's three
+// constants (see MarchParams).
+extern "C" int re_ray_march(const float* view_pos, const float* ray,
+                            const float* random_b, const float* depth, float* uv,
+                            float* hit_pos, uint8_t* missed, int n, int dh, int dw,
+                            int steps, int refine_steps, int perspective,
+                            int rb_stride, const float* fparams, void* stream) {
+  if (n < 0 || dh < 1 || dw < 1 || steps < 1 || refine_steps < 0 || rb_stride < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  MarchParams p;
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 4; ++c) p.m[r][c] = fparams[4 * r + c];
+  }
+  p.step_scale = fparams[12];
+  p.thickness = fparams[13];
+  p.z0 = fparams[14];
+  p.z1 = fparams[15];
+  p.z2 = fparams[16];
+  p.perspective = perspective;
+  p.n = n;
+  p.dh = dh;
+  p.dw = dw;
+  p.steps = steps;
+  p.refine_steps = refine_steps;
+  p.rb_stride = rb_stride;
+  const dim3 grid((n + kMarchBlock - 1) / kMarchBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ray_march_kernel<<<grid, kMarchBlock, 0, st>>>(view_pos, ray, random_b, depth, uv,
+                                                 hit_pos, missed, p);
+  return cudaGetLastError();
 }

@@ -9,7 +9,9 @@ Two discretisations of the same integral, as in the JAX package's
 ``ops/motion_blur.py``:
 
 * :func:`motion_blur` -- the reference's: ``samples + 1`` bilinear taps
-  at per-pixel uvs (the parity mode).
+  at per-pixel uvs (the parity mode). CUDA tensors: one hand-written
+  kernel, ``csrc/motion_blur.cu``'s ``motion_blur_taps_kernel``, a thread
+  a pixel taking all its taps; CPU tensors: :func:`motion_blur_plain`.
 * :func:`motion_blur_sweep` (the default) -- pixels bin by velocity
   direction (R2-rotated per frame), the segment integrates over a shared
   geometric radius ladder, and every (direction, radius) cell is one
@@ -54,7 +56,7 @@ import torch
 
 from .. import tracing
 from ..core.math3d import mix, uv_grid
-from ..core.rng import blue_noise_image
+from ..core.rng import blue_noise_image, blue_noise_tile_tensor, noise_shift
 from ..core.sampling import sample_bilinear
 from . import cuda_build
 from .ssgi_sweep import _libm
@@ -74,7 +76,27 @@ def motion_blur(color: torch.Tensor, velocity: torch.Tensor, frame: int,
     """The reference's taps. A row block of a larger frame passes its
     first row's global index ``row_offset`` and the whole frame's colour
     as ``source`` (the taps read it anywhere); ``color`` and ``velocity``
-    are the block's."""
+    are the block's. CUDA tensors launch ``csrc/motion_blur.cu``'s
+    ``motion_blur_taps_kernel`` (one thread a pixel, every tap); CPU
+    tensors take :func:`motion_blur_plain`."""
+    args = (color, velocity, frame, intensity, jitter, delta_time, samples,
+            row_offset, source)
+    with tracing.span("pass:motion_blur.taps"):
+        if color.device.type == "cpu":
+            return motion_blur_plain(*args)
+        out = _launch_taps(*args)
+        motion_blur.launches += 1
+        return out
+
+
+motion_blur.launches = 0
+
+
+def motion_blur_plain(color, velocity, frame: int, intensity=1.0, jitter=1.0,
+                      delta_time=1.0 / 60.0, samples: int = 16,
+                      row_offset: int = 0, source=None) -> torch.Tensor:
+    """:func:`motion_blur` as whole-frame torch operations, a tap at a
+    time."""
     h, w = color.shape[:2]
     src = color if source is None else source
     uv = uv_grid(h, w, color.device, row_offset, src.shape[0])
@@ -95,6 +117,36 @@ def motion_blur(color: torch.Tensor, velocity: torch.Tensor, frame: int,
         acc = acc + sample_bilinear(src, tap_uv, half=True)
     blurred = acc / (float(samples) + 2.0)
     return torch.where(did_move[..., None], blurred, color)
+
+
+def _launch_taps(color, velocity, frame: int, intensity, jitter, delta_time,
+                 samples: int, row_offset: int, source) -> torch.Tensor:
+    h, w = color.shape[:2]
+    src = color if source is None else source
+    color, velocity, src = (t.contiguous() for t in (color, velocity, src))
+    if (color.shape != (h, w, 3) or velocity.shape != (h, w, 2) or src.dim() != 3
+            or src.shape[2] != 3):
+        raise ValueError(f"colour {tuple(color.shape)}, velocity "
+                         f"{tuple(velocity.shape)}, source {tuple(src.shape)}")
+    tile = blue_noise_tile_tensor(color.device)
+    sy, sx = noise_shift(frame, row_offset, 0, tile.shape[0])
+    cuda_build.require_cuda(color, velocity, src, tile)
+    out = torch.empty_like(color)
+    f32 = np.float32
+    div = f32(float(samples) + 2.0)
+    fparams = np.array([intensity, jitter, _frame_speed(delta_time), f32(1) / f32(w),
+                        f32(1) / f32(src.shape[0]), div, f32(1) / div], f32)
+    # PyTorch on CUDA divides by a host scalar as a product with its
+    # float32 reciprocal, on the CPU it divides: the kernel follows the
+    # plain route of the tensors' device
+    recip = int(color.device.type == "cuda")
+    fn = cuda_build.bind("motion_blur", "re_motion_blur_taps", 5, 10, 1)
+    err = fn(color.data_ptr(), velocity.data_ptr(), tile.data_ptr(), src.data_ptr(),
+             out.data_ptr(), h, w, int(src.shape[0]), int(src.shape[1]),
+             int(row_offset), int(tile.shape[0]), sy, sx, int(samples), recip,
+             fparams.ctypes.data, cuda_build.stream_ptr(color))
+    cuda_build.check(err, "motion blur taps kernel")
+    return out
 
 
 def sweep_cells(frame: int, h: int, w: int, dirs: int, steps: int,

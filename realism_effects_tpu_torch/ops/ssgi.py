@@ -28,6 +28,7 @@ from ..core.math3d import (dot, luminance, mix, normalize, smoothstep,
 from ..core.rng import blue_noise_image, blue_noise_transform
 from ..core.sampling import sample_bilinear, sample_nearest
 from ..parallel.context import replicate_for_rolls
+from . import march_kernel
 from .ssgi_sweep import (MIN_RADIUS, march_inputs, step_table, sweep_ray_march,
                          sweep_results)
 from .sweep_kernel import sweep_march
@@ -37,12 +38,13 @@ EPS = 1e-5
 
 #: the ``pass:<mode>.<pass>`` span names of the chain by mode ("ssgi" |
 #: "ssr"), built once: setup (selection, sampling, the sweep's bin
-#: noise), prewarp (the sweep's radiance), trace, shade (radiance,
-#: brdf / pdf / MIS and the packed outputs), and the effect's
-#: reproject, denoise and compose
+#: noise), prewarp (the sweep's radiance), trace, march (the per-pixel
+#: march's launches, inside trace), shade (radiance, brdf / pdf / MIS
+#: and the packed outputs), and the effect's reproject, denoise and
+#: compose
 PASS_SPANS = {mode: {p: f"pass:{mode}.{p}" for p in (
-    "setup", "prewarp", "trace", "shade", "reproject", "denoise", "compose")}
-    for mode in ("ssgi", "ssr")}
+    "setup", "prewarp", "trace", "march", "shade", "reproject", "denoise",
+    "compose")} for mode in ("ssgi", "ssr")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +81,28 @@ def view_space_ray_march(view_pos, l, depth_tex, cam, random_b, thickness,
     ``0 <= diff < thickness`` against the nearest depth texel, refined by
     ``cfg.refine_steps`` bisections from half a step back. Returns (uv,
     hit_pos (view), missed); missed lanes hold hit_pos = 1e9, the
-    reference's sentinel. ``view_space_ray_march.calls`` counts calls."""
+    reference's sentinel. CUDA tensors launch ``csrc/sweep.cu``'s
+    ``ray_march_kernel`` (``ops/march_kernel.py``); CPU tensors take
+    :func:`view_space_ray_march_plain`. ``view_space_ray_march.calls``
+    counts calls, ``.launches`` the kernel's launches."""
     view_space_ray_march.calls += 1
+    if view_pos.device.type == "cpu":
+        return view_space_ray_march_plain(view_pos, l, depth_tex, cam, random_b,
+                                          thickness, ray_distance, cfg)
+    out = march_kernel.launch(view_pos, l, depth_tex, cam, random_b, thickness,
+                              ray_distance, cfg.steps, cfg.refine_steps)
+    view_space_ray_march.launches += 1
+    return out
+
+
+view_space_ray_march.calls = 0
+view_space_ray_march.launches = 0
+
+
+def view_space_ray_march_plain(view_pos, l, depth_tex, cam, random_b, thickness,
+                               ray_distance, cfg: SSGIConfig):
+    """:func:`view_space_ray_march` as whole-frame torch operations, each
+    lane stepped to the end (a lane that has hit holds its position)."""
     p = cam.projection_matrix
     step_dir = l * (ray_distance / float(cfg.steps))
     hit = torch.zeros(view_pos.shape[:-1], dtype=torch.bool, device=view_pos.device)
@@ -113,9 +135,6 @@ def view_space_ray_march(view_pos, l, depth_tex, cam, random_b, thickness,
 
     missed = ~hit
     return uv, torch.where(missed[..., None], 1.0e9, hit_pos), missed
-
-
-view_space_ray_march.calls = 0
 
 
 def _parallax_correct(reflected_ws, world_pos, cfg: SSGIConfig):
@@ -475,7 +494,7 @@ def ssgi(gbuffer: GBuffer, velocity: VelocityBuffer,
         # freed before the shade, as arguments of the call would be
         del bin_noise, radiance
     else:
-        with tracing.span(spans["trace"]):
+        with tracing.span(spans["trace"]), tracing.span(spans["march"]):
             traces = [view_space_ray_march(p["view_pos"], ray, depth, cam, p["r3"],
                                            thickness, ray_distance, cfg)
                       for ray in p["rays"]]

@@ -7,11 +7,18 @@ CUDA. A shim header defines those builtins for g++ and each launch
 so each kernel's own arithmetic runs here through its real C entry point
 and wrapper launch code, and is held against the plain PyTorch version.
 Tolerances: warp (one target and many), minmax, sharpness, the sweep
-march, the z-scan, the record fetch and the Poisson tap fetch are
-bit-identical (same operations in the same order, no contraction but the
-explicit ``fmaf``: ``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
+march, the z-scan, the record fetch, the Poisson tap fetch, motion
+blur's accumulate pass and its taps are bit-identical (same operations
+in the same order, no contraction but the explicit ``fmaf``:
+``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
 and Poisson agree to 2e-5, the gap
-between glibc's and PyTorch's sin/cos/exp/log. The card itself is checked
+between glibc's and PyTorch's sin/cos/exp/log. The per-pixel ray march
+is bit-identical against its plain route run with glibc's ``expf`` (its
+one libm call, the host build's); with PyTorch's own ``exp``, which
+differs from glibc's by an ulp in about 1% of arguments, an ulp moves a
+step and can flip a hit decided at a texel boundary, so at most
+MARCH_FLIP_FRAC of lanes may differ in their hit and the others agree to
+MARCH_MEAN_TOL on average. The card itself is checked
 by chip_smoke.py. The host build checks the alignment of every 16-byte
 load and store (``-fsanitize=alignment``, aborting on the first), which
 the card would refuse at run time: a vector route taken without its
@@ -19,6 +26,7 @@ alignment check fails here too.
 """
 
 import ctypes
+import ctypes.util
 import dataclasses
 import re
 import shutil
@@ -28,14 +36,15 @@ import numpy as np
 import pytest
 import torch
 
-from realism_effects_tpu_torch.core.camera import PerspectiveCamera
+from realism_effects_tpu_torch.core.camera import OrthographicCamera, PerspectiveCamera
 from realism_effects_tpu_torch.core.framebuffers import GBuffer
 from realism_effects_tpu_torch import analytic
 from realism_effects_tpu_torch.core import math3d
 from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
-                                           motion_blur, poisson_kernel,
-                                           poisson_taps, raster_kernel,
-                                           ssgi_sweep, stencil, sweep_kernel,
+                                           march_kernel, motion_blur,
+                                           poisson_kernel, poisson_taps,
+                                           raster_kernel, ssgi, ssgi_sweep,
+                                           stencil, sweep_kernel,
                                            table_kernel, warp)
 from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
@@ -75,6 +84,9 @@ inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return
 struct __half { unsigned short b; };
 inline __half __ushort_as_half(unsigned short s) { __half h; h.b = s; return h; }
 inline float __half2float(__half h) { _Float16 v; memcpy(&v, &h.b, 2); return (float)v; }
+inline __half __float2half_rn(float f) {
+  _Float16 v = (_Float16)f; __half h; memcpy(&h.b, &v, 2); return h;
+}
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 // threads run one after another: a block's shared table is filled whole
 // by its first thread (common.cuh's block helpers have host twins)
@@ -827,11 +839,132 @@ def test_motion_blur_source(host_kernels, monkeypatch, dirs, steps, rows):
     assert float((got - color).abs().max()) > 0.1
 
 
+def _taps_inputs(h, w, seed, case):
+    """HDR colour and a velocity field for the taps: ``frame``, the
+    accumulate pass's (fast segments out of the frame on the left and at
+    the top, a static block); ``edges``, segments up to a frame long in
+    every direction, so taps land past all four edges; ``still``, no
+    motion anywhere."""
+    color, vel = _blur_inputs(h, w, seed)
+    if case == "edges":
+        rng = np.random.default_rng(seed + 1)
+        vel = torch.tensor(rng.uniform(-1.0, 1.0, (h, w, 2)), dtype=torch.float32)
+    elif case == "still":
+        vel = torch.zeros_like(vel)
+    return color, vel
+
+
+@pytest.mark.parametrize("case,rows,options", [
+    pytest.param("frame", None, {}, id="frame"),
+    pytest.param("frame", (20, 44), {}, id="row-block"),
+    pytest.param("edges", None, {}, id="past-every-edge"),
+    pytest.param("edges", (8, 30), dict(intensity=0.7, jitter=0.5, delta_time=1 / 30,
+                                        samples=5), id="row-block-options"),
+    pytest.param("still", None, {}, id="still")])
+def test_motion_blur_taps_source(host_kernels, case, rows, options):
+    """``motion_blur``'s taps on a 48 x 80 frame: the kernel's image
+    equals the plain route's bit for bit. ``rows``: a row block at a row
+    offset reading the whole frame's colour; a still frame returns its
+    colour."""
+    color, vel = _taps_inputs(48, 80, 5, case)
+    kw = dict(dict(intensity=1.0, jitter=1.0, delta_time=1 / 60, samples=16), **options)
+    args = dict(kw, row_offset=0, source=None)
+    if rows is not None:
+        args.update(row_offset=rows[0], source=color)
+        color, vel = color[rows[0]:rows[1]], vel[rows[0]:rows[1]]
+    got = motion_blur._launch_taps(color, vel, 7, **args)
+    want = motion_blur.motion_blur_plain(color, vel, 7, **args)
+    assert torch.equal(got, want)
+    moved = float((got - color).abs().max())
+    assert moved == 0.0 if case == "still" else moved > 0.1
+
+
+def _march_case(kind, mode, refine_steps, rows, thickness):
+    """The rays ``ops.ssgi._setup`` draws on the analytic scene at 40 x
+    64 (SSGI's two, SSR's one; env off) with its strided random plane,
+    and per ray (kernel, plain) results. ``rows``: the lanes of a row
+    block marching against the whole frame's depth."""
+    h, w = 40, 64
+    cam = (OrthographicCamera(-2.0 * w / h, 2.0 * w / h, 2.0, -2.0, 0.1, 100)
+           if kind == "ortho" else PerspectiveCamera(50, w / h, 0.1, 100))
+    gb = analytic.frames_at(cam, [3], h, w, "cpu", sphere=True)[0][0]
+    m = cam.matrices()
+    cfg = ssgi.SSGIConfig(mode=mode, trace="march", refine_steps=refine_steps)
+    r0, r1 = rows or (0, h)
+    block = GBuffer(**{f.name: getattr(gb, f.name)[r0:r1]
+                       for f in dataclasses.fields(gb) if getattr(gb, f.name) is not None})
+    p = ssgi._setup(block, None, m, 3, cfg, r0, h)
+    assert p["r3"].stride(-1) == 4 and len(p["rays"]) == (2 if mode == "ssgi" else 1)
+    out = []
+    for ray in p["rays"]:
+        args = (p["view_pos"], ray, gb.depth, m, p["r3"], thickness, 10.0)
+        got = march_kernel.launch(*args, cfg.steps, cfg.refine_steps)
+        want = ssgi.view_space_ray_march_plain(*args, cfg)
+        out.append((got, want))
+    return out
+
+
+@pytest.fixture
+def glibc_exp(monkeypatch):
+    """``torch.exp`` through the C library's ``expf``, the one the host
+    build of the sources calls."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.expf.restype = ctypes.c_float
+    libm.expf.argtypes = [ctypes.c_float]
+
+    def exp(t):
+        a = t.numpy()
+        return torch.from_numpy(np.array([libm.expf(float(v)) for v in a.reshape(-1)],
+                                         np.float32).reshape(a.shape))
+    monkeypatch.setattr(torch, "exp", exp)
+
+
+#: with PyTorch's ``exp`` against glibc's (module docstring): the share of
+#: lanes whose hit may differ, and the mean gap of the others' uv and
+#: hit position (measured on the SSGI case: no flip, mean gaps up to
+#: 2.0e-10, the largest 1.9e-6)
+MARCH_FLIP_FRAC = 0.01
+MARCH_MEAN_TOL = 1e-7
+
+
+@pytest.mark.parametrize("kind,mode,refine_steps,rows,thickness", [
+    pytest.param("persp", "ssgi", 5, None, 10.0, id="ssgi"),
+    pytest.param("persp", "ssgi", 0, None, 10.0, id="ssgi-unrefined"),
+    pytest.param("ortho", "ssr", 5, None, 10.0, id="ssr-ortho"),
+    pytest.param("ortho", "ssr", 0, None, 10.0, id="ssr-ortho-unrefined"),
+    pytest.param("persp", "ssgi", 5, (12, 28), 10.0, id="row-block"),
+    pytest.param("persp", "ssr", 5, None, 0.0625, id="thin")])
+def test_ray_march_source(host_kernels, glibc_exp, kind, mode, refine_steps, rows,
+                          thickness):
+    """The march of each ray equals the plain route's bit for bit, both
+    with the same ``expf``: uv, hit position and the miss flag, over
+    lanes that hit and lanes that miss. ``thin``: a thickness of 1/16, so
+    most hits are decided at the edge of a depth texel's span."""
+    for got, want in _march_case(kind, mode, refine_steps, rows, thickness):
+        missed = want[2]
+        assert 0.0 < float(missed.float().mean()) < 1.0
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_ray_march_source_against_aten_exp(host_kernels):
+    """With PyTorch's own ``exp`` in the plain route: at most
+    MARCH_FLIP_FRAC of lanes differ in their hit, the others agree to
+    MARCH_MEAN_TOL on average."""
+    for got, want in _march_case("persp", "ssgi", 5, None, 10.0):
+        flip = got[2] != want[2]
+        assert float(flip.float().mean()) <= MARCH_FLIP_FRAC
+        keep = ~flip & ~want[2]
+        for a, b in zip(got[:2], want[:2]):
+            assert float((a - b).abs()[keep].mean()) <= MARCH_MEAN_TOL
+
+
 @pytest.mark.parametrize("name,entry", [
     ("raster", "re_zscan"), ("raster", "re_zscan_peels"), ("table", "re_lookup"),
     ("taps", "re_poisson_taps"),
     ("hbao", "re_hbao_noise"),
-    ("stencil", "re_sharpness"), ("warp", "re_warp_multi")])
+    ("stencil", "re_sharpness"), ("warp", "re_warp_multi"),
+    ("sweep", "re_ray_march"), ("motion_blur", "re_motion_blur_taps")])
 def test_raster_sources_are_listed(name, entry):
     """The kernels of the raster slice, the demo stack, the unfused route
     and HBAO's noise table are built with the others and declare their C

@@ -35,6 +35,8 @@ def _off():
 def _composer(stack: str):
     if stack == "flagship":
         return analytic.flagship_composer(H, W, "cpu")
+    if stack == "flagship_march":
+        return analytic.flagship_march_composer(H, W, "cpu")
     comp, cam = analytic.flagship_composer(H, W, "cpu")
     comp.effects = []
     comp.add_effect(HBAOEffect())
@@ -54,7 +56,7 @@ def _leaves(tree):
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
-@pytest.mark.parametrize("stack", ["hbao_traa", "flagship"])
+@pytest.mark.parametrize("stack", ["hbao_traa", "flagship", "flagship_march"])
 def test_off_leaves_nothing_and_on_changes_nothing(stack):
     torch.set_num_threads(1)
     off, cam_off = _composer(stack)
@@ -113,6 +115,34 @@ def test_spans_of_a_frame():
         assert all(s.counters == {} for s in waits)   # the CPU makes no syncs
         assert not any(s.name.startswith("stage:") for s in spans
                        if s.name not in {x.name for x in stages})
+
+
+def test_spans_of_a_march_taps_frame():
+    """Upstream's per-pixel stack: the march's launches in
+    ``pass:ssgi.march`` inside ``pass:ssgi.trace``, the taps in
+    ``pass:motion_blur.taps``, no pass of the sweep modes; each pass and
+    the march lie inside their stage, and a stage's passes do not add up
+    to more than the stage."""
+    comp, cam = _composer("flagship_march")
+    tracing.enable()
+    analytic.orbit(cam, 0)
+    comp.render(dt=1 / 60)
+    tracing.disable()
+    (spans,) = tracing.frames()
+    names = [s.name for s in spans]
+    idx = {n: names.index(n) for n in names}
+    ssgi = {n.split(".", 1)[1] for n in names if n.startswith("pass:ssgi.")}
+    assert ssgi == SSGI_PASSES - {"prewarp"} | {"march"}
+    assert names.count("pass:ssgi.march") == 1
+    assert spans[idx["pass:ssgi.march"]].parent == idx["pass:ssgi.trace"]
+    assert spans[idx["pass:ssgi.trace"]].parent == idx["stage:ssgi"]
+    blur = [s for s in spans if s.name.startswith("pass:motion_blur.")]
+    assert [s.name for s in blur] == ["pass:motion_blur.taps"]
+    assert blur[0].parent == idx["stage:motion_blur"]
+    for i, s in enumerate(spans):
+        inner = [c for c in spans if c.parent == i]
+        assert all(s.start_ns <= c.start_ns and c.end_ns <= s.end_ns for c in inner)
+        assert s.end_ns - s.start_ns >= sum(c.end_ns - c.start_ns for c in inner)
 
 
 @pytest.mark.parametrize("values,dtype", [
