@@ -52,7 +52,10 @@ Phases (any failure raises and the script exits non-zero):
    on the inputs of frame 3 of the flagship with upstream's per-pixel
    stack (``analytic.flagship_march_composer``), each against its plain
    route (exact), with the share of lanes that hit and of pixels that
-   move.
+   move. Temporal reprojection's prepare and blend kernels (with the
+   fetches between them) on the inputs of the flagship's frame 3, SSGI's
+   two-slot and TRAA's one-slot reprojections, at 1920x1080 (the
+   entries) and 3840x2160, each against the plain route (exact).
 3. Run the ten paths at 1920x1080. Through
    ``EffectComposer.render_external`` on analytic buffers (a ground plane
    and a box, plus the flagship's metallic sphere on the SSGI path,
@@ -268,6 +271,8 @@ RM_OPS_STEP = 50          # per step: eased step, projection, texel, view z, hit
 RM_BYTES_LANE = 49        # view position, ray 12 each, random 4, uv 8, hit 12, flag 1
 TAPS_OPS_PIXEL = 8        # per taps pixel: its uv and the still test
 TAPS_BYTES_PIXEL = 32     # colour (the taps' source) 12, velocity 8, output 12
+RP_OPS_PIXEL = 110        # per reprojected pixel and kernel: uv, world position, hit point
+RP_OPS_SLOT = 90          # per slot: the fetch's weights, clamp, selects, accumulation
 
 
 def _bound(nbytes: float, ops: float):
@@ -1209,11 +1214,98 @@ def check_march_taps_kernels(torch, analytic, timer, results):
     results[-1]["moving_share"] = moving
 
 
+def reproject_bytes(slots, spec, ray, rough):
+    """The reprojection kernels' least bytes a pixel, prepare and blend
+    together (``csrc/reproject.cu``): both read the velocity buffer (24);
+    the prepare kernel the last normal and depth (16), the ray length
+    (``ray``, 4) and each slot's history (16), and writes the packed
+    normal and depth (16), 8 a nearest probe and 32 a slot (targets,
+    fractions, history16); the blend reads the ray length, the roughness
+    (``rough``, 4), 17 a probe and a slot's input, fetch, one clamp box
+    and output (80)."""
+    probes = 2 if spec else 1
+    return (56 + 4 * ray + 8 * probes + 48 * slots) + (
+        24 + 4 * ray + 4 * rough + 17 * probes + 80 * slots)
+
+
+def check_reproject_kernels(torch, analytic, timer, results):
+    """Temporal reprojection's prepare and blend kernels on the inputs of
+    the flagship's frame 3, SSGI's two-slot and TRAA's one-slot
+    reprojections, at 1920x1080 (the entries) and 3840x2160 (``[kernel]``
+    lines): the kernels' route (prepare, the fetches, blend) against the
+    plain route (exact); ms is the two kernels' (each timed alone on the
+    arguments they took), with the whole route's ms beside it."""
+    from realism_effects_tpu_torch.effects import ssgi as ssgi_effect
+    from realism_effects_tpu_torch.effects import traa as traa_effect
+    from realism_effects_tpu_torch.ops import reproject_kernel, temporal_reproject
+
+    plain = temporal_reproject.temporal_reproject_plain
+    for h, w in ((HEIGHT, WIDTH), (2160, 3840)):
+        comp, cam = analytic.flagship_composer(h, w, "cuda")
+        seen = {}
+        real = {m: m.temporal_reproject for m in (ssgi_effect, traa_effect)}
+
+        def record(name, fn):
+            def run(*args, **kw):
+                seen[name] = (args, kw)
+                return fn(*args, **kw)
+            return run
+
+        ssgi_effect.temporal_reproject = record("reproject_2slot", real[ssgi_effect])
+        traa_effect.temporal_reproject = record("reproject_1slot", real[traa_effect])
+        try:
+            analytic.render_frames(comp, cam, range(4))
+        finally:
+            for m, fn in real.items():
+                m.temporal_reproject = fn
+        del comp
+        for name, (args, kw) in seen.items():
+            launched = []
+            launch = reproject_kernel._launch
+            # each launch's planes as they were then (the route lets the
+            # prepare kernel's outputs go before the blend)
+            reproject_kernel._launch = lambda stage, planes, *rest: (
+                launched.append((stage, dict(planes), *rest)) or launch(stage, planes, *rest))
+            try:
+                got = reproject_kernel.reproject(*args, **kw)
+            finally:
+                reproject_kernel._launch = launch
+            want = plain(*args, **kw)
+            err = max(_maxerr(torch, g, w_) for g, w_ in zip(got, want, strict=True))
+            (stage0, planes0, *rest0), (stage1, planes1, *rest1) = launched
+            cfg = args[6]
+            slots = cfg.texture_count
+            spec = any(cfg.reproject_specular[:slots])
+            ray = cfg.input_type != "diffuse"
+            rough = cfg.input_type == "diffuse_specular" or kw.get("roughness_tex") is not None
+            nbytes = reproject_bytes(slots, spec, ray, rough) * h * w
+            ops = h * w * (2 * RP_OPS_PIXEL + RP_OPS_SLOT * slots)
+            ms = (timer(lambda: launch(stage0, planes0, *rest0))
+                  + timer(lambda: launch(stage1, planes1, *rest1)))
+            route_ms = timer(lambda: reproject_kernel.reproject(*args, **kw))
+            plain_ms = timer(lambda: plain(*args, **kw))
+            if (h, w) == (HEIGHT, WIDTH):
+                results.add(name, "reproject.cu",
+                            "none (ops/temporal_reproject.py temporal_reproject_plain's "
+                            "elementwise work)", err, 0.0, ms, plain_ms, nbytes, ops)
+                results[-1]["route_ms"] = route_ms
+            else:
+                bound_ms, bound_by = _bound(nbytes, ops)
+                print(f"[kernel] {name} at {w}x{h}: max_abs_err={err} (tol 0.0) ms={ms} "
+                      f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})", flush=True)
+                if not err <= 0.0:
+                    raise AssertionError(f"{name} at {w}x{h}: kernel vs plain max abs "
+                                         f"error {err} > 0.0")
+            print(f"[kernel] {name} at {w}x{h}: {slots} slot(s), the route (prepare, "
+                  f"fetches, blend) {route_ms} ms", flush=True)
+
+
 def counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
                                                poisson_kernel, poisson_taps,
-                                               raster_kernel, ssgi, stencil,
-                                               sweep_kernel, table_kernel, warp)
+                                               raster_kernel, reproject_kernel, ssgi,
+                                               stencil, sweep_kernel, table_kernel,
+                                               warp)
     slots = poisson_kernel.poisson_pass_fused.slot_launches
     rays = sweep_kernel.sweep_march.ray_launches
     return {
@@ -1240,14 +1332,19 @@ def counters():
         "ray_march": ssgi.view_space_ray_march.launches,
         "motion_blur": motion_blur.accumulate.launches,
         "motion_blur_taps": motion_blur.motion_blur.launches,
+        # temporal reprojection: the prepare kernel, the blend by slots
+        "reproject_prepare": reproject_kernel.prepare.launches,
+        "reproject_2slot": reproject_kernel.blend.slot_launches.get(2, 0),
+        "reproject_1slot": reproject_kernel.blend.slot_launches.get(1, 0),
     }
 
 
 def reset_counters():
     from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
                                                poisson_kernel, poisson_taps,
-                                               raster_kernel, ssgi, stencil,
-                                               sweep_kernel, table_kernel, warp)
+                                               raster_kernel, reproject_kernel, ssgi,
+                                               stencil, sweep_kernel, table_kernel,
+                                               warp)
     warp.window_warp.launches = 0
     for m in warp.window_warp.mode_launches:
         warp.window_warp.mode_launches[m] = 0
@@ -1268,6 +1365,9 @@ def reset_counters():
     ssgi.view_space_ray_march.launches = 0
     motion_blur.accumulate.launches = 0
     motion_blur.motion_blur.launches = 0
+    reproject_kernel.prepare.launches = 0
+    reproject_kernel.blend.launches = 0
+    reproject_kernel.blend.slot_launches.clear()
 
 
 def check_env_extras(torch):
@@ -1923,6 +2023,7 @@ def main() -> int:
     check_ssr_kernels(torch, analytic, timer, kernels)
     check_motion_blur_kernel(torch, analytic, timer, kernels)
     check_march_taps_kernels(torch, analytic, timer, kernels)
+    check_reproject_kernels(torch, analytic, timer, kernels)
     check_env_extras(torch)
 
     # phase 3: the paths at 1920 x 1080
@@ -1943,8 +2044,8 @@ def main() -> int:
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa"] = run_path(
         torch, comp, external(comp, cam, frames), "HBAO+TRAA", HBAO_TRAA_FRAMES,
-        ("warp_catrom5", "warp_nearest", "minmax", "hbao", "poisson"), smi,
-        forbidden=("march",))
+        ("warp_catrom5", "warp_nearest", "minmax", "hbao", "poisson", "reproject_prepare",
+         "reproject_1slot"), smi, forbidden=("march", "reproject_2slot"))
     del comp
     comp, cam = analytic.ssgi_hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["ssgi_hbao_traa"] = run_path(
@@ -1966,7 +2067,8 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "flagship with the march and the taps", HBAO_TRAA_FRAMES,
         ("march", "ray_march", "motion_blur_taps", "zscan", "lookup", "hbao", "poisson",
-         "poisson_2tex", "warp_catrom5", "warp_nearest", "minmax"), smi,
+         "poisson_2tex", "warp_catrom5", "warp_nearest", "minmax", "reproject_2slot",
+         "reproject_1slot"), smi,
         forbidden=("sweep", "sweep_1ray", "warp_bilinear", "motion_blur"))
     del comp
     comp, cam = analytic.demo_stack_composer(HEIGHT, WIDTH, "cuda")
@@ -1975,13 +2077,14 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "demo stack", HBAO_TRAA_FRAMES,
         ("sharpness", "sweep", "zscan", "lookup", "warp_catrom5", "warp_nearest",
-         "warp_bilinear", "minmax", "poisson_2tex"), smi, forbidden=("march",))
+         "warp_bilinear", "minmax", "poisson_2tex", "reproject_2slot", "reproject_1slot"),
+        smi, forbidden=("march",))
     del comp
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa_unfused"] = run_path(
         torch, comp, unfused(external(comp, cam, frames)), "HBAO+TRAA unfused",
         HBAO_TRAA_FRAMES, ("warp_multi", "poisson_taps", "warp_catrom5",
-                           "warp_nearest", "minmax"), smi,
+                           "warp_nearest", "minmax", "reproject_1slot"), smi,
         forbidden=("hbao", "poisson", "march"))
     del comp, frames
     comp, cam = analytic.reference_exports_composer(HEIGHT, WIDTH, "cuda")
@@ -1989,7 +2092,7 @@ def main() -> int:
         torch, comp, exports_driver(analytic, comp, cam, WARMUP + HBAO_TRAA_FRAMES // 2),
         "SSR+GTAO+TAA", HBAO_TRAA_FRAMES,
         ("sweep_1ray", "warp_catrom5", "warp_nearest", "warp_bilinear", "minmax",
-         "poisson", "poisson_1tex", "zscan", "lookup"), smi,
+         "poisson", "poisson_1tex", "zscan", "lookup", "reproject_1slot"), smi,
         forbidden=("hbao", "sweep", "poisson_2tex", "march"))
     del comp
     comp, cam = analytic.march_aa_composer(HEIGHT, WIDTH, "cuda")
@@ -1998,7 +2101,8 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "SSGI march+SMAA under a cube map", HBAO_TRAA_FRAMES,
         ("march", "ray_march", "zscan", "lookup", "warp_catrom5", "minmax",
-         "poisson_2tex"), smi, forbidden=("sweep", "sweep_1ray", "warp_bilinear"))
+         "poisson_2tex", "reproject_2slot"), smi,
+        forbidden=("sweep", "sweep_1ray", "warp_bilinear"))
     del comp
     comp, cam = analytic.ortho_ssr_composer(HEIGHT, WIDTH, "cuda")
     by_path["ortho_ssr"] = run_path(
@@ -2006,7 +2110,7 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "ortho SSR march+HBAO+FXAA", HBAO_TRAA_FRAMES,
         ("march", "ray_march", "hbao", "poisson", "poisson_1tex", "minmax",
-         "warp_catrom5", "zscan", "lookup"), smi,
+         "warp_catrom5", "zscan", "lookup", "reproject_1slot"), smi,
         forbidden=("sweep", "sweep_1ray", "poisson_2tex", "warp_bilinear"))
     del comp
     comp, cam, mixer = analytic.gltf_alpha_msaa_composer(HEIGHT, WIDTH, "cuda")
@@ -2015,7 +2119,8 @@ def main() -> int:
                                     mixer),
         "glTF alpha + MSAA 2x", HBAO_TRAA_FRAMES,
         ("zscan_peels", "lookup", "hbao", "poisson", "minmax", "warp_catrom5",
-         "warp_nearest"), smi, forbidden=("zscan", "sweep", "sweep_1ray", "march"))
+         "warp_nearest", "reproject_1slot"), smi,
+        forbidden=("zscan", "sweep", "sweep_1ray", "march"))
     per_frame = by_path["gltf_alpha_msaa"]["zscan_peels"] / HBAO_TRAA_FRAMES
     print(f"[path] glTF alpha + MSAA 2x: zscan_peels launches a frame {per_frame}",
           flush=True)

@@ -7,6 +7,10 @@ History and disocclusion probes go through the window warp kernel
 (``ops/warp.py``): a reprojection outside the +-window_ky / +-window_kx
 window counts as a disocclusion. The clamp AABB comes from the minmax
 kernel (``ops/stencil.py``).
+
+CUDA tensors take ``ops/reproject_kernel.py``: two kernels of
+``csrc/reproject.cu`` around the same fetches, bit for bit with
+:func:`temporal_reproject_plain`, the CPU route.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..core import math3d
 from ..core.framebuffers import VelocityBuffer
 from ..core.math3d import (fwidth, length, mix, rdiv, screen_to_world,
                            transform_point, uv_grid)
+from . import reproject_kernel
 from .stencil import neighborhood_minmax
 from .warp import catmull_rom5_window, nearest_window
 
@@ -171,7 +176,39 @@ def temporal_reproject(
     ``row_offset`` and the frame's height; its rows are then exact where
     the block reaches :func:`halo_rows` rows past them on each side (the
     halo rows themselves are not).
+
+    CUDA tensors launch ``ops/reproject_kernel.py``'s kernels around the
+    fetches; CPU tensors take :func:`temporal_reproject_plain`.
     """
+    route = (temporal_reproject_plain if velocity.depth.device.type == "cpu"
+             else reproject_kernel.reproject)
+    return route(inputs, history, velocity, last_velocity, cam, prev_cam, cfg,
+                 max_blend=max_blend,
+                 neighborhood_clamp_intensity=neighborhood_clamp_intensity,
+                 full_accumulate=full_accumulate, keep_data=keep_data,
+                 roughness_tex=roughness_tex, row_offset=row_offset,
+                 frame_height=frame_height)
+
+
+def temporal_reproject_plain(
+    inputs: Sequence[torch.Tensor],
+    history: Sequence[torch.Tensor],
+    velocity: VelocityBuffer,
+    last_velocity: VelocityBuffer,
+    cam,
+    prev_cam,
+    cfg: TemporalReprojectConfig,
+    max_blend: float = 1.0,
+    neighborhood_clamp_intensity: float = 1.0,
+    full_accumulate: bool = False,
+    keep_data: float = 1.0,
+    roughness_tex=None,
+    row_offset: int = 0,
+    frame_height: int | None = None,
+):
+    """:func:`temporal_reproject` in torch elementwise operations around
+    the fetches: the CPU route, and the reference the kernels are held
+    to."""
     if not len(inputs) == cfg.texture_count == len(history):
         raise ValueError("inputs, history and texture_count disagree")
     h, w = velocity.depth.shape

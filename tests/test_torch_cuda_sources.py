@@ -964,12 +964,193 @@ def test_ray_march_source_against_aten_exp(host_kernels):
     ("taps", "re_poisson_taps"),
     ("hbao", "re_hbao_noise"),
     ("stencil", "re_sharpness"), ("warp", "re_warp_multi"),
-    ("sweep", "re_ray_march"), ("motion_blur", "re_motion_blur_taps")])
+    ("sweep", "re_ray_march"), ("motion_blur", "re_motion_blur_taps"),
+    ("reproject", "re_reproject")])
 def test_raster_sources_are_listed(name, entry):
-    """The kernels of the raster slice, the demo stack, the unfused route
-    and HBAO's noise table are built with the others and declare their C
-    entry points for ctypes."""
+    """The kernels of the raster slice, the demo stack, the unfused route,
+    HBAO's noise table and the reprojection are built with the others and
+    declare their C entry points for ctypes."""
     assert name in cuda_build.SOURCES
     src = (cuda_build.CSRC / f"{name}.cu").read_text()
     assert re.search(rf'extern "C" int {entry}\(', src)
     assert "__global__" in src
+
+
+@pytest.fixture
+def glibc_libm(monkeypatch):
+    """``torch.log``, ``torch.exp`` and a tensor's ``**`` by a host
+    scalar through the C library's ``logf``, ``expf`` and ``powf``, the
+    ones the host build of the sources calls (the powers ATen takes
+    otherwise, 0, 1, 0.5, 2 and 3, keep its own route), and
+    ``torch.sqrt`` correctly rounded, as ``sqrtf`` and the card's
+    ``sqrt`` are (PyTorch's vectorised CPU sqrt is not: 0.5001 ulp)."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name, n in (("logf", 1), ("expf", 1), ("powf", 2)):
+        getattr(libm, name).restype = ctypes.c_float
+        getattr(libm, name).argtypes = [ctypes.c_float] * n
+
+    def elementwise(f, t, *args):
+        a = t.numpy()
+        return torch.from_numpy(np.array([f(float(v), *args) for v in a.reshape(-1)],
+                                         np.float32).reshape(a.shape))
+
+    pow_ = torch.Tensor.__pow__
+    monkeypatch.setattr(torch, "log", lambda t: elementwise(libm.logf, t))
+    monkeypatch.setattr(torch, "exp", lambda t: elementwise(libm.expf, t))
+    monkeypatch.setattr(torch, "sqrt",
+                        lambda t: torch.from_numpy(np.asarray(np.sqrt(t.numpy()))))
+    monkeypatch.setattr(torch.Tensor, "__pow__", lambda t, e: (
+        pow_(t, e) if float(e) in (0.0, 1.0, 0.5, 2.0, 3.0)
+        else elementwise(libm.powf, t, float(e))))
+
+
+REPROJECT_H, REPROJECT_W = 64, 96
+
+
+def _reproject_buffers(seed):
+    """A 64 x 96 frame's velocity buffers, inputs and history: small
+    motion, motion beyond the +-8 row / +-30 column window and a
+    background band; normals smooth on the right half (so hit points
+    are valid there) and noisy on the left; inputs not sampled on a
+    lattice; alphas that cross the roughness and ray-length thresholds;
+    history with sample counts in alpha."""
+    h, w = REPROJECT_H, REPROJECT_W
+    rng = np.random.default_rng(seed)
+    xx = np.arange(w)[None, :]
+    vel = rng.normal(0.0, 0.01, (h, w, 2))
+    vel[:, : w // 4, 0] = 40.0 / w
+    vel[h // 2:, w // 2:, 1] = -12.0 / h
+    depth = 0.9 + 0.05 * np.sin(xx * 0.1) + 0.01 * rng.random((h, w))
+    depth[: h // 10] = 1.0
+    nrm = np.array([0.0, 0.3, 0.95]) + rng.normal(0, 0.05, (h, w, 3))
+    nrm[:, w // 2:] = np.array([0.0, 0.3, 0.95]) + 0.002 * np.sin(xx[..., None] * 0.3)[:, w // 2:]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[: h // 10] = 0.0
+    last_depth = np.clip(depth + rng.normal(0, 0.002, (h, w)), 0, 1)
+    last_nrm = nrm + rng.normal(0, 0.02, (h, w, 3))
+
+    def rgba(alpha):
+        c = np.concatenate([rng.random((h, w, 3)) * 1.5, alpha[..., None]], -1)
+        c[::5, ::7, 0] = -1.0
+        return c
+
+    def on_thresholds(a, values):   # some texels exactly at each threshold
+        for k, v in enumerate(values):
+            a[k::7, 2 * k::9] = v
+        return a
+
+    diffuse = rgba(on_thresholds(rng.uniform(-0.1, 1.2, (h, w)), (0.25, 0.1, 0.0)))
+    specular = rgba(on_thresholds(rng.uniform(-0.05, 0.6, (h, w)), (0.01,)))  # ray length
+    history = [np.concatenate([rng.random((h, w, 3)), rng.integers(0, 30, (h, w, 1))], -1)
+               for _ in range(2)]
+    roughness = on_thresholds(rng.uniform(-0.1, 1.2, (h, w)), (0.25, 0.1, 0.0))
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    from realism_effects_tpu_torch.core.framebuffers import VelocityBuffer
+    return (VelocityBuffer(velocity=t(vel), normal=t(nrm), depth=t(depth)),
+            VelocityBuffer(velocity=t(vel), normal=t(last_nrm), depth=t(last_depth)),
+            t(diffuse), t(specular), [t(a) for a in history], t(roughness))
+
+
+def _reproject_cams(ortho):
+    h, w = REPROJECT_H, REPROJECT_W
+    out = []
+    for x in (0.5, 0.45):
+        cam = (OrthographicCamera(-2.0 * w / h, 2.0 * w / h, 2.0, -2.0, 0.1, 100)
+               if ortho else PerspectiveCamera(50, w / h, 0.1, 100))
+        cam.set_position(x, 2.0, 4.0)
+        cam.look_at((0, 0.5, 0))
+        out.append(cam.matrices())
+    return out
+
+
+_TRAA = dict(texture_count=1, log_transform=True, confidence_power=4.0)
+_SSGI = dict(texture_count=2, log_transform=True, reproject_specular=(False, True),
+             confidence_power=0.75, input_type="diffuse_specular")
+_SSR = dict(texture_count=1, log_transform=True, reproject_specular=(True,),
+            confidence_power=0.75, input_type="specular")
+_TRAA_CALL = dict(max_blend=0.9, neighborhood_clamp_intensity=1.0, full_accumulate=False)
+_SSGI_CALL = dict(max_blend=1.0, neighborhood_clamp_intensity=0.5, full_accumulate=False)
+
+#: (configuration, call, roughness texture, orthographic, row block);
+#: ``-offset``: the inputs and history 4 bytes past a 16-byte boundary,
+#: so read without 16-byte loads
+REPROJECT_CASES = {
+    "traa": (_TRAA, _TRAA_CALL, False, False, None),
+    "ssgi": (_SSGI, _SSGI_CALL, False, False, None),
+    "ssgi-full-accumulate": (_SSGI, dict(_SSGI_CALL, full_accumulate=True), False, False,
+                             None),
+    "ssr-roughness": (_SSR, _SSGI_CALL, True, False, None),
+    "ssr": (_SSR, _SSGI_CALL, False, False, None),
+    "ssgi-dilation": (dict(_SSGI, dilation=True), _SSGI_CALL, False, False, None),
+    "traa-linear": (dict(_TRAA, log_transform=False), _TRAA_CALL, False, False, None),
+    "ssgi-ortho": (_SSGI, _SSGI_CALL, False, True, None),
+    "ssgi-row-block": (_SSGI, _SSGI_CALL, False, False, (40, 64)),
+    "ssgi-offset": (_SSGI, _SSGI_CALL, False, False, None),
+}
+#: rows a row block that ends at the frame's last row carries past it
+#: (the split frame's halo there); their values are any (the block's
+#: first rows): no difference reaches across the frame's last row
+REPROJECT_EDGE_ROWS = 3
+
+
+def _reproject_case(name):
+    """(kernel, plain) results of the case ``name``: the kernels' route of
+    ``ops/reproject_kernel.py`` (the fetches taking their plain versions
+    on the CPU) and ``temporal_reproject_plain``."""
+    from realism_effects_tpu_torch.core.framebuffers import VelocityBuffer
+    from realism_effects_tpu_torch.ops import reproject_kernel
+    from realism_effects_tpu_torch.ops import temporal_reproject as tr
+
+    kw, call, rough, ortho, rows = REPROJECT_CASES[name]
+    cfg = tr.TemporalReprojectConfig(**kw)
+    vel, last, diffuse, specular, history, roughness = _reproject_buffers(5)
+    inputs = {"diffuse": [diffuse], "specular": [specular],
+              "diffuse_specular": [diffuse, specular]}[cfg.input_type]
+    history = history[:cfg.texture_count]
+    cam, prev = _reproject_cams(ortho)
+    args = dict(call, keep_data=1.0, roughness_tex=roughness if rough else None)
+    if rows is not None:
+        r0, r1 = rows
+        edge = list(range(r0, r0 + (REPROJECT_EDGE_ROWS if r1 == REPROJECT_H else 0)))
+        cut = lambda t: t[list(range(r0, r1)) + edge].contiguous()
+        vel, last = (VelocityBuffer(velocity=cut(b.velocity), normal=cut(b.normal),
+                                    depth=cut(b.depth)) for b in (vel, last))
+        inputs, history = [cut(t) for t in inputs], [cut(t) for t in history]
+        args.update(row_offset=r0, frame_height=REPROJECT_H)
+    if name.endswith("-offset"):
+        def offset(t):
+            view = torch.empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
+            assert view.data_ptr() % 16 != 0
+            return view
+        inputs, history = [offset(t) for t in inputs], [offset(t) for t in history]
+    got = reproject_kernel.reproject(inputs, history, vel, last, cam, prev, cfg, **args)
+    want = tr.temporal_reproject_plain(inputs, history, vel, last, cam, prev, cfg, **args)
+    return got, want
+
+
+@pytest.mark.parametrize("case", list(REPROJECT_CASES))
+def test_reproject_source(host_kernels, glibc_libm, case):
+    """The reprojection's prepare and blend kernels, with the fetches
+    between them, equal ``temporal_reproject_plain`` bit for bit, both
+    with glibc's logf, expf and powf; each slot keeps history somewhere
+    and resets it somewhere."""
+    for got, want in zip(*_reproject_case(case), strict=True):
+        assert torch.equal(got, want)
+        alpha = want[..., 3]
+        assert bool((alpha > 1.5).any()) and bool((alpha < 1e-3).any())
+
+
+@pytest.mark.parametrize("case", list(REPROJECT_CASES))
+def test_reproject_source_against_aten(host_kernels, case):
+    """With PyTorch's own log, exp, pow and sqrt in the plain route, whose
+    CPU versions differ from glibc's by ulps: colours within rtol 5e-5
+    and atol 2e-5, the sample count compared as the blend weight
+    t = a / (1 + a) it came from at the same tolerance, as the port's
+    reprojection is held to the JAX package's (measured over these
+    cases: colours at most 2.3e-5 apart, 6e-5 relative; t at most
+    1.1e-5)."""
+    for got, want in zip(*_reproject_case(case), strict=True):
+        np.testing.assert_allclose(got[..., :3], want[..., :3], rtol=5e-5, atol=2e-5)
+        blend = lambda a: a / (1.0 + a)
+        np.testing.assert_allclose(blend(got[..., 3]), blend(want[..., 3]), rtol=5e-5,
+                                   atol=2e-5)
