@@ -90,32 +90,19 @@ Phases (any failure raises and the script exits non-zero):
    ``EffectComposer(..., msaa=2, alpha_peels=3)`` with ``HBAOEffect()``
    -> ``TRAAEffect()``, the camera still and then one orbit step, over
    12 frames; it must launch the z-scan's alpha variant 2 times a frame
-   (one a raster, every peel in it) and never the opaque z-scan. The launch counters
-   (and the march's call counter) are set to 0 just before each path
+   (one a raster, every peel in it) and never the opaque z-scan. The launch census
+   of ``ops/cuda_build.py`` is cleared just before each path
    and read just after: each path must have launched each of its
    kernels (and the unfused path neither the fused HBAO nor the fused AO
    Poisson kernel, the SSR path neither HBAO, the 2-ray sweep nor the
    2-slot Poisson pass, the march paths neither sweep nor the bilinear
-   prewarp, the first six paths no march, and no path HBAO's noise-table
+   prewarp, the first six paths no ray march, and no path HBAO's noise-table
    kernel, whose table is built once per setting), and every kernel in
    the ``kernels`` line launches on at least one path. Then a 3-frame run
    of each path at 270x480 must agree with the same composer on the CPU,
    and SMAA and FXAA alone on the card must agree with the CPU over the
    CPU paths' own pre-AA frames (SMAA_ALONE_MAX_TOL, FXAA_ALONE_MAX_TOL).
-4. ``[mesh]``: the row-sharded route at 1920x1080 on meshes of 4 and 8
-   shards (``make_mesh()`` when the host has that many cards, else
-   ``cuda:0`` repeated). The four mesh-aware wrappers (the catrom5,
-   nearest and bilinear warps, ``warp_multi``, HBAO at spp 8, the 2-slot
-   and the AO Poisson pass) under ``mesh_context`` against their
-   unsharded launches on the same inputs (MESH_TOL, 0 expected) and
-   against their plain versions, timed with the halo exchange; then 3
-   frames of the flagship and 3 of HBAO + TRAA unfused through the
-   composer under the mesh against the same frames without one (and two
-   runs without a mesh against each other), the counters set to 0 just
-   before the sharded run and read just after: each sharded kernel must
-   have launched there. Their entries join the ``kernels`` line as
-   ``<kernel>@mesh<n>``.
-5. ``[split]``: the split frame (``EffectComposer._build_frame_fn(mesh)``,
+4. ``[split]``: the split frame (``EffectComposer._build_frame_fn(mesh)``,
    driven through ``render(mesh=...)``) on ``_mesh(torch, 4)``: the
    flagship, the flagship with the march and the taps (both kernels per
    shard) and HBAO + TRAA on the flagship scene at 1920x1080, 3 frames
@@ -123,8 +110,9 @@ Phases (any failure raises and the script exits non-zero):
    the unsplit frames on the card within SPLIT_TOL (the JAX package's
    bounds, 2e-4 and 5e-4; 0 expected); it prints the differences, each
    stage's placement, the kernels launched in the split run and the host
-   ms per frame of both runs, and claims nothing of speed.
-6. ``[demo]``: the port's demo (``tools/demo.py``) on the six scenes it
+   ms per frame of both runs, and claims nothing of speed. It is the
+   card's one check of row sharding.
+5. ``[demo]``: the port's demo (``tools/demo.py``) on the six scenes it
    builds in code (DEMO_RUNS: ``lights`` with ``ssgi,hbao`` + TRAA, point
    lights and the specular sun; ``dynamic`` with ``ssgi,motion_blur`` +
    TAA; ``showcase`` with SSR, GTAO and the finishing stack + SMAA;
@@ -133,13 +121,13 @@ Phases (any failure raises and the script exits non-zero):
    (steady ms/frame), then 3 frames at 64 x 64 card against CPU within
    its AA pass's DEMO_BOUNDS (the FXAA path's for FXAA; DEMO_BOUNDS says
    why).
-7. ``[bench]``: the port's bench (``realism_effects_tpu_torch/bench.py``)
+6. ``[bench]``: the port's bench (``realism_effects_tpu_torch/bench.py``)
    at full size, one process a mode: the flagship frame, ``--breakdown``
    (with ``--json``), ``--trace march`` and ``--config 1`` .. ``5``; each
    must exit 0 with its headline record last (BENCH_RUNS: the metric, a
    finite positive value no larger than its median), the breakdown with a
    record a stage and its bytes and the card in its artifact's meta.
-8. Print the ``kernels`` JSON line, then the device JSON line last.
+7. Print the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. It needs the repository beside it.
 """
@@ -164,8 +152,6 @@ WARMUP = 4            # frames before the timed ones: allocator and clocks
 SWEEP_FRAME = 5       # the frame whose SSGI trace / raster feeds the checks
 MEM_BW = 3.35e12      # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_RATE = 67e12      # H100 SXM float32 outside the tensor cores, op/s
-MESH_SHARDS = (4, 8)  # 1080 rows divide by both
-MESH_TOL = 1e-6       # sharded against unsharded (0 expected)
 SPLIT_SHARDS = 4
 #: the split frame against the unsplit one: tests/test_parallel.py's
 #: bounds for its sharded frame (0 expected: the same kernels on the
@@ -449,7 +435,7 @@ def check_kernels(torch, analytic, timer, frames, results):
         hbao_kernel.blue_noise_tile_tensor("cuda"), cfg.distance,
         cfg.distance_power + 1.0))
     print(f"[check] hbao noise table vs torch: max abs error {err_noise} (tol 2e-5); "
-          f"table kernel launches so far {hbao_kernel.noise_table.launches}", flush=True)
+          f"table kernel launches so far {counters()['hbao_noise']}", flush=True)
     if not err_noise <= 2e-5:
         raise AssertionError(f"hbao noise table: {err_noise} > 2e-5")
     # operations: the pixels in front of the background (a background
@@ -1300,74 +1286,26 @@ def check_reproject_kernels(torch, analytic, timer, results):
                   f"fetches, blend) {route_ms} ms", flush=True)
 
 
+#: the launch census's keys (``ops/cuda_build.py``), in the order printed
+COUNTER_KEYS = (
+    "warp_catrom5", "warp_nearest", "warp_bilinear", "minmax", "hbao", "poisson",
+    "poisson_2tex", "poisson_1tex", "sweep", "sweep_1ray", "zscan", "zscan_peels",
+    "lookup", "warp_multi", "poisson_taps", "sharpness",
+    "hbao_noise",   # HBAO's noise table: built once per distance and power
+    "ray_march", "motion_blur", "motion_blur_taps",
+    "reproject_prepare", "reproject_2slot", "reproject_1slot")
+
+
 def counters():
-    from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
-                                               poisson_kernel, poisson_taps,
-                                               raster_kernel, reproject_kernel, ssgi,
-                                               stencil, sweep_kernel, table_kernel,
-                                               warp)
-    slots = poisson_kernel.poisson_pass_fused.slot_launches
-    rays = sweep_kernel.sweep_march.ray_launches
-    return {
-        "warp_catrom5": warp.window_warp.mode_launches["catrom5"],
-        "warp_nearest": warp.window_warp.mode_launches["nearest"],
-        "warp_bilinear": warp.window_warp.mode_launches["bilinear"],
-        "minmax": stencil.neighborhood_minmax.launches,
-        "hbao": hbao_kernel.hbao_fused.launches,
-        "poisson": slots.get((True,), 0),
-        "poisson_2tex": slots.get((False, False), 0),
-        "poisson_1tex": slots.get((False,), 0),
-        "sweep": rays.get(2, 0),
-        "sweep_1ray": rays.get(1, 0),
-        "zscan": raster_kernel.zscan.launches,
-        "zscan_peels": raster_kernel.zscan_alpha_peels.launches,
-        "lookup": table_kernel.face_lookup.launches,
-        "warp_multi": warp.window_warp_multi.launches,
-        "poisson_taps": poisson_taps.poisson_taps.launches,
-        "sharpness": stencil.sharpness_3x3.launches,
-        # HBAO's noise table: built once per distance and power, not a frame
-        "hbao_noise": hbao_kernel.noise_table.launches,
-        # the per-pixel march: calls (each launches ray_march on the card)
-        "march": ssgi.view_space_ray_march.calls,
-        "ray_march": ssgi.view_space_ray_march.launches,
-        "motion_blur": motion_blur.accumulate.launches,
-        "motion_blur_taps": motion_blur.motion_blur.launches,
-        # temporal reprojection: the prepare kernel, the blend by slots
-        "reproject_prepare": reproject_kernel.prepare.launches,
-        "reproject_2slot": reproject_kernel.blend.slot_launches.get(2, 0),
-        "reproject_1slot": reproject_kernel.blend.slot_launches.get(1, 0),
-    }
+    """The launches since the last :func:`reset_counters`, by census key
+    (0 for a key not launched)."""
+    from realism_effects_tpu_torch.ops.cuda_build import launches
+    return {**dict.fromkeys(COUNTER_KEYS, 0), **launches}
 
 
 def reset_counters():
-    from realism_effects_tpu_torch.ops import (hbao_kernel, motion_blur,
-                                               poisson_kernel, poisson_taps,
-                                               raster_kernel, reproject_kernel, ssgi,
-                                               stencil, sweep_kernel, table_kernel,
-                                               warp)
-    warp.window_warp.launches = 0
-    for m in warp.window_warp.mode_launches:
-        warp.window_warp.mode_launches[m] = 0
-    stencil.neighborhood_minmax.launches = 0
-    hbao_kernel.hbao_fused.launches = 0
-    hbao_kernel.noise_table.launches = 0
-    poisson_kernel.poisson_pass_fused.launches = 0
-    poisson_kernel.poisson_pass_fused.slot_launches.clear()
-    sweep_kernel.sweep_march.launches = 0
-    sweep_kernel.sweep_march.ray_launches.clear()
-    raster_kernel.zscan.launches = 0
-    raster_kernel.zscan_alpha_peels.launches = 0
-    table_kernel.face_lookup.launches = 0
-    warp.window_warp_multi.launches = 0
-    poisson_taps.poisson_taps.launches = 0
-    stencil.sharpness_3x3.launches = 0
-    ssgi.view_space_ray_march.calls = 0
-    ssgi.view_space_ray_march.launches = 0
-    motion_blur.accumulate.launches = 0
-    motion_blur.motion_blur.launches = 0
-    reproject_kernel.prepare.launches = 0
-    reproject_kernel.blend.launches = 0
-    reproject_kernel.blend.slot_launches.clear()
+    from realism_effects_tpu_torch.ops.cuda_build import launches
+    launches.clear()
 
 
 def check_env_extras(torch):
@@ -1528,240 +1466,6 @@ def _mesh(torch, n):
     if torch.cuda.device_count() == n:
         return make_mesh()
     return make_mesh(["cuda:0"] * n)
-
-
-def _mesh_routes(torch, analytic):
-    """The four sharded kernel routes at 1920 x 1080 on the inputs of
-    frame 1 of the HBAO + TRAA path: name -> (call, plain call, source,
-    replaced kernel, tolerance against the plain version, bytes,
-    operations, library call or None)."""
-    from realism_effects_tpu_torch.core.camera import PerspectiveCamera
-    from realism_effects_tpu_torch.core.math3d import floor_int32, uv_grid
-    from realism_effects_tpu_torch.ops import hbao_kernel, poisson_kernel, warp
-    from realism_effects_tpu_torch.ops.ao import AOConfig
-    from realism_effects_tpu_torch.ops.poisson_denoise import \
-        PoissonDenoiseConfig
-
-    h, w = HEIGHT, WIDTH
-    cam = PerspectiveCamera(50, w / h, 0.1, 100)
-    (_, last_vel, _), (gb, vel, color) = analytic.frames_at(cam, range(2), h, w, "cuda")
-    analytic.orbit(cam, 1)
-    mats = cam.matrices()
-    reproj = uv_grid(h, w, "cuda") - vel.velocity
-    x = reproj[..., 0] * w - 0.5
-    y = reproj[..., 1] * h - 0.5
-    x0, y0 = torch.floor(x), torch.floor(y)
-    hist = torch.cat([color, torch.full_like(color[..., :1], 5.0)], -1)
-    hist = hist.to(torch.float16).to(torch.float32)
-    c5 = (hist, floor_int32(y0), floor_int32(x0), y - y0, x - x0)
-    bil = (color.contiguous(), floor_int32(y0), floor_int32(x0),
-           torch.where(y0 < 0.0, 0.0, y - y0), torch.where(x0 < 0.0, 0.0, x - x0))
-    nd = torch.cat([last_vel.normal, last_vel.depth[..., None]], -1).contiguous()
-    iy = floor_int32(reproj[..., 1] * h)
-    ix = floor_int32(reproj[..., 0] * w)
-    ys = torch.arange(h, device="cuda", dtype=torch.int32)[:, None]
-    xs = torch.arange(w, device="cuda", dtype=torch.int32)[None, :]
-
-    def window_index(ty, tx, ky, kx):
-        dy = torch.clamp(torch.clamp(ty.clamp(-(1 << 20), 1 << 20) - ys, -ky, ky),
-                         -ys, h - 1 - ys)
-        return ((ys + torch.clamp(dy, -ky, ky)).long(),
-                (xs + torch.clamp(torch.clamp(tx, 0, w - 1) - xs, -kx, kx)).long())
-
-    li, lj = window_index(iy, ix, 8, 30)
-    # 8 nearest depth targets around the reprojection (the unfused HBAO's
-    # kind of fetch), ky 32, kx 30
-    offs = torch.tensor([(-9, 3), (4, -17), (20, 8), (-31, -2), (12, 25),
-                         (-5, -28), (33, 1), (0, 40)], device="cuda", dtype=torch.int32)
-    mty = iy[None] + offs[:, 0, None, None]
-    mtx = ix[None] + offs[:, 1, None, None]
-    mli, mlj = window_index(mty, mtx, 32, 30)
-    depth = gb.depth.contiguous()
-    ao_cfg = AOConfig()
-    ao = hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, ao_cfg)
-    ao_tex = torch.cat([ao[..., None].expand(h, w, 3), torch.zeros_like(ao)[..., None]], -1)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    texs = [torch.cat([torch.rand(h, w, 3, device="cuda", generator=g) * 2.0,
-                       torch.randint(0, 40, (h, w, 1), device="cuda",
-                                     generator=g).float()], -1) for _ in range(2)]
-    pcfg = PoissonDenoiseConfig()
-    pcfg2 = PoissonDenoiseConfig(is_specular=(False, True))
-    fg = int((gb.depth < 1.0).sum())
-    tile = 128 * 128 * 4 * 4
-    wsrc, wrep = "warp.cu", "realism_effects_tpu/ops/pallas/warp.py:91"
-    psrc, prep = "poisson.cu", "realism_effects_tpu/ops/pallas/poisson.py:126"
-    grid = (reproj * 2.0 - 1.0)[None].contiguous()
-    nchw = color.permute(2, 0, 1)[None].contiguous()
-    return {
-        "warp_catrom5": (
-            lambda: warp.window_warp(*c5, ky=8, mode="catrom5", kx=30),
-            lambda: warp.window_warp_plain(*c5, ky=8, mode="catrom5", kx=30),
-            wsrc, wrep, 1e-6, sum(a.nbytes for a in c5) + hist.nbytes + h * w,
-            h * w * (4 * 32 + 30), None),
-        "warp_nearest": (
-            lambda: warp.window_warp(nd, iy, ix, ky=8, mode="nearest", kx=30),
-            lambda: warp.window_warp_plain(nd, iy, ix, ky=8, mode="nearest", kx=30),
-            wsrc, wrep, 1e-6, 2 * nd.nbytes + iy.nbytes + ix.nbytes + h * w,
-            h * w * 4 * 2, lambda: nd[li, lj]),
-        "warp_bilinear": (
-            lambda: warp.window_warp(*bil, ky=8, mode="bilinear", kx=30),
-            lambda: warp.window_warp_plain(*bil, ky=8, mode="bilinear", kx=30),
-            wsrc, wrep, 1e-6, sum(a.nbytes for a in bil) + color.nbytes + h * w,
-            h * w * BILINEAR_OPS, lambda: torch.nn.functional.grid_sample(
-                nchw, grid, mode="bilinear", padding_mode="border",
-                align_corners=False)),
-        "warp_multi": (
-            lambda: warp.window_warp_multi(depth, mty, mtx, 32, 30),
-            lambda: warp.window_warp_multi_plain(depth, mty, mtx, 32, 30),
-            wsrc, "realism_effects_tpu/ops/pallas/warp.py:365", 0.0,
-            depth.nbytes + mty.nbytes + mtx.nbytes + 8 * (depth.nbytes + h * w),
-            8 * h * w * WARP_MULTI_OPS, lambda: depth[mli, mlj]),
-        "hbao": (
-            lambda: hbao_kernel.hbao_fused(gb.depth, gb.normal, mats, 1, ao_cfg),
-            lambda: hbao_kernel.hbao_fused_plain(gb.depth, gb.normal, mats, 1, ao_cfg),
-            "hbao.cu", "realism_effects_tpu/ops/pallas/hbao.py:58", 2e-4,
-            gb.depth.nbytes * 2 + gb.normal.nbytes + tile,
-            fg * (HBAO_OPS_SETUP + ao_cfg.spp * HBAO_OPS_SAMPLE)
-            + 128 * 128 * HBAO_OPS_NOISE, None),
-        "poisson_2tex": (
-            lambda: poisson_kernel.poisson_pass_fused(texs, gb, 3, pcfg2),
-            lambda: poisson_kernel.poisson_pass_plain(
-                *poisson_kernel.pack_bundle(texs, gb, (False, False)), (False, False),
-                3, pcfg2),
-            # 1e-5 x the largest value (the alpha, 39), as poisson_2tex's entry
-            psrc, prep, 4e-4, h * w * 4 * (3 + 4) + tile + h * w * 4 * 8,
-            h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + 2 * POISSON_OPS_TAP_SLOT)),
-            None),
-        "poisson": (
-            lambda: poisson_kernel.poisson_pass_fused([ao_tex], gb, 2, pcfg,
-                                                      scalar_slots=(True,)),
-            lambda: poisson_kernel.poisson_pass_plain(
-                *poisson_kernel.pack_bundle([ao_tex], gb, (True,)), (True,), 2, pcfg),
-            psrc, prep, 5e-4, h * w * 4 * (3 + 1) + tile + h * w * 4 * 4,
-            h * w * (POISSON_OPS_SETUP + 8 * (POISSON_OPS_TAP + POISSON_OPS_TAP_SLOT)),
-            None),
-    }
-
-
-def _outputs(out):
-    """The tensors of a route's result, flattened (the Poisson pass
-    returns per-slot views of one (H, W, 4 n) plane)."""
-    if isinstance(out, (tuple, list)):
-        return [t for o in out for t in _outputs(o)]
-    return [out]
-
-
-def _diff(torch, a, b):
-    torch.cuda.synchronize()
-    a, b = _outputs(a), _outputs(b)
-    if len(a) == 1 and len(b) > 1:   # the plain Poisson pass: one plane
-        b = [torch.cat(b, -1)]
-    if len(b) == 1 and len(a) > 1:
-        a = [torch.cat(a, -1)]
-    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
-
-
-def check_mesh(torch, analytic, timer, smi, results):
-    """The row-sharded route at 1920 x 1080 on meshes of 4 and 8 shards
-    (every card when the host has that many, else ``cuda:0`` repeated):
-    each of the four mesh-aware wrappers under ``mesh_context`` against
-    its unsharded launch on the same inputs (max abs difference, tol
-    MESH_TOL) and against its plain version (the entry's tolerance), timed
-    with the halo exchange; then 3 frames of the flagship, and 3 of HBAO +
-    TRAA on the unfused route (the path of ``warp_multi``), through the
-    composer under the mesh against the same frames without one, the
-    counters set to 0 just before the sharded run and read just after.
-    The entries join the ``kernels`` line as ``<kernel>@mesh<n>``."""
-    from realism_effects_tpu_torch.core.camera import PerspectiveCamera
-    from realism_effects_tpu_torch.parallel.context import mesh_context
-
-    routes = _mesh_routes(torch, analytic)
-    plain_ms = {}
-    for n in MESH_SHARDS:
-        mesh = _mesh(torch, n)
-        print(f"[mesh] {n} shards on {[str(d) for d in mesh]}", flush=True)
-        entries = {}
-        for name, (call, plain, src, rep, tol, nbytes, ops, lib) in routes.items():
-            ref = call()
-            with mesh_context(mesh):
-                got = call()
-            d = _diff(torch, got, ref)
-            want = plain()
-            err = _diff(torch, got, want)
-            del want
-            if name not in plain_ms:
-                plain_ms[name] = timer(plain, iters=5, warmup=1)
-
-            def sharded():
-                with mesh_context(mesh):
-                    return call()
-
-            ms = timer(sharded)
-            ms_1 = timer(call)
-            print(f"[mesh] {name} at {n} shards: max abs difference from the "
-                  f"unsharded launch {d} (tol {MESH_TOL}); ms {ms} (unsharded "
-                  f"{ms_1}, same call); card: {smi}", flush=True)
-            if not d <= MESH_TOL:
-                raise AssertionError(f"{name} at {n} shards differs from "
-                                     f"unsharded by {d}")
-            results.add(f"{name}@mesh{n}", src, rep, err, tol, ms, plain_ms[name],
-                        nbytes, ops, library_ms=None if lib is None else timer(lib))
-            results[-1]["shards"] = n
-            results[-1]["max_abs_diff_unsharded"] = d
-            results[-1]["unsharded_ms"] = ms_1
-            entries[name] = results[-1]
-
-        # the main paths under the mesh: the flagship (every route but
-        # warp_multi) and HBAO + TRAA unfused (warp_multi)
-        def timed(fn):
-            """(fn(), host ms of it ending in a synchronise)."""
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return out, (time.perf_counter() - t0) * 1e3
-
-        def flagship(mesh_, steps):
-            comp, cam = analytic.flagship_composer(HEIGHT, WIDTH, "cuda")
-            with mesh_context(mesh_):
-                return timed(lambda: analytic.render_frames(comp, cam, steps))
-
-        def unfused_path(mesh_, steps):
-            cam = PerspectiveCamera(50, WIDTH / HEIGHT, 0.1, 100)
-            frames = analytic.frames_at(cam, steps, HEIGHT, WIDTH, "cuda")
-            comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
-            with analytic.unfused(), mesh_context(mesh_):
-                return timed(lambda: analytic.run_frames(comp, cam, frames, steps))
-
-        for label, path, kernels_ in (
-                ("flagship", flagship, ("warp_catrom5", "warp_nearest",
-                                         "warp_bilinear", "hbao", "poisson",
-                                         "poisson_2tex")),
-                ("HBAO+TRAA unfused", unfused_path, ("warp_multi",))):
-            steps = range(3)
-            ref, ref_ms = path(None, steps)
-            again, again_ms = path(None, steps)
-            reset_counters()
-            got, ms = path(mesh, steps)
-            launches = counters()
-            d = max(_diff(torch, a, b) for a, b in zip(got, ref))
-            d0 = max(_diff(torch, a, b) for a, b in zip(again, ref))
-            print(f"[mesh] {label} through the composer, 3 frames at {WIDTH}x"
-                  f"{HEIGHT} under {n} shards: max abs difference from no mesh "
-                  f"{d} (tol {MESH_TOL}; two runs without a mesh differ by {d0}); "
-                  f"{ms / len(steps):.3f} ms/frame (without a mesh "
-                  f"{ref_ms / len(steps):.3f} and {again_ms / len(steps):.3f}; "
-                  f"host clock, first frames); launches "
-                  f"{json.dumps({k: launches[k] for k in kernels_})}; card: {smi}",
-                  flush=True)
-            if not d <= MESH_TOL:
-                raise AssertionError(f"{label} under {n} shards differs by {d}")
-            for k in kernels_:
-                if launches[k] < n:
-                    raise AssertionError(f"{k} launched {launches[k]} times under "
-                                         f"{n} shards on the {label} path")
-                entries[k]["launches"] = launches[k]
-                entries[k]["launches_path"] = f"{label} under {n} shards"
 
 
 def _state_leaves(torch, state):
@@ -2045,28 +1749,28 @@ def main() -> int:
     by_path["hbao_traa"] = run_path(
         torch, comp, external(comp, cam, frames), "HBAO+TRAA", HBAO_TRAA_FRAMES,
         ("warp_catrom5", "warp_nearest", "minmax", "hbao", "poisson", "reproject_prepare",
-         "reproject_1slot"), smi, forbidden=("march", "reproject_2slot"))
+         "reproject_1slot"), smi, forbidden=("ray_march", "reproject_2slot"))
     del comp
     comp, cam = analytic.ssgi_hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["ssgi_hbao_traa"] = run_path(
         torch, comp, external(comp, cam, sph_frames), "SSGI+HBAO+TRAA", FRAMES,
         [k for k in names if k not in ("zscan", "lookup", "motion_blur") + new_kernels],
         smi,
-        forbidden=("march",))
+        forbidden=("ray_march",))
     del comp, sph_frames
     comp, cam = analytic.flagship_composer(HEIGHT, WIDTH, "cuda")
     by_path["flagship"] = run_path(
         torch, comp, lambda first, n: analytic.render_frames(
             comp, cam, range(first, first + n)),
         "flagship", FRAMES, [k for k in names if k not in new_kernels], smi,
-        forbidden=("march",))
+        forbidden=("ray_march",))
     del comp
     comp, cam = analytic.flagship_march_composer(HEIGHT, WIDTH, "cuda")
     by_path["flagship_march"] = run_path(
         torch, comp, lambda first, n: analytic.render_frames(
             comp, cam, range(first, first + n)),
         "flagship with the march and the taps", HBAO_TRAA_FRAMES,
-        ("march", "ray_march", "motion_blur_taps", "zscan", "lookup", "hbao", "poisson",
+        ("ray_march", "motion_blur_taps", "zscan", "lookup", "hbao", "poisson",
          "poisson_2tex", "warp_catrom5", "warp_nearest", "minmax", "reproject_2slot",
          "reproject_1slot"), smi,
         forbidden=("sweep", "sweep_1ray", "warp_bilinear", "motion_blur"))
@@ -2078,14 +1782,14 @@ def main() -> int:
         "demo stack", HBAO_TRAA_FRAMES,
         ("sharpness", "sweep", "zscan", "lookup", "warp_catrom5", "warp_nearest",
          "warp_bilinear", "minmax", "poisson_2tex", "reproject_2slot", "reproject_1slot"),
-        smi, forbidden=("march",))
+        smi, forbidden=("ray_march",))
     del comp
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa_unfused"] = run_path(
         torch, comp, unfused(external(comp, cam, frames)), "HBAO+TRAA unfused",
         HBAO_TRAA_FRAMES, ("warp_multi", "poisson_taps", "warp_catrom5",
                            "warp_nearest", "minmax", "reproject_1slot"), smi,
-        forbidden=("hbao", "poisson", "march"))
+        forbidden=("hbao", "poisson", "ray_march"))
     del comp, frames
     comp, cam = analytic.reference_exports_composer(HEIGHT, WIDTH, "cuda")
     by_path["ssr_gtao_taa"] = run_path(
@@ -2093,14 +1797,14 @@ def main() -> int:
         "SSR+GTAO+TAA", HBAO_TRAA_FRAMES,
         ("sweep_1ray", "warp_catrom5", "warp_nearest", "warp_bilinear", "minmax",
          "poisson", "poisson_1tex", "zscan", "lookup", "reproject_1slot"), smi,
-        forbidden=("hbao", "sweep", "poisson_2tex", "march"))
+        forbidden=("hbao", "sweep", "poisson_2tex", "ray_march"))
     del comp
     comp, cam = analytic.march_aa_composer(HEIGHT, WIDTH, "cuda")
     by_path["march_aa"] = run_path(
         torch, comp, lambda first, n: analytic.render_frames(
             comp, cam, range(first, first + n)),
         "SSGI march+SMAA under a cube map", HBAO_TRAA_FRAMES,
-        ("march", "ray_march", "zscan", "lookup", "warp_catrom5", "minmax",
+        ("ray_march", "zscan", "lookup", "warp_catrom5", "minmax",
          "poisson_2tex", "reproject_2slot"), smi,
         forbidden=("sweep", "sweep_1ray", "warp_bilinear"))
     del comp
@@ -2109,7 +1813,7 @@ def main() -> int:
         torch, comp, lambda first, n: analytic.render_frames(
             comp, cam, range(first, first + n)),
         "ortho SSR march+HBAO+FXAA", HBAO_TRAA_FRAMES,
-        ("march", "ray_march", "hbao", "poisson", "poisson_1tex", "minmax",
+        ("ray_march", "hbao", "poisson", "poisson_1tex", "minmax",
          "warp_catrom5", "zscan", "lookup", "reproject_1slot"), smi,
         forbidden=("sweep", "sweep_1ray", "poisson_2tex", "warp_bilinear"))
     del comp
@@ -2120,7 +1824,7 @@ def main() -> int:
         "glTF alpha + MSAA 2x", HBAO_TRAA_FRAMES,
         ("zscan_peels", "lookup", "hbao", "poisson", "minmax", "warp_catrom5",
          "warp_nearest", "reproject_1slot"), smi,
-        forbidden=("zscan", "sweep", "sweep_1ray", "march"))
+        forbidden=("zscan", "sweep", "sweep_1ray", "ray_march"))
     per_frame = by_path["gltf_alpha_msaa"]["zscan_peels"] / HBAO_TRAA_FRAMES
     print(f"[path] glTF alpha + MSAA 2x: zscan_peels launches a frame {per_frame}",
           flush=True)
@@ -2184,8 +1888,7 @@ def main() -> int:
                       steps=analytic.still_then_step(0, 3, 2)),
           SSGI_SLICE_MAX_TOL, SSGI_SLICE_MEAN_TOL, SSGI_SLICE_PIX_FRAC)
 
-    # phase 4: the row-sharded route, the split frame, the demo's scenes
-    check_mesh(torch, analytic, timer, smi, kernels)
+    # phase 4: the split frame, the demo's scenes
     check_split(torch, analytic, smi)
     check_demo(torch, smi)
 

@@ -11,7 +11,7 @@ parity mode).
 from __future__ import annotations
 
 from ..ops import motion_blur as _op
-from ..parallel.context import replicate_for_rolls
+from ..parallel.sharding import replicate_for_rolls
 from .base import Effect
 
 

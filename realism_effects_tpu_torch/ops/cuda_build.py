@@ -10,10 +10,15 @@ each, the first time any kernel is needed.
 Flags: ``-O3``; no ``--use_fast_math`` (HBAO and Poisson need libm's
 ``sinf``/``expf``/``logf``); ``-fmad=false`` so that every product and sum
 rounds on its own, in the order the plain PyTorch version computes it.
+
+Every wrapper in ``ops/`` launches through :func:`launch`, which counts
+each launch under a name in :data:`launches` (``launches.clear()``
+empties it); the plain versions that CPU tensors take launch nothing.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,6 +41,8 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: ``nvcc -Xptxas -v`` report of each build (registers, spills)
 build_log: dict[str, str] = {}
+#: the kernel launches since the last ``launches.clear()``, by name
+launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -106,14 +113,20 @@ def bind(name: str, fn: str, n_ptr: int, n_int: int, n_host_ptr: int = 0):
     return f
 
 
-def check(err: int, what: str):
-    """Raise on a non-zero ``cudaError_t`` from a launch."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(key: str, source: str, fn: str, sig: tuple, like: torch.Tensor,
+           *args) -> None:
+    """Call the C entry ``fn`` of ``csrc/<source>.cu``, bound with the
+    counts ``sig`` of :func:`bind`, on ``args`` and the current stream of
+    ``like``'s device; raise on a non-zero ``cudaError_t``; count one
+    launch of ``key``."""
+    err = bind(source, fn, *sig)(*args, stream_ptr(like))
+    if err != 0:
+        raise RuntimeError(f"{key} kernel: CUDA launch failed with error {err}")
+    launches[key] += 1
 
 
 def require_cuda(*tensors: torch.Tensor):

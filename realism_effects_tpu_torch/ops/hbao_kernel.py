@@ -17,11 +17,10 @@ A row block of a larger frame takes ``row_offset`` (the global row of
 its first row) and ``height`` (the global rows), as the JAX kernel's
 ``_ROW0`` and global ``h`` do: the uv, the sample row and its frame
 clamp are the global frame's, the target is re-based onto the block,
-and the noise shifts are rolled by the offset. Under a row mesh
-(``parallel.context``), :func:`hbao_fused` runs that way on each shard
-extended by ``window_ky`` rows of depth (exchanged) and of normals
-(edge-padded: only the centre pixel's normal is read), the JAX
-``_hbao_fused_sharded``.
+and the noise shifts are rolled by the offset. The split frame's shards
+run it so on their rows extended by ``window_ky`` rows of depth
+(exchanged) and of normals (edge-padded: only the centre pixel's normal
+is read).
 
 On the H100 the kernel is bound by instruction issue against 20 bytes
 a pixel. The cosine draw of a sample (sqrt, sin, cos, sqrt, exp(log))
@@ -45,7 +44,6 @@ import numpy as np
 import torch
 
 from ..core.rng import blue_noise_tile_tensor, noise_shift
-from ..parallel.context import row_mesh_for
 from . import cuda_build
 
 _PI2 = float(np.float32(2.0 * math.pi))
@@ -210,18 +208,12 @@ def _noise_table(device: str, distance: float, pow1: float) -> torch.Tensor:
     tile = blue_noise_tile_tensor(device)
     table = torch.empty_like(tile)
     kparams = np.array([distance, pow1], np.float32)
-    fn = cuda_build.bind("hbao", "re_hbao_noise", 2, 0, 1)
-    err = fn(tile.data_ptr(), table.data_ptr(), kparams.ctypes.data,
-             cuda_build.stream_ptr(tile))
-    cuda_build.check(err, "hbao noise table kernel")
+    cuda_build.launch("hbao_noise", "hbao", "re_hbao_noise", (2, 0, 1), tile,
+                      tile.data_ptr(), table.data_ptr(), kparams.ctypes.data)
     if table.is_cuda:
         # built once, read by launches on any stream: finish it here
         torch.cuda.current_stream(table.device).synchronize()
-    noise_table.launches += 1
     return table
-
-
-noise_table.launches = 0
 
 
 def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
@@ -231,33 +223,12 @@ def hbao_fused(depth: torch.Tensor, normal: torch.Tensor, cam, frame: int,
     normals ``normal`` (H, W, 3). A row block of a larger frame passes
     its first row's global index ``row_offset`` and the frame's height
     (its rows are exact where it reaches ``cfg.window_ky`` rows past
-    them). Under a row mesh, a whole frame runs per shard on
-    halo-extended rows. CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
-    h = int(depth.shape[0])
-    if frame_height is not None:
-        return _hbao(depth, normal, cam, frame, cfg, row_offset, frame_height)
-    mesh = row_mesh_for(h)
-    if mesh is None:
-        return _hbao(depth, normal, cam, frame, cfg, row_offset, h)
-    from ..parallel.halo import map_row_blocks
-
-    ky = int(cfg.window_ky)
-    return map_row_blocks(
-        lambda row0, d, n: _hbao(d, n, cam, frame, cfg, row0, h),
-        mesh, ky, [depth], [normal])
-
-
-def _hbao(depth, normal, cam, frame, cfg, row_offset, height):
+    them). CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
     if depth.device.type == "cpu":
         return hbao_fused_plain(depth, normal, cam, frame, cfg, row_offset,
-                                height)
-    ao = _launch(depth, normal, cam, frame, cfg, row_offset, height)
-    hbao_fused.launches += 1
-    return ao
-
-
-hbao_fused.launches = 0
+                                frame_height)
+    return _launch(depth, normal, cam, frame, cfg, row_offset, frame_height)
 
 
 def _launch(depth, normal, cam, frame, cfg, row_offset=0, height=None):
@@ -280,12 +251,9 @@ def _launch(depth, normal, cam, frame, cfg, row_offset=0, height=None):
               sample_indices(cfg.spp, frame, cfg.animated_noise)]
     ishifts = np.array([s[0] for s in shifts] + [s[1] for s in shifts],
                        np.int32)
-    fn = cuda_build.bind("hbao", "re_hbao", 5, 7, 2)
-    err = fn(depth.data_ptr(), normal.data_ptr(), noise.data_ptr(),
-             ao.data_ptr(), None if carry is None else carry.data_ptr(), h, w,
-             int(cfg.window_ky), int(cfg.window_kx), int(cfg.spp),
-             int(row_offset), hg,
-             fparams.ctypes.data, ishifts.ctypes.data,
-             cuda_build.stream_ptr(depth))
-    cuda_build.check(err, "hbao kernel")
+    cuda_build.launch("hbao", "hbao", "re_hbao", (5, 7, 2), depth,
+                      depth.data_ptr(), normal.data_ptr(), noise.data_ptr(),
+                      ao.data_ptr(), None if carry is None else carry.data_ptr(),
+                      h, w, int(cfg.window_ky), int(cfg.window_kx), int(cfg.spp),
+                      int(row_offset), hg, fparams.ctypes.data, ishifts.ctypes.data)
     return ao

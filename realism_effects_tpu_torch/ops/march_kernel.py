@@ -51,11 +51,10 @@ def launch(view_pos, l, depth_tex, cam, random_b, thickness, ray_distance,
     depth_law = (near * far, far - near, far) if perspective else (near - far, near, 0.0)
     fparams = np.concatenate([m[[0, 1, 3]].reshape(-1), np.array(
         [float(ray_distance) / float(steps), float(thickness), *depth_law], f32)]).astype(f32)
-    fn = cuda_build.bind("sweep", "re_ray_march", 7, 7, 1)
-    err = fn(view_pos.data_ptr(), l.data_ptr(), random_b.data_ptr(), depth_tex.data_ptr(),
-             uv.data_ptr(), hit_pos.data_ptr(), missed.data_ptr(), n,
-             int(depth_tex.shape[0]), int(depth_tex.shape[1]), int(steps),
-             int(refine_steps), int(perspective), int(rb_stride),
-             fparams.ctypes.data, cuda_build.stream_ptr(view_pos))
-    cuda_build.check(err, "ray march kernel")
+    cuda_build.launch("ray_march", "sweep", "re_ray_march", (7, 7, 1), view_pos,
+                      view_pos.data_ptr(), l.data_ptr(), random_b.data_ptr(),
+                      depth_tex.data_ptr(), uv.data_ptr(), hit_pos.data_ptr(),
+                      missed.data_ptr(), n, int(depth_tex.shape[0]),
+                      int(depth_tex.shape[1]), int(steps), int(refine_steps),
+                      int(perspective), int(rb_stride), fparams.ctypes.data)
     return uv, hit_pos, missed

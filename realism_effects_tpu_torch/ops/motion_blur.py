@@ -84,12 +84,7 @@ def motion_blur(color: torch.Tensor, velocity: torch.Tensor, frame: int,
     with tracing.span("pass:motion_blur.taps"):
         if color.device.type == "cpu":
             return motion_blur_plain(*args)
-        out = _launch_taps(*args)
-        motion_blur.launches += 1
-        return out
-
-
-motion_blur.launches = 0
+        return _launch_taps(*args)
 
 
 def motion_blur_plain(color, velocity, frame: int, intensity=1.0, jitter=1.0,
@@ -140,12 +135,12 @@ def _launch_taps(color, velocity, frame: int, intensity, jitter, delta_time,
     # float32 reciprocal, on the CPU it divides: the kernel follows the
     # plain route of the tensors' device
     recip = int(color.device.type == "cuda")
-    fn = cuda_build.bind("motion_blur", "re_motion_blur_taps", 5, 10, 1)
-    err = fn(color.data_ptr(), velocity.data_ptr(), tile.data_ptr(), src.data_ptr(),
-             out.data_ptr(), h, w, int(src.shape[0]), int(src.shape[1]),
-             int(row_offset), int(tile.shape[0]), sy, sx, int(samples), recip,
-             fparams.ctypes.data, cuda_build.stream_ptr(color))
-    cuda_build.check(err, "motion blur taps kernel")
+    cuda_build.launch("motion_blur_taps", "motion_blur", "re_motion_blur_taps",
+                      (5, 10, 1), color,
+                      color.data_ptr(), velocity.data_ptr(), tile.data_ptr(),
+                      src.data_ptr(), out.data_ptr(), h, w, int(src.shape[0]),
+                      int(src.shape[1]), int(row_offset), int(tile.shape[0]), sy, sx,
+                      int(samples), recip, fparams.ctypes.data)
     return out
 
 
@@ -261,13 +256,8 @@ def accumulate(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
     if src.device.type == "cpu":
         return accumulate_plain(src, u_pos, u_neg, bin_pos, bin_neg, dys,
                                 dxs, e_lo, e_hi, pad, row_offset)
-    acc = _launch(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
-                  pad, row_offset)
-    accumulate.launches += 1
-    return acc
-
-
-accumulate.launches = 0
+    return _launch(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
+                   pad, row_offset)
 
 
 def accumulate_plain(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo,
@@ -311,10 +301,8 @@ def _launch(src, u_pos, u_neg, bin_pos, bin_neg, dys, dxs, e_lo, e_hi,
     acc = torch.empty((h, w, 4), dtype=torch.float32, device=src.device)
     offsets = np.concatenate([dys.reshape(-1), dxs.reshape(-1)]).astype(np.int32)
     radii = np.concatenate([e_lo, e_hi]).astype(np.float32)
-    fn = cuda_build.bind("motion_blur", "re_motion_blur", 6, 8, 2)
-    err = fn(*(t.data_ptr() for t in planes), src.data_ptr(), acc.data_ptr(),
-             h, w, int(src.shape[0]), int(src.shape[1]), pad + row_offset, pad,
-             dirs, steps, offsets.ctypes.data, radii.ctypes.data,
-             cuda_build.stream_ptr(src))
-    cuda_build.check(err, "motion blur kernel")
+    cuda_build.launch("motion_blur", "motion_blur", "re_motion_blur", (6, 8, 2), src,
+                      *(t.data_ptr() for t in planes), src.data_ptr(), acc.data_ptr(),
+                      h, w, int(src.shape[0]), int(src.shape[1]), pad + row_offset,
+                      pad, dirs, steps, offsets.ctypes.data, radii.ctypes.data)
     return acc

@@ -20,9 +20,8 @@ A row block of a larger frame takes ``row_offset`` (the global row of
 its first row) and ``resolution`` (the global (H, W)), as the JAX pass
 does: the uv, the flatness's bottom edge and the taps' frame clamp are
 the global frame's, a tap row is re-based onto the block, and the noise
-is rolled by the offset. Under a row mesh (``parallel.context``) and
-without ``resolution``, :func:`poisson_pass_fused` runs that way on each
-shard extended by ``aky`` halo rows (the JAX ``_fused_sharded``).
+is rolled by the offset. The split frame's shards run it so on their
+rows extended by :func:`tap_halo` halo rows.
 
 On the H100 the pass is bound by instruction issue, not bytes: a thread
 a pixel that decoded each of its 8 taps' texels itself ran about 160
@@ -42,7 +41,6 @@ import torch
 
 from ..core.packing import pack_half2x16, pack_normal, unpack_half2x16
 from ..core.rng import blue_noise_tile_tensor, noise_shift
-from ..parallel.context import row_mesh_for
 from . import cuda_build
 
 MAX_TEX = 4
@@ -249,50 +247,23 @@ def poisson_pass_fused(textures, gbuffer, noise_index: int, cfg,
     texture whose rgb is one replicated scalar (the AO path): it rides a
     single packed channel. ``row_offset`` and ``resolution``: the block's
     first global row and the global (H, W), for a row block of a larger
-    frame. Under a row mesh and without ``resolution``, each shard runs
-    the pass on its halo-extended rows. CUDA tensors launch the kernel;
-    CPU tensors take the plain version."""
+    frame. CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
     n_tex = len(textures)
     if not 1 <= n_tex <= MAX_TEX:
         raise ValueError(f"the fused pass takes 1..{MAX_TEX} textures, not {n_tex}")
     scalar_slots = tuple(scalar_slots or (False,) * n_tex)
     bundle, slot_ch = pack_bundle(textures, gbuffer, scalar_slots)
-    h, w = bundle.shape[0], bundle.shape[1]
-    if resolution is not None and int(resolution[1]) != w:
-        raise ValueError(f"a row block of {w} columns in a frame of "
+    if resolution is not None and int(resolution[1]) != bundle.shape[1]:
+        raise ValueError(f"a row block of {bundle.shape[1]} columns in a frame of "
                          f"{resolution[1]}: blocks split rows only")
-    mesh = row_mesh_for(h) if resolution is None else None
-    if mesh is not None:
-        from ..parallel.halo import map_row_blocks
-
-        aky = tap_halo(cfg.radius, h, w)
-        out = map_row_blocks(
-            lambda row0, b: _pass(b, slot_ch, scalar_slots, noise_index, cfg,
-                                  row0, (h, w)),
-            mesh, aky, [bundle])
-    else:
-        out = _pass(bundle, slot_ch, scalar_slots, noise_index, cfg,
-                    row_offset, resolution)
-    return [out[..., 4 * s: 4 * s + 4] for s in range(n_tex)]
-
-
-def _pass(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset,
-          resolution):
     if bundle.device.type == "cpu":
-        return poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index,
-                                  cfg, row_offset, resolution)
-    out = _launch(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset,
-                  resolution)
-    poisson_pass_fused.launches += 1
-    kinds = poisson_pass_fused.slot_launches
-    kinds[scalar_slots] = kinds.get(scalar_slots, 0) + 1
-    return out
-
-
-poisson_pass_fused.launches = 0
-#: the launches split by their slots, keyed by ``scalar_slots``: (True,)
-#: the AO pass, (False,) SSR's one RGBA texture, (False, False) SSGI's two
-poisson_pass_fused.slot_launches = {}
+        out = poisson_pass_plain(bundle, slot_ch, scalar_slots, noise_index,
+                                 cfg, row_offset, resolution)
+    else:
+        out = _launch(bundle, slot_ch, scalar_slots, noise_index, cfg,
+                      row_offset, resolution)
+    return [out[..., 4 * s: 4 * s + 4] for s in range(n_tex)]
 
 
 def _launch(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset=0,
@@ -311,9 +282,10 @@ def _launch(bundle, slot_ch, scalar_slots, noise_index, cfg, row_offset=0,
     for s in range(n_tex):
         iparams += [slot_ch[s], int(scalar_slots[s]), int(spec[s])]
     iparams = np.array(iparams, np.int32)
-    fn = cuda_build.bind("poisson", "re_poisson", 3, 5, 2)
-    err = fn(bundle.data_ptr(), tile.data_ptr(), out.data_ptr(), h, w, cb,
-             n_tex, int(row_offset), fparams.ctypes.data, iparams.ctypes.data,
-             cuda_build.stream_ptr(bundle))
-    cuda_build.check(err, "poisson kernel")
+    # counted as the AO pass ("poisson") or by its textures ("poisson_2tex":
+    # SSGI's, "poisson_1tex": SSR's)
+    key = "poisson" if tuple(scalar_slots) == (True,) else f"poisson_{n_tex}tex"
+    cuda_build.launch(key, "poisson", "re_poisson", (3, 5, 2), bundle,
+                      bundle.data_ptr(), tile.data_ptr(), out.data_ptr(), h, w, cb,
+                      n_tex, int(row_offset), fparams.ctypes.data, iparams.ctypes.data)
     return out

@@ -38,12 +38,7 @@ def poisson_taps(bundle: torch.Tensor, iy: torch.Tensor,
     take the plain version."""
     if bundle.device.type == "cpu":
         return poisson_taps_plain(bundle, iy, ix)
-    out = _launch(bundle, iy, ix)
-    poisson_taps.launches += 1
-    return out
-
-
-poisson_taps.launches = 0
+    return _launch(bundle, iy, ix)
 
 
 def _launch(bundle, iy, ix):
@@ -58,8 +53,7 @@ def _launch(bundle, iy, ix):
             ix.to(torch.int32).contiguous()]
     cuda_build.require_cuda(*args)
     out = torch.empty((n, h, w, c), dtype=torch.float32, device=bundle.device)
-    fn = cuda_build.bind("taps", "re_poisson_taps", 4, 4)
-    err = fn(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-             out.data_ptr(), h, w, c, n, cuda_build.stream_ptr(bundle))
-    cuda_build.check(err, "poisson taps kernel")
+    cuda_build.launch("poisson_taps", "taps", "re_poisson_taps", (4, 4), bundle,
+                      args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+                      out.data_ptr(), h, w, c, n)
     return out

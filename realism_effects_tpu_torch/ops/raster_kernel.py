@@ -168,12 +168,7 @@ def zscan(tab: torch.Tensor, height: int, width: int):
     the plain version."""
     if tab.device.type == "cpu":
         return zscan_plain(tab, height, width)
-    out = _launch(tab, height, width)
-    zscan.launches += 1
-    return out
-
-
-zscan.launches = 0
+    return _launch(tab, height, width)
 
 
 def zscan_visibility(coeffs, tri_z, tri_w, sgn, valid, tri_bbox,
@@ -193,10 +188,9 @@ def _launch(tab, height, width):
     cuda_build.require_cuda(tab)
     z = torch.empty((height, width), dtype=torch.float32, device=tab.device)
     ids = torch.empty((height, width), dtype=torch.int32, device=tab.device)
-    fn = cuda_build.bind("raster", "re_zscan", 3, 3)
-    err = fn(tab.data_ptr(), z.data_ptr(), ids.data_ptr(), tab.shape[0],
-             height, width, cuda_build.stream_ptr(tab))
-    cuda_build.check(err, "z-scan kernel")
+    cuda_build.launch("zscan", "raster", "re_zscan", (3, 3), tab,
+                      tab.data_ptr(), z.data_ptr(), ids.data_ptr(), tab.shape[0],
+                      height, width)
     return ids, z
 
 
@@ -225,12 +219,7 @@ def zscan_alpha_peels(tab: torch.Tensor, height: int, width: int,
     version."""
     if tab.device.type == "cpu":
         return zscan_alpha_peels_plain(tab, height, width, alpha, dither, cnmf, passes)
-    out = _launch_peels(tab, height, width, alpha, dither, cnmf, passes)
-    zscan_alpha_peels.launches += 1
-    return out
-
-
-zscan_alpha_peels.launches = 0
+    return _launch_peels(tab, height, width, alpha, dither, cnmf, passes)
 
 
 def _launch_peels(tab, height, width, alpha, dither, cnmf, passes):
@@ -252,10 +241,9 @@ def _launch_peels(tab, height, width, alpha, dither, cnmf, passes):
     z = torch.empty((passes, height, width), dtype=torch.float32, device=tab.device)
     ids = torch.empty((passes, height, width), dtype=torch.int32, device=tab.device)
     host = np.array([cnmf], np.float32)
-    fn = cuda_build.bind("raster", "re_zscan_peels", 6, 6, 1)
-    err = fn(tab.data_ptr(), alpha.data_ptr(), dither.data_ptr(), prep.data_ptr(),
-             z.data_ptr(), ids.data_ptr(), tab.shape[0], height, width,
-             dither.stride(0), dither.stride(1), passes, host.ctypes.data,
-             cuda_build.stream_ptr(tab))
-    cuda_build.check(err, "z-scan kernel (alpha peels)")
+    cuda_build.launch("zscan_peels", "raster", "re_zscan_peels", (6, 6, 1), tab,
+                      tab.data_ptr(), alpha.data_ptr(), dither.data_ptr(),
+                      prep.data_ptr(), z.data_ptr(), ids.data_ptr(), tab.shape[0],
+                      height, width, dither.stride(0), dither.stride(1), passes,
+                      host.ctypes.data)
     return ids, z

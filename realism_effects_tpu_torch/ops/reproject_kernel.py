@@ -101,10 +101,11 @@ def _launch(stage: int, planes: dict, iparams, fparams, like: torch.Tensor):
     if unknown:
         raise ValueError(f"unknown planes {sorted(unknown)}")
     ptrs = (ctypes.c_void_p * len(PLANES))(*(_addr(planes.get(k)) for k in PLANES))
-    fn = cuda_build.bind("reproject", "re_reproject", 0, 1, 3)
-    err = fn(stage, ctypes.addressof(ptrs), iparams.ctypes.data, fparams.ctypes.data,
-             cuda_build.stream_ptr(like))
-    cuda_build.check(err, ("reproject prepare", "reproject blend")[stage] + " kernel")
+    # the blend is counted by slots: "reproject_2slot" SSGI's, "_1slot"
+    # TRAA's and SSR's
+    key = "reproject_prepare" if stage == 0 else f"reproject_{int(iparams[4])}slot"
+    cuda_build.launch(key, "reproject", "re_reproject", (0, 1, 3), like, stage,
+                      ctypes.addressof(ptrs), iparams.ctypes.data, fparams.ctypes.data)
 
 
 def prepare(planes: dict, iparams, fparams, like: torch.Tensor):
@@ -112,24 +113,12 @@ def prepare(planes: dict, iparams, fparams, like: torch.Tensor):
     :data:`PLANES`), writing ``nd``, ``targets``, ``fracs`` and each
     slot's ``history16``."""
     _launch(0, planes, iparams, fparams, like)
-    prepare.launches += 1
-
-
-prepare.launches = 0
 
 
 def blend(planes: dict, iparams, fparams, like: torch.Tensor):
     """Launch ``reproject_blend_kernel`` over ``planes``, writing each
     slot's ``out``."""
     _launch(1, planes, iparams, fparams, like)
-    blend.launches += 1
-    slots = int(iparams[4])
-    blend.slot_launches[slots] = blend.slot_launches.get(slots, 0) + 1
-
-
-blend.launches = 0
-#: the launches split by the number of slots
-blend.slot_launches = {}
 
 
 def _alpha(t: torch.Tensor) -> int:

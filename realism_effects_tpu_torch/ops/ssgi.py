@@ -27,7 +27,7 @@ from ..core.math3d import (dot, luminance, mix, normalize, smoothstep,
                            transform_dir_transpose, uv_grid)
 from ..core.rng import blue_noise_image, blue_noise_transform
 from ..core.sampling import sample_bilinear, sample_nearest
-from ..parallel.context import replicate_for_rolls
+from ..parallel.sharding import replicate_for_rolls
 from . import march_kernel
 from .ssgi_sweep import (MIN_RADIUS, march_inputs, step_table, sweep_ray_march,
                          sweep_results)
@@ -83,20 +83,12 @@ def view_space_ray_march(view_pos, l, depth_tex, cam, random_b, thickness,
     hit_pos (view), missed); missed lanes hold hit_pos = 1e9, the
     reference's sentinel. CUDA tensors launch ``csrc/sweep.cu``'s
     ``ray_march_kernel`` (``ops/march_kernel.py``); CPU tensors take
-    :func:`view_space_ray_march_plain`. ``view_space_ray_march.calls``
-    counts calls, ``.launches`` the kernel's launches."""
-    view_space_ray_march.calls += 1
+    :func:`view_space_ray_march_plain`."""
     if view_pos.device.type == "cpu":
         return view_space_ray_march_plain(view_pos, l, depth_tex, cam, random_b,
                                           thickness, ray_distance, cfg)
-    out = march_kernel.launch(view_pos, l, depth_tex, cam, random_b, thickness,
-                              ray_distance, cfg.steps, cfg.refine_steps)
-    view_space_ray_march.launches += 1
-    return out
-
-
-view_space_ray_march.calls = 0
-view_space_ray_march.launches = 0
+    return march_kernel.launch(view_pos, l, depth_tex, cam, random_b, thickness,
+                               ray_distance, cfg.steps, cfg.refine_steps)
 
 
 def view_space_ray_march_plain(view_pos, l, depth_tex, cam, random_b, thickness,

@@ -73,12 +73,7 @@ def neighborhood_minmax(tex: torch.Tensor, radius: int):
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
     if tex.device.type == "cpu":
         return neighborhood_minmax_plain(tex, radius)
-    mn, mx = _launch(tex, radius)
-    neighborhood_minmax.launches += 1
-    return mn, mx
-
-
-neighborhood_minmax.launches = 0
+    return _launch(tex, radius)
 
 
 def _launch(tex, radius):
@@ -89,10 +84,9 @@ def _launch(tex, radius):
     cuda_build.require_cuda(tex)
     mn = torch.empty_like(tex)
     mx = torch.empty_like(tex)
-    fn = cuda_build.bind("stencil", "re_minmax", 3, 4)
-    err = fn(tex.data_ptr(), mn.data_ptr(), mx.data_ptr(), h, w, c,
-             int(radius), cuda_build.stream_ptr(tex))
-    cuda_build.check(err, "minmax kernel")
+    cuda_build.launch("minmax", "stencil", "re_minmax", (3, 4), tex,
+                      tex.data_ptr(), mn.data_ptr(), mx.data_ptr(), h, w, c,
+                      int(radius))
     return mn, mx
 
 
@@ -119,12 +113,7 @@ def sharpness_3x3(color: torch.Tensor, sharpness: float) -> torch.Tensor:
     plain version."""
     if color.device.type == "cpu":
         return sharpness_3x3_plain(color, sharpness)
-    out = _launch_sharpness(color, sharpness)
-    sharpness_3x3.launches += 1
-    return out
-
-
-sharpness_3x3.launches = 0
+    return _launch_sharpness(color, sharpness)
 
 
 def _launch_sharpness(color, sharpness):
@@ -137,8 +126,6 @@ def _launch_sharpness(color, sharpness):
     cuda_build.require_cuda(color)
     out = torch.empty_like(color)
     params = np.array([sharpness], np.float32)
-    fn = cuda_build.bind("stencil", "re_sharpness", 2, 3, 1)
-    err = fn(color.data_ptr(), out.data_ptr(), h, w, c, params.ctypes.data,
-             cuda_build.stream_ptr(color))
-    cuda_build.check(err, "sharpness kernel")
+    cuda_build.launch("sharpness", "stencil", "re_sharpness", (2, 3, 1), color,
+                      color.data_ptr(), out.data_ptr(), h, w, c, params.ctypes.data)
     return out

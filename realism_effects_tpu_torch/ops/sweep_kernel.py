@@ -107,17 +107,8 @@ def sweep_march(z_tex, radiance, planes, table, radii_prev, thickness,
         return sweep_march_plain(z_tex, radiance, planes, table, radii_prev,
                                  thickness, ray_distance, n_rays, dirs,
                                  steps, miss_gi)
-    out = _launch(z_tex, radiance, planes, table, radii_prev, thickness,
-                  ray_distance, n_rays, dirs, steps, miss_gi)
-    sweep_march.launches += 1
-    rays = sweep_march.ray_launches
-    rays[n_rays] = rays.get(n_rays, 0) + 1
-    return out
-
-
-sweep_march.launches = 0
-#: the launches split by ray count (2: SSGI's, 1: SSR's)
-sweep_march.ray_launches = {}
+    return _launch(z_tex, radiance, planes, table, radii_prev, thickness,
+                   ray_distance, n_rays, dirs, steps, miss_gi)
 
 
 def packed_table(table, radii_prev, dirs: int, steps: int) -> np.ndarray:
@@ -168,12 +159,13 @@ def _launch(z_tex, radiance, planes, table, radii_prev, thickness,
     gi = (None if radiance is None else
           torch.empty((n_rays, h, w, 4), dtype=torch.float16, device=dev))
     fparams = np.array([thickness, ray_distance], np.float32)
-    fn = cuda_build.bind("sweep", "re_sweep", 7, 7, 1)
-    err = fn(tensors[0].data_ptr(), None if gi is None else tensors[2].data_ptr(),
-             tensors[1].data_ptr(), tab.data_ptr(), hit.data_ptr(),
-             fout.data_ptr(), None if gi is None else gi.data_ptr(), h, w,
-             n_rays, dirs, steps, tab.shape[1], int(miss_gi),
-             fparams.ctypes.data, cuda_build.stream_ptr(z_tex))
-    cuda_build.check(err, "sweep kernel")
+    # counted by rays: "sweep" SSGI's two, "sweep_1ray" SSR's one
+    key = "sweep" if n_rays == 2 else f"sweep_{n_rays}ray"
+    cuda_build.launch(key, "sweep", "re_sweep", (7, 7, 1), z_tex,
+                      tensors[0].data_ptr(), None if gi is None else tensors[2].data_ptr(),
+                      tensors[1].data_ptr(), tab.data_ptr(), hit.data_ptr(),
+                      fout.data_ptr(), None if gi is None else gi.data_ptr(), h, w,
+                      n_rays, dirs, steps, tab.shape[1], int(miss_gi),
+                      fparams.ctypes.data)
     return [(hit[r], fout[r, 0], fout[r, 1], fout[r, 2],
              None if gi is None else gi[r]) for r in range(n_rays)]

@@ -49,12 +49,7 @@ def face_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     launch the kernel; CPU tensors take the plain version."""
     if table.device.type == "cpu":
         return face_lookup_plain(table, ids)
-    out = _launch(table, ids)
-    face_lookup.launches += 1
-    return out
-
-
-face_lookup.launches = 0
+    return _launch(table, ids)
 
 
 def _launch(table, ids):
@@ -74,8 +69,7 @@ def _launch(table, ids):
     cuda_build.require_cuda(table, ids)
     out = torch.empty(tuple(ids.shape) + (k,), dtype=torch.float32,
                       device=table.device)
-    fn = cuda_build.bind("table", "re_lookup", 3, 3)
-    err = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), rows, k,
-             ids.numel(), cuda_build.stream_ptr(table))
-    cuda_build.check(err, "face lookup kernel")
+    cuda_build.launch("lookup", "table", "re_lookup", (3, 3), table,
+                      table.data_ptr(), ids.data_ptr(), out.data_ptr(), rows, k,
+                      ids.numel())
     return out

@@ -24,13 +24,12 @@ offset takes 4-byte loads) and a C = 4 output one 16-byte store; the
 filtered modes run 32 x 8 blocks, whose warps share their footprint
 rows through L1.
 
-Under a row mesh (``parallel.context``) both wrappers run per shard, as
-the JAX ``_window_warp_sharded`` and ``_window_warp_multi_sharded`` do:
-the texture is extended by ``ky`` plus the filter's reach in halo rows
-from the neighbouring shards (edge rows at the frame's top and bottom),
-the targets are re-based by the shard's first row, and the result is
-cropped. The values are those of the unsharded fetch: the window bound
-is the halo bound, and the in-window flag sees only ``ty - row``.
+A row block of a larger frame (the split frame's shards) fetches from
+its rows extended by ``ky`` plus the filter's reach (``_HALO_EXTRA``) in
+halo rows, with its targets re-based by the block's first row, and its
+result cropped: the values are those of the whole-frame fetch, as the
+window bound is the halo bound and the in-window flag sees only
+``ty - row``.
 
 ``window_warp_multi`` fetches one texture at N targets, nearest, each
 with the semantics above (kernel ``re_warp_multi``, the counterpart of
@@ -44,7 +43,6 @@ from __future__ import annotations
 import torch
 
 from ..core.math3d import floor_int32
-from ..parallel.context import row_mesh_for
 from . import cuda_build
 
 DEF_KY = 8
@@ -133,39 +131,13 @@ def window_warp(tex: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
                 mode: str = "nearest", kx: int | None = None):
     """Fetch ``tex`` (H, W[, C<=8]) float32 at the per-pixel int32 target
     (ty, tx) (+ float32 fractions fy, fx in [0, 1) for the filtered
-    modes). Returns (value (H, W[, C]), in_window (H, W) bool).
-
-    Under a row mesh each shard fetches from its halo-extended rows. CUDA
+    modes). Returns (value (H, W[, C]), in_window (H, W) bool). CUDA
     tensors launch the kernel; CPU tensors take the plain version."""
     if mode not in _MODES:
         raise ValueError(f"unknown warp mode {mode!r}")
-    mesh = row_mesh_for(int(tex.shape[0]))
-    if mesh is None:
-        return _window_warp(tex, ty, tx, fy, fx, ky, mode, kx)
-    from ..parallel.halo import map_row_blocks
-
-    fracs = [] if mode == "nearest" or fy is None or fx is None else [fy, fx]
-
-    def local(row0, tex_b, ty_b, tx_b, *fr):
-        return _window_warp(tex_b, ty_b - row0, tx_b, *(fr or (None, None)),
-                            ky, mode, kx)
-
-    return map_row_blocks(local, mesh, int(ky) + _HALO_EXTRA[mode], [tex],
-                          [ty, tx, *fracs])
-
-
-def _window_warp(tex, ty, tx, fy, fx, ky, mode, kx):
     if tex.device.type == "cpu":
         return window_warp_plain(tex, ty, tx, fy, fx, ky, mode, kx)
-    out, flag = _launch(tex, ty, tx, fy, fx, ky, mode, kx)
-    window_warp.launches += 1
-    window_warp.mode_launches[mode] += 1
-    return out, flag
-
-
-window_warp.launches = 0
-#: the launches split by filter mode
-window_warp.mode_launches = dict.fromkeys(_MODES, 0)
+    return _launch(tex, ty, tx, fy, fx, ky, mode, kx)
 
 
 def _launch(tex, ty, tx, fy, fx, ky, mode, kx):
@@ -184,13 +156,12 @@ def _launch(tex, ty, tx, fy, fx, ky, mode, kx):
     out = torch.empty((h, w, c), dtype=torch.float32, device=tex.device)
     flag = torch.empty((h, w), dtype=torch.bool, device=tex.device)
     kx_flag, kx_tap = _windows(mode, kx)
-    fn = cuda_build.bind("warp", "re_warp", 7, 7)
-    err = fn(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-             None if fy is None else args[3].data_ptr(),
-             None if fx is None else args[4].data_ptr(),
-             out.data_ptr(), flag.data_ptr(), h, w, c, _MODES[mode],
-             int(ky), kx_flag, kx_tap, cuda_build.stream_ptr(tex))
-    cuda_build.check(err, "warp kernel")
+    cuda_build.launch(f"warp_{mode}", "warp", "re_warp", (7, 7), tex,
+                      args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+                      None if fy is None else args[3].data_ptr(),
+                      None if fx is None else args[4].data_ptr(),
+                      out.data_ptr(), flag.data_ptr(), h, w, c, _MODES[mode],
+                      int(ky), kx_flag, kx_tap)
     return (out[..., 0] if tex.ndim == 2 else out), flag
 
 
@@ -279,28 +250,10 @@ def window_warp_multi(tex: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
     """N nearest window fetches of ``tex`` (H, W[, C<=8]) float32 at the
     int32 targets ``ty``, ``tx`` (N, H, W). Returns (values (N, H, W[, C]),
     in_window (N, H, W) bool). CUDA tensors launch the kernel; CPU
-    tensors take the plain version. Under a row mesh each shard fetches
-    from its halo-extended rows."""
-    mesh = row_mesh_for(int(tex.shape[0]))
-    if mesh is None:
-        return _window_warp_multi(tex, ty, tx, ky, kx)
-    from ..parallel.halo import map_row_blocks
-
-    return map_row_blocks(
-        lambda row0, tex_b, ty_b, tx_b: _window_warp_multi(
-            tex_b, ty_b - row0, tx_b, ky, kx),
-        mesh, int(ky), [tex], [ty, tx], padded_dim=1, out_dim=1)
-
-
-def _window_warp_multi(tex, ty, tx, ky, kx):
+    tensors take the plain version."""
     if tex.device.type == "cpu":
         return window_warp_multi_plain(tex, ty, tx, ky, kx)
-    out = _launch_multi(tex, ty, tx, ky, kx)
-    window_warp_multi.launches += 1
-    return out
-
-
-window_warp_multi.launches = 0
+    return _launch_multi(tex, ty, tx, ky, kx)
 
 
 def _launch_multi(tex, ty, tx, ky, kx):
@@ -317,11 +270,9 @@ def _launch_multi(tex, ty, tx, ky, kx):
     out = torch.empty((n, h, w, c), dtype=torch.float32, device=tex.device)
     flag = torch.empty((n, h, w), dtype=torch.bool, device=tex.device)
     kx_w, _ = _windows("nearest", kx)
-    fn = cuda_build.bind("warp", "re_warp_multi", 5, 6)
-    err = fn(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-             out.data_ptr(), flag.data_ptr(), h, w, c, n, int(ky), kx_w,
-             cuda_build.stream_ptr(tex))
-    cuda_build.check(err, "warp multi kernel")
+    cuda_build.launch("warp_multi", "warp", "re_warp_multi", (5, 6), tex,
+                      args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+                      out.data_ptr(), flag.data_ptr(), h, w, c, n, int(ky), kx_w)
     return (out[..., 0] if tex.ndim == 2 else out), flag
 
 

@@ -1,5 +1,7 @@
 """Row sharding of the frame over a mesh of devices: the port of the JAX
-package's ``parallel/`` (``sharding``, ``context``, ``halo``).
+package's ``parallel/`` (``sharding``, ``halo``). Its ``context``, the
+mesh under which the Pallas wrappers shard themselves, is not ported:
+the split frame is the one route.
 
 The split frame (``EffectComposer._build_frame_fn(mesh)``) places each
 stage of the frame so (H the frame's height; a "whole" stage gathers its

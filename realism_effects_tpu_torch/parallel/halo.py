@@ -25,7 +25,6 @@ import torch
 from ..ops.copy import tree_map
 from ..ops.poisson_denoise import (PoissonDenoiseConfig, ao_config, ao_texture,
                                    poisson_denoise_pass)
-from .context import mesh_context
 from .sharding import (RowBlocks, gather_pytree, gather_rows, is_blocks,
                        shard_rows, split_images)
 
@@ -75,36 +74,6 @@ def crop_rows(x: torch.Tensor, halo: int, dim: int = 0) -> torch.Tensor:
     return x.narrow(dim, halo, x.shape[dim] - 2 * halo)
 
 
-def map_row_blocks(fn, mesh, halo: int, exchanged, padded=(), padded_dim=0,
-                   out_dim=0):
-    """Run ``fn`` per shard of ``mesh`` on halo-extended row blocks of the
-    whole-frame tensors ``exchanged`` (rows from the neighbouring shards)
-    and ``padded`` (per-pixel inputs, rows ``padded_dim``: edge-padded, as
-    only the shard's own rows are kept), and gather the cropped results
-    onto the device of ``exchanged[0]``.
-
-    ``fn(row0, *exchanged_blocks, *padded_blocks)`` runs with the shard's
-    device current; ``row0`` is the global row of its block's first row
-    (negative on the first shard). It returns a tensor or a tuple of
-    tensors whose rows are dimension ``out_dim``."""
-    n = len(mesh)
-    home = exchanged[0].device
-    h_loc = exchanged[0].shape[0] // n
-    ext = list(zip(*[halo_exchange_rows(shard_rows(x, mesh), halo)
-                     for x in exchanged]))
-    pads = list(zip(*[[edge_pad_rows(b, halo, padded_dim)
-                       for b in shard_rows(x, mesh, padded_dim)]
-                      for x in padded])) or [()] * n
-    outs = []
-    for i, dev in enumerate(mesh):
-        with device_scope(dev):
-            outs.append(fn(i * h_loc - halo, *ext[i], *pads[i]))
-    if isinstance(outs[0], tuple):
-        return tuple(gather_rows([crop_rows(o[k], halo, out_dim) for o in outs],
-                                 home, out_dim) for k in range(len(outs[0])))
-    return gather_rows([crop_rows(o, halo, out_dim) for o in outs], home, out_dim)
-
-
 def _leaves(tree) -> list:
     out = []
     tree_map(out.append, tree, is_leaf=is_blocks)
@@ -120,8 +89,7 @@ def map_shards(fn, mesh, halo: int, *trees):
     from the neighbouring blocks (the edge row repeated past the frame's
     top and bottom), each other tensor leaf copied to its device, and
     every other leaf as it is. ``fn(row0, *trees_i)`` runs with the
-    shard's device current and no mesh installed (so no wrapper splits a
-    block again); ``row0`` is the global row of the extended block's
+    shard's device current; ``row0`` is the global row of the extended block's
     first row (negative on the first shard). Every tensor leaf of its
     result has the extended block's rows first; the result comes back
     with each of them cropped to the shard's own rows and joined over the
@@ -145,7 +113,7 @@ def map_shards(fn, mesh, halo: int, *trees):
                 return x.to(dev)
             return x
         args = [tree_map(pick, t, is_leaf=is_blocks) for t in trees]
-        with device_scope(dev), mesh_context(None):
+        with device_scope(dev):
             out = fn(i * h_loc - halo, *args)
         first = out if first is None else first
         outs.append(_leaves(out))
@@ -233,18 +201,3 @@ def poisson_denoise_sharded(textures, gbuffer, frame: int,
         [shard_rows(t, mesh) for t in textures], split_images(gbuffer, mesh),
         frame, cfg, mesh, tuple(textures[0].shape[:2]))
     return [gather_rows(t, home) for t in out]
-
-
-def sharded_stencil(fn, mesh, halo: int, num_outputs: int = 1):
-    """``fn`` (whole-height tensors in, ``num_outputs`` whole-height
-    tensors out) run per shard of ``mesh`` on halo-extended row blocks of
-    its whole-frame arguments, the results cropped and gathered onto the
-    first argument's device."""
-    def wrapped(*arrays):
-        out = map_row_blocks(lambda _row0, *blocks: fn(*blocks), mesh, halo,
-                             list(arrays))
-        if num_outputs != 1 and not isinstance(out, tuple):
-            raise ValueError(f"fn returned one tensor, not {num_outputs}")
-        return out
-
-    return wrapped

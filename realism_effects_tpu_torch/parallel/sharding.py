@@ -24,7 +24,6 @@ from __future__ import annotations
 import torch
 
 from ..ops.copy import tree_map
-from .context import mesh_context
 
 ROW_AXIS = "rows"
 
@@ -106,20 +105,16 @@ def gather_pytree(tree, device=None):
                     tree, is_leaf=is_blocks)
 
 
-def shard_frame_fn(frame_fn, mesh):
-    """``frame_fn`` run under ``mesh_context(mesh)`` (so the mesh-aware
-    kernels shard themselves), its image-like tensor outputs returned as
-    row blocks by the rule of :func:`shard_pytree`; other outputs as they
-    are. (The composer's split frame, ``_build_frame_fn(mesh)``, runs its
-    stages per shard itself.)"""
-    def sharded(*args, **kwargs):
-        with mesh_context(mesh):
-            out = frame_fn(*args, **kwargs)
-        return split_images(out, mesh)
+def replicate_for_rolls(*arrays, device=None):
+    """Its inputs with every :class:`RowBlocks` joined into one
+    whole-frame tensor on ``device`` (default: block 0's); tensors and
+    None stay as they are. One array in, one out; several, a tuple.
 
-    return sharded
-
-
-def constrain_rows(x: torch.Tensor, mesh) -> RowBlocks:
-    """``x`` as row blocks over ``mesh`` (the JAX sharding constraint)."""
-    return shard_rows(x, mesh)
+    In the JAX package this constrains the sweep tracers' roll sources to
+    be replicated under a mesh, so that each per-step roll is local. In
+    the split frame the sources that a stage reads at any distance (the
+    SSGI trace's depth, planes and radiance, motion blur's colour) are
+    gathered once a frame through here; a whole-frame tensor is already
+    what every such read needs."""
+    out = tuple(gather_rows(a, device) if is_blocks(a) else a for a in arrays)
+    return out if len(out) > 1 else out[0]

@@ -25,6 +25,7 @@ the card would refuse at run time: a vector route taken without its
 alignment check fails here too.
 """
 
+import collections
 import ctypes
 import ctypes.util
 import dataclasses
@@ -48,6 +49,7 @@ from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
                                            table_kernel, warp)
 from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
+from realism_effects_tpu_torch.ops.cuda_build import launches
 from realism_effects_tpu_torch.ops.poisson_denoise import (POISSON8,
                                                            PoissonDenoiseConfig)
 
@@ -490,8 +492,9 @@ def test_poisson_source_row_block(host_kernels, slots, row0, hg):
     assert float((want - unsharded).abs().max()) > 1e-3
 
 
-@pytest.mark.parametrize("slots", [(False, False), (True,)])
-def test_poisson_source(host_kernels, slots):
+def _poisson_args(slots):
+    """(bundle, slot channels, slots, noise index, config) of a 48 x 80
+    frame with ``slots``' textures."""
     h, w = 48, 80
     rng = np.random.default_rng(2)
     depth, nrm = _surface(h, w, 3)
@@ -507,6 +510,12 @@ def test_poisson_source(host_kernels, slots):
     cfg = dataclasses.replace(PoissonDenoiseConfig(),
                               is_specular=(False, True)[:len(slots)])
     bundle, ch = poisson_kernel.pack_bundle(texs, gb, slots)
+    return bundle, ch, slots, 11, cfg
+
+
+@pytest.mark.parametrize("slots", [(False, False), (True,)])
+def test_poisson_source(host_kernels, slots):
+    bundle, ch, slots, _, cfg = _poisson_args(slots)
     got = poisson_kernel._launch(bundle, ch, slots, 11, cfg)
     want = poisson_kernel.poisson_pass_plain(bundle, ch, slots, 11, cfg)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
@@ -543,11 +552,11 @@ def test_poisson_source_staged(host_kernels, slots, spec, radius):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
 
 
-def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
-    """The march over a real frame's rays (the analytic scene with the
-    sphere, two random ray sets, stochastic bins), with a NaN bin and an
-    out-of-range bin planted, through the kernel's source and the plain
-    version. ``short_ends``: the rays of a third of the pixels end at a
+def _sweep_args(miss_gi, dirs=16, steps=32, short_ends=False, n_rays=2):
+    """The march's arguments over a real frame's rays (the analytic scene
+    with the sphere, ``n_rays`` random ray sets, stochastic bins), with a
+    NaN bin planted, and for two rays an out-of-range bin.
+    ``short_ends`` (two rays): the rays of a third of the pixels end at a
     screen distance s_end in [0, 30) pixels, and one at NaN."""
     h, w = 36, 64
     cam = PerspectiveCamera(50, w / h, 0.1, 100)
@@ -558,7 +567,7 @@ def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
         m.projection_matrix, m.projection_matrix_inverse)
     rng = np.random.default_rng(4)
     rays = []
-    for _ in range(2):
+    for _ in range(n_rays):
         r = rng.normal(size=(h, w, 3))
         r[..., 2] = -np.abs(r[..., 2]) * 0.3 - 0.05
         rays.append(torch.tensor(r / np.linalg.norm(r, axis=-1, keepdims=True),
@@ -567,7 +576,8 @@ def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
     z_tex, planes, table, radii_prev, _ = ssgi_sweep.march_inputs(
         view_pos, rays, gb.depth, m, 5, 10.0, dirs, steps, bin_noise=noise)
     planes[5, 3, 7] = float("nan")
-    planes[11, 4, 9] = float(dirs)
+    if n_rays == 2:
+        planes[11, 4, 9] = float(dirs)
     if short_ends:
         for plane in (6, 12):
             cut = torch.tensor(rng.random((h, w)) < 1 / 3)
@@ -575,8 +585,14 @@ def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
             planes[plane] = torch.where(cut, ends, planes[plane])
         planes[6, 20, 30] = float("nan")
     rad = torch.tensor(rng.uniform(0, 3, (h, w, 4)), dtype=torch.float16)
-    args = (z_tex, rad, planes, table, radii_prev, 10.0, 10.0, 2, dirs, steps,
+    return (z_tex, rad, planes, table, radii_prev, 10.0, 10.0, n_rays, dirs, steps,
             miss_gi)
+
+
+def _sweep_case(miss_gi, dirs=16, steps=32, short_ends=False):
+    """The march of :func:`_sweep_args`' two rays through the kernel's
+    source and the plain version."""
+    args = _sweep_args(miss_gi, dirs, steps, short_ends)
     got = sweep_kernel._launch(*args)
     want = sweep_kernel.sweep_march_plain(*args)
     assert any(bool(hit.any()) for hit, *_ in want)
@@ -879,11 +895,11 @@ def test_motion_blur_taps_source(host_kernels, case, rows, options):
     assert moved == 0.0 if case == "still" else moved > 0.1
 
 
-def _march_case(kind, mode, refine_steps, rows, thickness):
+def _march_args(kind, mode, refine_steps, rows, thickness):
     """The rays ``ops.ssgi._setup`` draws on the analytic scene at 40 x
-    64 (SSGI's two, SSR's one; env off) with its strided random plane,
-    and per ray (kernel, plain) results. ``rows``: the lanes of a row
-    block marching against the whole frame's depth."""
+    64 (SSGI's two, SSR's one; env off) with its strided random plane:
+    the configuration and per ray the march's arguments. ``rows``: the
+    lanes of a row block marching against the whole frame's depth."""
     h, w = 40, 64
     cam = (OrthographicCamera(-2.0 * w / h, 2.0 * w / h, 2.0, -2.0, 0.1, 100)
            if kind == "ortho" else PerspectiveCamera(50, w / h, 0.1, 100))
@@ -895,9 +911,15 @@ def _march_case(kind, mode, refine_steps, rows, thickness):
                        for f in dataclasses.fields(gb) if getattr(gb, f.name) is not None})
     p = ssgi._setup(block, None, m, 3, cfg, r0, h)
     assert p["r3"].stride(-1) == 4 and len(p["rays"]) == (2 if mode == "ssgi" else 1)
+    return cfg, [(p["view_pos"], ray, gb.depth, m, p["r3"], thickness, 10.0)
+                 for ray in p["rays"]]
+
+
+def _march_case(kind, mode, refine_steps, rows, thickness):
+    """Per ray of :func:`_march_args` the (kernel, plain) results."""
+    cfg, rays = _march_args(kind, mode, refine_steps, rows, thickness)
     out = []
-    for ray in p["rays"]:
-        args = (p["view_pos"], ray, gb.depth, m, p["r3"], thickness, 10.0)
+    for args in rays:
         got = march_kernel.launch(*args, cfg.steps, cfg.refine_steps)
         want = ssgi.view_space_ray_march_plain(*args, cfg)
         out.append((got, want))
@@ -1154,3 +1176,87 @@ def test_reproject_source_against_aten(host_kernels, case):
         blend = lambda a: a / (1.0 + a)
         np.testing.assert_allclose(blend(got[..., 3]), blend(want[..., 3]), rtol=5e-5,
                                    atol=2e-5)
+
+
+def _census_calls(module, monkeypatch):
+    """The host-built launches of the ``ops`` module ``module``: (call,
+    the census it leaves), a launch a call but where the census says
+    otherwise."""
+    if module == "warp":
+        tex, ty, tx, fy, fx = _warp_inputs(4, near=True)
+        return [(lambda m=m: warp._launch(tex, ty, tx, fy, fx, 8, m, None),
+                 {f"warp_{m}": 1}) for m in ("nearest", "bilinear", "catrom", "catrom5")] + [
+            (lambda: warp._launch_multi(tex, torch.stack([ty, ty]), torch.stack([tx, tx]),
+                                        5, None), {"warp_multi": 1})]
+    if module == "stencil":
+        tex = _warp_inputs(4)[0]
+        return [(lambda: stencil._launch(tex, 1), {"minmax": 1}),
+                (lambda: stencil._launch_sharpness(tex.abs(), 1.0), {"sharpness": 1})]
+    if module == "hbao_kernel":
+        depth, nrm = _surface(48, 80, 1)
+        cam = PerspectiveCamera(50, 80 / 48, 0.1, 80)
+        cam.set_position(0.3, 1.5, 5.0)
+        cam.look_at((0, 0.5, 0))
+        m, cfg = cam.matrices(), AOConfig(distance=0.3)
+        hbao_kernel._noise_table.cache_clear()
+        run = lambda: hbao_kernel._launch(depth, nrm, m, 3, cfg)
+        # the first launch of a setting builds its noise table, once
+        return [(run, {"hbao_noise": 1, "hbao": 1}), (run, {"hbao": 1})]
+    if module == "poisson_kernel":
+        return [(lambda a=_poisson_args(slots): poisson_kernel._launch(*a), {key: 1})
+                for slots, key in (((True,), "poisson"), ((False, False), "poisson_2tex"),
+                                   ((False,), "poisson_1tex"))]
+    if module == "poisson_taps":
+        rng = np.random.default_rng(0)
+        bundle = torch.tensor(rng.normal(size=(37, 61, 4)), dtype=torch.float32)
+        iy, ix = _tap_targets(37, 61, 8, 3, rng)
+        return [(lambda: poisson_taps._launch(bundle, iy, ix), {"poisson_taps": 1})]
+    if module == "sweep_kernel":
+        return [(lambda n=n: sweep_kernel._launch(*_sweep_args(False, 8, 12, n_rays=n)),
+                 {key: 1}) for n, key in ((2, "sweep"), (1, "sweep_1ray"))]
+    if module == "raster_kernel":
+        tab = _synthetic_table("many", 45, 83)
+        alpha = torch.full((tab.shape[0],), 0.5)
+        dither = torch.rand(45, 83, generator=torch.Generator().manual_seed(0))
+        return [(lambda: raster_kernel._launch(tab, 45, 83), {"zscan": 1}),
+                (lambda: raster_kernel._launch_peels(tab, 45, 83, alpha, dither, 3.0, 2),
+                 {"zscan_peels": 1})]
+    if module == "table_kernel":
+        table = torch.rand(3, 128, 11, generator=torch.Generator().manual_seed(0))
+        ids = torch.arange(37 * 61, dtype=torch.int32).reshape(37, 61) % 400 - 3
+        return [(lambda: table_kernel._launch(table, ids), {"lookup": 1})]
+    if module == "motion_blur":
+        color, vel = _blur_inputs(48, 80, 1)
+        monkeypatch.setattr(motion_blur, "accumulate", motion_blur._launch)
+        taps = dict(intensity=1.0, jitter=1.0, delta_time=1 / 60, samples=16, row_offset=0,
+                    source=None)
+        return [(lambda: motion_blur.motion_blur_sweep(color, vel, 3, dirs=16, steps=12),
+                 {"motion_blur": 1}),
+                (lambda: motion_blur._launch_taps(color, vel, 7, **taps),
+                 {"motion_blur_taps": 1})]
+    if module == "march_kernel":
+        cfg, rays = _march_args("persp", "ssgi", 5, None, 10.0)
+        return [(lambda a=a: march_kernel.launch(*a, cfg.steps, cfg.refine_steps),
+                 {"ray_march": 1}) for a in rays]
+    assert module == "reproject_kernel"
+    # a reprojection launches the prepare kernel and the blend, counted
+    # by slots (the fetches between them take their plain versions here)
+    return [(lambda case=case: _reproject_case(case),
+             {"reproject_prepare": 1, f"reproject_{n}slot": 1})
+            for case, n in (("traa", 1), ("ssgi", 2))]
+
+
+@pytest.mark.parametrize("module", [
+    "warp", "stencil", "hbao_kernel", "poisson_kernel", "poisson_taps", "sweep_kernel",
+    "raster_kernel", "table_kernel", "motion_blur", "march_kernel", "reproject_kernel"])
+def test_launch_census(host_kernels, monkeypatch, module):
+    """Each host-built launch of a module's kernels adds 1 to its key of
+    the launch census (``launches`` of ``ops/cuda_build.py``) and nothing
+    to any other; ``clear()`` empties the census."""
+    calls = _census_calls(module, monkeypatch)
+    for call, want in calls:
+        launches.clear()
+        call()
+        assert launches == collections.Counter(want)
+    launches.clear()
+    assert not launches

@@ -1,6 +1,7 @@
-"""The port's row-sharded route (``realism_effects_tpu_torch/parallel``)
-and the row offset of the Poisson and HBAO kernels' plain versions, on
-the CPU.
+"""The port's row sharding (``realism_effects_tpu_torch/parallel``): the
+split frame's primitives, the bounded-window wrappers run per shard
+through them, and the row offset of the Poisson and HBAO kernels' plain
+versions, on the CPU.
 
 A mesh of ``["cpu"] * n`` stands for the JAX tests' virtual CPU devices:
 every shard runs the plain version of its kernel on its halo-extended
@@ -12,7 +13,6 @@ the denoise pass on a row block at ``row_offset = 8``, holds the
 tolerance of ``tests/test_torch_poisson.py`` (5e-4 for one pass).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,18 +22,13 @@ import torch
 
 from realism_effects_tpu.core.framebuffers import GBuffer as JGBuffer
 from realism_effects_tpu.ops import poisson_denoise as jpd
-from realism_effects_tpu_torch import (EffectComposer, HBAOEffect, Material,
-                                       MotionBlurEffect, PerspectiveCamera,
-                                       Scene, SSGIEffect, TRAAEffect, make_box,
-                                       make_plane, make_sphere, translation)
 from realism_effects_tpu_torch.core.camera import PerspectiveCamera as TCam
 from realism_effects_tpu_torch.core.framebuffers import GBuffer
 from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_denoise,
                                            poisson_kernel, warp)
 from realism_effects_tpu_torch.ops.ao import AOConfig
 from realism_effects_tpu_torch.ops.poisson_denoise import PoissonDenoiseConfig
-from realism_effects_tpu_torch.parallel import context, halo, sharding
-from realism_effects_tpu_torch.parallel.context import mesh_context
+from realism_effects_tpu_torch.parallel import halo, sharding
 from realism_effects_tpu_torch.parallel.sharding import make_mesh
 
 
@@ -178,7 +173,7 @@ def test_hbao_block_with_row_offset_equals_unsharded(cfg, lo, hi):
 
 
 # ---------------------------------------------------------------------
-# parallel/: mesh, context, halo exchange
+# parallel/: mesh, placement, halo exchange
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("rows,n,halo_", [(64, 4, 1), (64, 8, 5), (16, 8, 3),
@@ -196,36 +191,14 @@ def test_halo_exchange_matches_edge_padding(rows, n, halo_):
         assert torch.equal(e, padded[i * h_loc: (i + 1) * h_loc + 2 * halo_])
 
 
-def test_sharded_stencil_matches_unsharded():
-    """A vertical 5-tap box blur with an edge clamp, run per shard on
-    2-row blocks with a 2-row halo, equals the unsharded blur."""
-    rng = np.random.default_rng(7)
-    x = torch.tensor(rng.random((16, 8, 3)), dtype=torch.float32)
-
-    def blur(a):
-        p = halo.edge_pad_rows(a, 2)
-        return sum(p[i: i + a.shape[0]] for i in range(5)) / 5.0
-
-    fn = halo.sharded_stencil(blur, make_mesh(["cpu"] * 8), 2)
-    assert torch.equal(fn(x), blur(x))
-
-
-def test_mesh_context_and_row_rule():
-    """``row_mesh_for`` gives the active mesh only for heights that
-    divide over it; the context nests and restores."""
-    mesh = make_mesh(["cpu"] * 4)
-    assert context.current_mesh() is None and context.row_mesh_for(64) is None
-    with mesh_context(mesh):
-        assert context.current_mesh() == mesh
-        assert context.row_mesh_for(64) == mesh
-        assert context.row_mesh_for(66) is None and context.row_mesh_for(2) is None
-        with mesh_context(None):
-            assert context.row_mesh_for(64) is None
-        assert context.row_mesh_for(64) == mesh
-    assert context.current_mesh() is None
+def test_replicate_for_rolls():
+    """Tensors and None stay as they are; row blocks are joined."""
     a = torch.ones(2)
-    assert context.replicate_for_rolls(a) is a
-    assert context.replicate_for_rolls(a, None) == (a, None)
+    assert sharding.replicate_for_rolls(a) is a
+    assert sharding.replicate_for_rolls(a, None) == (a, None)
+    x = torch.arange(8.0).reshape(4, 2)
+    assert torch.equal(sharding.replicate_for_rolls(
+        sharding.shard_rows(x, make_mesh(["cpu"] * 2))), x)
 
 
 def test_make_mesh_needs_cuda_or_named_devices(monkeypatch):
@@ -257,24 +230,10 @@ def test_shard_pytree_rule():
         == [(2, 2)] * 4
     assert all(tuple(b.shape) == (8,)
                for b in sharding.shard_pytree(torch.zeros(8), mesh))
-    assert [tuple(b.shape) for b in sharding.constrain_rows(torch.zeros(8, 2), mesh)] \
-        == [(2, 2)] * 4
-
-
-def test_shard_frame_fn_installs_the_mesh():
-    mesh = make_mesh(["cpu"] * 2)
-
-    def frame(x):
-        assert context.current_mesh() == mesh
-        return x * 2.0, 5
-
-    img, n = sharding.shard_frame_fn(frame, mesh)(torch.ones(4, 3))
-    assert n == 5 and [tuple(b.shape) for b in img] == [(2, 3)] * 2
-    assert context.current_mesh() is None
 
 
 # ---------------------------------------------------------------------
-# the four sharded kernel routes and the sharded denoise
+# the bounded-window wrappers per shard, and the sharded denoise
 # ---------------------------------------------------------------------
 
 def _warp_args(h, w, seed):
@@ -288,28 +247,46 @@ def _warp_args(h, w, seed):
 
 
 def _route(name, h, w):
-    """(fn, args) of one route on the 64 x 48 inputs."""
+    """One route on the h x w inputs: (the unsharded call, the call on a
+    shard ``local(row0, *blocks)`` with its block's global first row,
+    its halo, the inputs with their rows first)."""
     planes = _surface(h, w, 2)
     gb = _gbuffer(planes)
     tex, ty, tx, fy, fx = _warp_args(h, w, 3)
     if name == "warp_multi":
+        # the (N, H, W) targets and results travel rows first
         tys = torch.stack([ty, ty.flip(0), ty // 2])
         txs = torch.stack([tx, tx.flip(1), tx // 2])
-        return lambda: warp.window_warp_multi(tex[..., 0], tys, txs, ky=6, kx=30)
+        rows_first = lambda out: tuple(o.movedim(1, 0) for o in out)
+        return (lambda: rows_first(warp.window_warp_multi(tex[..., 0], tys, txs,
+                                                          ky=6, kx=30)),
+                lambda row0, t, y, x: rows_first(warp.window_warp_multi(
+                    t, y.movedim(-1, 0) - row0, x.movedim(-1, 0), ky=6, kx=30)),
+                6, (tex[..., 0], tys.movedim(0, -1), txs.movedim(0, -1)))
     if name.startswith("warp_"):
         mode = name[5:]
-        return lambda: warp.window_warp(tex, ty, tx, fy, fx, ky=8, mode=mode, kx=30)
+        return (lambda: warp.window_warp(tex, ty, tx, fy, fx, ky=8, mode=mode, kx=30),
+                lambda row0, t, y, x, fy_, fx_: warp.window_warp(
+                    t, y - row0, x, fy_, fx_, ky=8, mode=mode, kx=30),
+                8 + warp._HALO_EXTRA[mode], (tex, ty, tx, fy, fx))
     if name.startswith("hbao"):
         cfg = AOConfig() if name == "hbao" else AOConfig(spp=8, window_ky=3)
         m = _camera(h, w)
-        return lambda: hbao_kernel.hbao_fused(gb.depth, gb.normal, m, 2, cfg)
+        return (lambda: hbao_kernel.hbao_fused(gb.depth, gb.normal, m, 2, cfg),
+                lambda row0, d, n: hbao_kernel.hbao_fused(
+                    d, n, m, 2, cfg, row_offset=row0, frame_height=h),
+                cfg.window_ky, (gb.depth, gb.normal))
     texs = [torch.from_numpy(t) for t in _textures(h, w, 2, 4)]
+    cfg, slots = PoissonDenoiseConfig(is_specular=(False, True)), None
     if name == "poisson_ao":
-        ao = texs[0][..., [0, 0, 0, 3]].contiguous()
-        return lambda: poisson_kernel.poisson_pass_fused(
-            [ao], gb, 3, PoissonDenoiseConfig(), scalar_slots=(True,))
-    return lambda: poisson_kernel.poisson_pass_fused(
-        texs, gb, 3, PoissonDenoiseConfig(is_specular=(False, True)))
+        texs = [texs[0][..., [0, 0, 0, 3]].contiguous()]
+        cfg, slots = PoissonDenoiseConfig(), (True,)
+    return (lambda: poisson_kernel.poisson_pass_fused(texs, gb, 3, cfg,
+                                                      scalar_slots=slots),
+            lambda row0, ts, g: poisson_kernel.poisson_pass_fused(
+                list(ts), g, 3, cfg, row_offset=row0, resolution=(h, w),
+                scalar_slots=slots),
+            poisson_kernel.tap_halo(cfg.radius, h, w), (texs, gb))
 
 
 def _flat(out):
@@ -322,19 +299,15 @@ def _flat(out):
 @pytest.mark.parametrize("name", [
     "warp_nearest", "warp_bilinear", "warp_catrom", "warp_catrom5", "warp_multi",
     "hbao", "hbao_narrow", "poisson_2tex", "poisson_ao"])
-def test_sharded_route_equals_unsharded(name, n, monkeypatch):
-    """Each of the four mesh-aware wrappers under ``mesh_context`` runs
-    per shard (``map_row_blocks`` called once) and equals its unsharded
-    call exactly."""
-    fn = _route(name, 64, 48)
-    want = _flat(fn())
-    calls = []
-    mapper = halo.map_row_blocks
-    monkeypatch.setattr(halo, "map_row_blocks",
-                        lambda *a, **k: calls.append(a[2]) or mapper(*a, **k))
-    with mesh_context(make_mesh(["cpu"] * n)):
-        got = _flat(fn())
-    assert len(calls) == 1
+def test_sharded_route_equals_unsharded(name, n):
+    """Each bounded-window wrapper run per shard through the split
+    frame's ``map_shards``, on its halo-extended row block with the
+    block's global row offset, joins to its unsharded call exactly."""
+    whole, local, halo_, inputs = _route(name, 64, 48)
+    want = _flat(whole())
+    mesh = make_mesh(["cpu"] * n)
+    got = _flat(sharding.gather_pytree(
+        halo.map_shards(local, mesh, halo_, *sharding.split_images(inputs, mesh))))
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
         assert g.shape == w_.shape and torch.equal(g, w_)
@@ -354,68 +327,3 @@ def test_poisson_denoise_sharded_equals_unsharded(n, iterations, fused,
     got = halo.poisson_denoise_sharded(texs, gb, 3, cfg, make_mesh(["cpu"] * n))
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
-
-
-# ---------------------------------------------------------------------
-# the flagship-like stack through render() under a mesh
-# ---------------------------------------------------------------------
-
-def _flagship_like(h, w, trace):
-    """The stack of the JAX ``tests/test_parallel.py``'s multi-frame
-    flagship test: SSGI + HBAO + motion blur + TRAA on the plane, box
-    and sphere."""
-    scene = Scene()
-    scene.add(make_plane(20, Material(diffuse=(0.6, 0.6, 0.65, 1.0))))
-    box = scene.add(make_box((1, 1, 1), Material(diffuse=(0.9, 0.3, 0.2, 1.0))))
-    box.set_matrix(translation(0, 0.5, 0))
-    sph = scene.add(make_sphere(0.6, material=Material(
-        diffuse=(0.2, 0.5, 0.9, 1.0), roughness=0.2, metalness=0.8)))
-    sph.set_matrix(translation(1.5, 0.6, 0.5))
-    cam = PerspectiveCamera(50, w / h, 0.1, 100)
-    cam.set_position(3, 2.5, 4)
-    cam.look_at((0, 0.5, 0))
-    comp = EffectComposer(scene, cam, w, h, device="cpu")
-    comp.add_effect(SSGIEffect(steps=6, refine_steps=2, trace=trace,
-                               sweep_dirs=8, sweep_steps=12))
-    comp.add_effect(HBAOEffect(spp=2))
-    comp.add_effect(MotionBlurEffect(samples=4))
-    comp.add_effect(TRAAEffect())
-    return comp
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    if dataclasses.is_dataclass(tree):
-        return [x for f in dataclasses.fields(tree)
-                for x in _leaves(getattr(tree, f.name))]
-    return [tree]
-
-
-@pytest.mark.parametrize("trace,n", [("sweep", 4), ("march", 4), ("sweep", 8)])
-def test_flagship_like_stack_under_mesh_equals_unsharded(trace, n, monkeypatch):
-    """3 frames of the 96 x 64 flagship-like stack through ``render()``
-    under a CPU mesh equal the same frames without one, image and final
-    temporal state, and the sharded routes ran."""
-    h, w = 96, 64
-    ref = _flagship_like(h, w, trace)
-    want = [ref.render(dt=1 / 60) for _ in range(3)]
-    calls = []
-    mapper = halo.map_row_blocks
-    monkeypatch.setattr(halo, "map_row_blocks",
-                        lambda *a, **k: calls.append(a[2]) or mapper(*a, **k))
-    comp = _flagship_like(h, w, trace)
-    with mesh_context(make_mesh(["cpu"] * n)):
-        got = [comp.render(dt=1 / 60) for _ in range(3)]
-    assert len(calls) >= 3 * 5     # a frame: HBAO, 2 + 2 Poisson passes, warps
-    for f, (g, w_) in enumerate(zip(got, want)):
-        assert torch.equal(g, w_), f"frame {f}"
-    a, b = _leaves(ref._state), _leaves(comp._state)
-    assert len(a) == len(b) and len(a) >= 5
-    for x, y in zip(a, b):
-        if isinstance(x, torch.Tensor):
-            assert torch.equal(x, y)
-        else:
-            assert x == y

@@ -19,6 +19,7 @@ import torch
 import realism_effects_tpu_torch as tre
 from realism_effects_tpu_torch.core.rng import blue_noise_image
 from realism_effects_tpu_torch.ops import raster_kernel
+from realism_effects_tpu_torch.ops.cuda_build import launches
 from realism_effects_tpu_torch.scene import rasterizer
 from test_torch_cuda_sources import _synthetic_table
 
@@ -46,9 +47,9 @@ def test_plain_peels_match_per_pass(case, cnmf, passes):
     pick = tab.view(torch.int32)[:, :9].sum(1).remainder(4)
     alpha = torch.tensor([1.0, 0.7, 0.5, 0.3])[pick]
     dither = torch.tensor(rng.random((H, W)), dtype=torch.float32)
-    raster_kernel.zscan_alpha_peels.launches = 0
+    launches.clear()
     ids, z = raster_kernel.zscan_alpha_peels(tab, H, W, alpha, dither, cnmf, passes)
-    assert raster_kernel.zscan_alpha_peels.launches == 0   # the CPU runs plain
+    assert not launches   # the CPU runs plain
     want_ids, want_z = _per_pass(tab, H, W, alpha, dither, cnmf, passes)
     assert ids.shape == z.shape == (passes, H, W) and ids.dtype == torch.int32
     assert bool((ids[-1] >= 0).any())

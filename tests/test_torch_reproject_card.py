@@ -12,7 +12,8 @@ import torch
 from realism_effects_tpu_torch import analytic
 from realism_effects_tpu_torch.core.camera import PerspectiveCamera
 from realism_effects_tpu_torch.effects import ssgi, traa
-from realism_effects_tpu_torch.ops import reproject_kernel, temporal_reproject
+from realism_effects_tpu_torch.ops import temporal_reproject
+from realism_effects_tpu_torch.ops.cuda_build import launches
 
 pytestmark = pytest.mark.cuda
 
@@ -50,19 +51,19 @@ def test_a_frame_launches_the_kernels_and_equals_the_plain_route(card, monkeypat
     bit."""
     cam = PerspectiveCamera(50, W / H, 0.1, 100)
     frames = analytic.frames_at(cam, range(FRAMES), H, W, card, sphere=True)
-    before = (reproject_kernel.prepare.launches, dict(reproject_kernel.blend.slot_launches))
+    launches.clear()
     got, got_state = _run(card, frames)
     torch.cuda.synchronize()
-    slots = {k: v - before[1].get(k, 0) for k, v in reproject_kernel.blend.slot_launches.items()}
-    assert reproject_kernel.prepare.launches - before[0] == 2 * FRAMES
-    assert slots == {1: FRAMES, 2: FRAMES}
+    assert {k: v for k, v in launches.items() if k.startswith("reproject_")} == {
+        "reproject_prepare": 2 * FRAMES, "reproject_1slot": FRAMES,
+        "reproject_2slot": FRAMES}
 
     plain = temporal_reproject.temporal_reproject_plain
     monkeypatch.setattr(ssgi, "temporal_reproject", plain)
     monkeypatch.setattr(traa, "temporal_reproject", plain)
-    launches = reproject_kernel.prepare.launches
+    launches.clear()
     want, want_state = _run(card, frames)
-    assert reproject_kernel.prepare.launches == launches
+    assert not any(k.startswith("reproject_") for k in launches)
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
     for a, b in zip(_leaves(got_state), _leaves(want_state), strict=True):

@@ -28,8 +28,7 @@ from realism_effects_tpu.scene.rasterizer import (rasterize_gbuffer,
 from realism_effects_tpu.scene.shading import shade_direct
 import realism_effects_tpu_torch as tre
 from realism_effects_tpu_torch import convert
-from realism_effects_tpu_torch.ops import (hbao_kernel, poisson_kernel,
-                                           stencil, warp)
+from realism_effects_tpu_torch.ops.cuda_build import launches
 
 H, W = 64, 96
 TOL = 1e-3
@@ -133,11 +132,9 @@ def test_save_and_load_state_round_trip(jax_run, tmp_path):
 
 def test_cpu_run_never_launches_a_kernel(jax_run):
     comp, cam = _port_composer()
+    launches.clear()
     _render(comp, cam, EYES[0], jax_run[0][0])
-    assert warp.window_warp.launches == 0
-    assert stencil.neighborhood_minmax.launches == 0
-    assert hbao_kernel.hbao_fused.launches == 0
-    assert poisson_kernel.poisson_pass_fused.launches == 0
+    assert not launches
 
 
 def test_render_needs_the_raster_slice():
@@ -151,7 +148,6 @@ def test_render_needs_the_raster_slice():
 def test_package_imports_without_jax():
     code = ("import sys, realism_effects_tpu_torch, realism_effects_tpu_torch.analytic; "
             "import realism_effects_tpu_torch.parallel.sharding, "
-            "realism_effects_tpu_torch.parallel.context, "
             "realism_effects_tpu_torch.parallel.halo, "
             "realism_effects_tpu_torch.ops.copy, "
             "realism_effects_tpu_torch.tools.demo, "
