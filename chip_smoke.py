@@ -259,6 +259,8 @@ TAPS_OPS_PIXEL = 8        # per taps pixel: its uv and the still test
 TAPS_BYTES_PIXEL = 32     # colour (the taps' source) 12, velocity 8, output 12
 RP_OPS_PIXEL = 110        # per reprojected pixel and kernel: uv, world position, hit point
 RP_OPS_SLOT = 90          # per slot: the fetch's weights, clamp, selects, accumulation
+SH_OPS_PIXEL = 40         # per shaded pixel: saturation, MIS, direct light, ray length
+SH_OPS_RAY = 160          # per ray: angles, both brdfs' terms, env direction and fetch, fade
 
 
 def _bound(nbytes: float, ops: float):
@@ -1286,6 +1288,69 @@ def check_reproject_kernels(torch, analytic, timer, results):
                   f"fetches, blend) {route_ms} ms", flush=True)
 
 
+def shade_bytes(sweep, rays, box):
+    """The shade kernel's least bytes a pixel (``csrc/shade.cu``): the
+    setup's planes (depth, roughness, metalness, albedo, roughness
+    squared, nov, the view normal, v, the two flags, the ems pdf: 62),
+    the direct light (12), per ray its direction, hit uv and miss flag
+    (21) and the sweep's radiance (16), the specular hit (12), the world
+    position with ``box`` (12), the outputs (32); the march's velocity
+    and last frame's output (20), each texel read at least once."""
+    return 62 + 12 + rays * (21 + (16 if sweep else 0)) + 12 + 12 * box + 32 + (
+        0 if sweep else 20)
+
+
+def check_shade_kernels(torch, analytic, timer, results):
+    """SSGI's shade kernel on the inputs of frame 3 of the flagship
+    (sweep) at 1920x1080 and 3840x2160 (a ``[kernel]`` line) and of the
+    flagship with upstream's per-pixel stack (march) at 1920x1080:
+    against ``_shade_plain`` on the same inputs (exact), with the plain
+    route's ms."""
+    from realism_effects_tpu_torch.ops import shade_kernel
+    from realism_effects_tpu_torch.ops import ssgi as ssgi_ops
+
+    real = ssgi_ops._shade
+    for name, make, (h, w) in (
+            ("shade", analytic.flagship_composer, (HEIGHT, WIDTH)),
+            ("shade_march", analytic.flagship_march_composer, (HEIGHT, WIDTH)),
+            ("shade", analytic.flagship_composer, (2160, 3840))):
+        comp, cam = make(h, w, "cuda")
+        seen = []
+
+        def record(*args):
+            seen.append(args)
+            return real(*args)
+
+        ssgi_ops._shade = record
+        try:
+            analytic.render_frames(comp, cam, range(4))
+        finally:
+            ssgi_ops._shade = real
+        del comp
+        args = seen[-1]
+        cfg = args[8]
+        got = shade_kernel.shade(*args)
+        want = ssgi_ops._shade_plain(*args)
+        err = max(_maxerr(torch, g, w_) for g, w_ in zip(got, want, strict=True))
+        sweep, rays = cfg.trace == "sweep", 2 if cfg.mode == "ssgi" else 1
+        nbytes = shade_bytes(sweep, rays, cfg.env_box is not None) * h * w + int(
+            args[5].atlas.data.numel()) * 2
+        ops = h * w * (SH_OPS_PIXEL + SH_OPS_RAY * rays)
+        ms = timer(lambda: shade_kernel.shade(*args))
+        plain_ms = timer(lambda: ssgi_ops._shade_plain(*args))
+        if (h, w) == (HEIGHT, WIDTH):
+            results.add(name, "shade.cu", f"none (ops/ssgi.py _shade_plain, {cfg.trace})",
+                        err, 0.0, ms, plain_ms, nbytes, ops)
+            results[-1]["census"] = "shade"
+        else:
+            bound_ms, bound_by = _bound(nbytes, ops)
+            print(f"[kernel] {name} at {w}x{h}: max_abs_err={err} (tol 0.0) ms={ms} "
+                  f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})", flush=True)
+            if not err <= 0.0:
+                raise AssertionError(f"{name} at {w}x{h}: kernel vs plain max abs "
+                                     f"error {err} > 0.0")
+
+
 #: the launch census's keys (``ops/cuda_build.py``), in the order printed
 COUNTER_KEYS = (
     "warp_catrom5", "warp_nearest", "warp_bilinear", "minmax", "hbao", "poisson",
@@ -1293,7 +1358,7 @@ COUNTER_KEYS = (
     "lookup", "warp_multi", "poisson_taps", "sharpness",
     "hbao_noise",   # HBAO's noise table: built once per distance and power
     "ray_march", "motion_blur", "motion_blur_taps",
-    "reproject_prepare", "reproject_2slot", "reproject_1slot")
+    "reproject_prepare", "reproject_2slot", "reproject_1slot", "shade")
 
 
 def counters():
@@ -1541,10 +1606,11 @@ def check_split(torch, analytic, smi):
         want_n = {"hbao": 3 * SPLIT_SHARDS, "warp_catrom5": 3 * SPLIT_SHARDS,
                   "zscan": 3}
         if label == "flagship":
-            want_n.update(sweep=3, poisson_2tex=3 * 2 * SPLIT_SHARDS)
+            want_n.update(sweep=3, poisson_2tex=3 * 2 * SPLIT_SHARDS,
+                          shade=3 * SPLIT_SHARDS)
         if label == "flagship march + taps":   # both per shard, a march a ray
             want_n.update(ray_march=3 * 2 * SPLIT_SHARDS,
-                          motion_blur_taps=3 * SPLIT_SHARDS)
+                          motion_blur_taps=3 * SPLIT_SHARDS, shade=3 * SPLIT_SHARDS)
         short = {k: launches.get(k, 0) for k, n in want_n.items()
                  if launches.get(k, 0) < n}
         if short or (label == "flagship" and launches.get("sweep") != 3):
@@ -1728,6 +1794,7 @@ def main() -> int:
     check_motion_blur_kernel(torch, analytic, timer, kernels)
     check_march_taps_kernels(torch, analytic, timer, kernels)
     check_reproject_kernels(torch, analytic, timer, kernels)
+    check_shade_kernels(torch, analytic, timer, kernels)
     check_env_extras(torch)
 
     # phase 3: the paths at 1920 x 1080
@@ -1743,13 +1810,14 @@ def main() -> int:
 
     names = [k["name"] for k in kernels]
     new_kernels = ("warp_multi", "poisson_taps", "sharpness", "sweep_1ray",
-                   "poisson_1tex", "zscan_peels", "ray_march", "motion_blur_taps")
+                   "poisson_1tex", "zscan_peels", "ray_march", "motion_blur_taps",
+                   "shade_march")
     by_path = {}
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa"] = run_path(
         torch, comp, external(comp, cam, frames), "HBAO+TRAA", HBAO_TRAA_FRAMES,
         ("warp_catrom5", "warp_nearest", "minmax", "hbao", "poisson", "reproject_prepare",
-         "reproject_1slot"), smi, forbidden=("ray_march", "reproject_2slot"))
+         "reproject_1slot"), smi, forbidden=("ray_march", "reproject_2slot", "shade"))
     del comp
     comp, cam = analytic.ssgi_hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["ssgi_hbao_traa"] = run_path(
@@ -1772,7 +1840,7 @@ def main() -> int:
         "flagship with the march and the taps", HBAO_TRAA_FRAMES,
         ("ray_march", "motion_blur_taps", "zscan", "lookup", "hbao", "poisson",
          "poisson_2tex", "warp_catrom5", "warp_nearest", "minmax", "reproject_2slot",
-         "reproject_1slot"), smi,
+         "reproject_1slot", "shade"), smi,
         forbidden=("sweep", "sweep_1ray", "warp_bilinear", "motion_blur"))
     del comp
     comp, cam = analytic.demo_stack_composer(HEIGHT, WIDTH, "cuda")
@@ -1781,22 +1849,22 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "demo stack", HBAO_TRAA_FRAMES,
         ("sharpness", "sweep", "zscan", "lookup", "warp_catrom5", "warp_nearest",
-         "warp_bilinear", "minmax", "poisson_2tex", "reproject_2slot", "reproject_1slot"),
-        smi, forbidden=("ray_march",))
+         "warp_bilinear", "minmax", "poisson_2tex", "reproject_2slot", "reproject_1slot",
+         "shade"), smi, forbidden=("ray_march",))
     del comp
     comp, cam = analytic.hbao_traa_composer(HEIGHT, WIDTH, "cuda")
     by_path["hbao_traa_unfused"] = run_path(
         torch, comp, unfused(external(comp, cam, frames)), "HBAO+TRAA unfused",
         HBAO_TRAA_FRAMES, ("warp_multi", "poisson_taps", "warp_catrom5",
                            "warp_nearest", "minmax", "reproject_1slot"), smi,
-        forbidden=("hbao", "poisson", "ray_march"))
+        forbidden=("hbao", "poisson", "ray_march", "shade"))
     del comp, frames
     comp, cam = analytic.reference_exports_composer(HEIGHT, WIDTH, "cuda")
     by_path["ssr_gtao_taa"] = run_path(
         torch, comp, exports_driver(analytic, comp, cam, WARMUP + HBAO_TRAA_FRAMES // 2),
         "SSR+GTAO+TAA", HBAO_TRAA_FRAMES,
         ("sweep_1ray", "warp_catrom5", "warp_nearest", "warp_bilinear", "minmax",
-         "poisson", "poisson_1tex", "zscan", "lookup", "reproject_1slot"), smi,
+         "poisson", "poisson_1tex", "zscan", "lookup", "reproject_1slot", "shade"), smi,
         forbidden=("hbao", "sweep", "poisson_2tex", "ray_march"))
     del comp
     comp, cam = analytic.march_aa_composer(HEIGHT, WIDTH, "cuda")
@@ -1805,7 +1873,7 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "SSGI march+SMAA under a cube map", HBAO_TRAA_FRAMES,
         ("ray_march", "zscan", "lookup", "warp_catrom5", "minmax",
-         "poisson_2tex", "reproject_2slot"), smi,
+         "poisson_2tex", "reproject_2slot", "shade"), smi,
         forbidden=("sweep", "sweep_1ray", "warp_bilinear"))
     del comp
     comp, cam = analytic.ortho_ssr_composer(HEIGHT, WIDTH, "cuda")
@@ -1814,7 +1882,7 @@ def main() -> int:
             comp, cam, range(first, first + n)),
         "ortho SSR march+HBAO+FXAA", HBAO_TRAA_FRAMES,
         ("ray_march", "hbao", "poisson", "poisson_1tex", "minmax",
-         "warp_catrom5", "zscan", "lookup", "reproject_1slot"), smi,
+         "warp_catrom5", "zscan", "lookup", "reproject_1slot", "shade"), smi,
         forbidden=("sweep", "sweep_1ray", "poisson_2tex", "warp_bilinear"))
     del comp
     comp, cam, mixer = analytic.gltf_alpha_msaa_composer(HEIGHT, WIDTH, "cuda")
@@ -1824,7 +1892,14 @@ def main() -> int:
         "glTF alpha + MSAA 2x", HBAO_TRAA_FRAMES,
         ("zscan_peels", "lookup", "hbao", "poisson", "minmax", "warp_catrom5",
          "warp_nearest", "reproject_1slot"), smi,
-        forbidden=("zscan", "sweep", "sweep_1ray", "ray_march"))
+        forbidden=("zscan", "sweep", "sweep_1ray", "ray_march", "shade"))
+    frames_by_path = {"ssgi_hbao_traa": FRAMES, "flagship": FRAMES}
+    for path, counts in by_path.items():
+        n = frames_by_path.get(path, HBAO_TRAA_FRAMES)
+        ssgi_passes = 0 if counts["shade"] == 0 else n
+        print(f"[path] {path}: shade launches {counts['shade']} over {n} frames", flush=True)
+        if counts["shade"] != ssgi_passes:
+            raise AssertionError(f"{path}: {counts['shade']} shade launches over {n} frames")
     per_frame = by_path["gltf_alpha_msaa"]["zscan_peels"] / HBAO_TRAA_FRAMES
     print(f"[path] glTF alpha + MSAA 2x: zscan_peels launches a frame {per_frame}",
           flush=True)
@@ -1836,12 +1911,14 @@ def main() -> int:
     home = {"sharpness": "demo_stack", "warp_multi": "hbao_traa_unfused",
             "poisson_taps": "hbao_traa_unfused", "sweep_1ray": "ssr_gtao_taa",
             "poisson_1tex": "ssr_gtao_taa", "zscan_peels": "gltf_alpha_msaa",
-            "ray_march": "flagship_march", "motion_blur_taps": "flagship_march"}
+            "ray_march": "flagship_march", "motion_blur_taps": "flagship_march",
+            "shade_march": "flagship_march"}
     for kern in kernels:
         path = home.get(kern["name"], "flagship")
-        kern["launches"] = by_path[path][kern["name"]]
+        key = kern.get("census", kern["name"])
+        kern["launches"] = by_path[path][key]
         kern["launches_path"] = path
-        kern["launches_by_path"] = {p: c[kern["name"]] for p, c in by_path.items()}
+        kern["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         if kern["launches"] <= 0:
             raise AssertionError(f"{kern['name']} launched on no path")
 

@@ -28,7 +28,7 @@ from ..core.math3d import (dot, luminance, mix, normalize, smoothstep,
 from ..core.rng import blue_noise_image, blue_noise_transform
 from ..core.sampling import sample_bilinear, sample_nearest
 from ..parallel.sharding import replicate_for_rolls
-from . import march_kernel
+from . import march_kernel, shade_kernel
 from .ssgi_sweep import (MIN_RADIUS, march_inputs, step_table, sweep_ray_march,
                          sweep_results)
 from .sweep_kernel import sweep_march
@@ -349,7 +349,19 @@ def _shade(p: dict, traces, velocity_tex, accumulated, direct_light, env, cam,
     """`ssgi.frag:241-308` after the trace: each ray's radiance (the
     march's from ``velocity_tex`` and ``accumulated`` at its hit, read
     anywhere in the frame; the sweep's from its trace), environment
-    fallback, brdf / pdf / MIS weighting, and the two packed outputs."""
+    fallback, brdf / pdf / MIS weighting, and the two packed outputs.
+    CUDA tensors launch ``csrc/shade.cu``'s ``shade_kernel``
+    (``ops/shade_kernel.py``); CPU tensors take :func:`_shade_plain`."""
+    if p["depth"].device.type == "cpu":
+        return _shade_plain(p, traces, velocity_tex, accumulated, direct_light,
+                            env, cam, frame, cfg, env_blur)
+    return shade_kernel.shade(p, traces, velocity_tex, accumulated, direct_light,
+                              env, cam, frame, cfg, env_blur)
+
+
+def _shade_plain(p: dict, traces, velocity_tex, accumulated, direct_light, env,
+                 cam, frame: int, cfg: SSGIConfig, env_blur):
+    """:func:`_shade` as whole-frame torch operations."""
     sweep = cfg.trace == "sweep"
     depth, roughness = p["depth"], p["roughness"]
     metalness, diffuse = p["metalness"], p["diffuse"]

@@ -12,7 +12,10 @@ blur's accumulate pass and its taps are bit-identical (same operations
 in the same order, no contraction but the explicit ``fmaf``:
 ``-ffp-contract=off`` as ``-fmad=false`` on the card); HBAO
 and Poisson agree to 2e-5, the gap
-between glibc's and PyTorch's sin/cos/exp/log. The per-pixel ray march
+between glibc's and PyTorch's sin/cos/exp/log. SSGI's shade kernel is
+bit-identical against its plain route run with glibc's atan2f, acosf,
+sqrtf and powf (its libm calls, the host build's), and within 2e-5
+(1e-5 relative) with PyTorch's own, the same gap. The per-pixel ray march
 is bit-identical against its plain route run with glibc's ``expf`` (its
 one libm call, the host build's); with PyTorch's own ``exp``, which
 differs from glibc's by an ulp in about 1% of arguments, an ulp moves a
@@ -44,8 +47,8 @@ from realism_effects_tpu_torch.core import math3d
 from realism_effects_tpu_torch.ops import (cuda_build, hbao_kernel,
                                            march_kernel, motion_blur,
                                            poisson_kernel, poisson_taps,
-                                           raster_kernel, ssgi, ssgi_sweep,
-                                           stencil, sweep_kernel,
+                                           raster_kernel, shade_kernel, ssgi,
+                                           ssgi_sweep, stencil, sweep_kernel,
                                            table_kernel, warp)
 from realism_effects_tpu_torch.scene import rasterizer
 from realism_effects_tpu_torch.ops.ao import AOConfig
@@ -987,7 +990,7 @@ def test_ray_march_source_against_aten_exp(host_kernels):
     ("hbao", "re_hbao_noise"),
     ("stencil", "re_sharpness"), ("warp", "re_warp_multi"),
     ("sweep", "re_ray_march"), ("motion_blur", "re_motion_blur_taps"),
-    ("reproject", "re_reproject")])
+    ("reproject", "re_reproject"), ("shade", "re_shade")])
 def test_raster_sources_are_listed(name, entry):
     """The kernels of the raster slice, the demo stack, the unfused route,
     HBAO's noise table and the reprojection are built with the others and
@@ -1178,6 +1181,167 @@ def test_reproject_source_against_aten(host_kernels, case):
                                    atol=2e-5)
 
 
+SHADE_H, SHADE_W = 37, 61   # odd: the shared environment quads clamp at the frame's edge
+SHADE_FRAME = 7             # the quads' fetched member (1, 1) at stride 2
+SHADE_ROWS = (13, SHADE_H)  # a row block that ends at the frame's last row
+
+#: (trace, SSGIConfig changes, row block): the sweep's and the march's
+#: shade over the same frame; ``-row-block`` the rows of SHADE_ROWS with
+#: the split frame's halo of ``env_fetch_stride - 1`` rows each side
+SHADE_CASES = {
+    "sweep": ("sweep", {}, False),
+    "sweep-ssr": ("sweep", dict(mode="ssr"), False),
+    "sweep-missed-rays": ("sweep", dict(missed_rays=True), False),
+    "sweep-no-env": ("sweep", dict(importance_sampling=False), False),
+    "sweep-env-box": ("sweep", dict(env_box=((6.0, 4.0, 5.0), (0.5, 1.0, -0.5))), False),
+    "sweep-row-block": ("sweep", {}, True),
+    "sweep-stride-1": ("sweep", dict(env_fetch_stride=1, env_lum_clamp=False,
+                                     use_direct_light=False), False),
+    "march": ("march", {}, False),
+    "march-ssr": ("march", dict(mode="ssr"), False),
+    "march-missed-rays": ("march", dict(missed_rays=True), False),
+    "march-no-env": ("march", dict(importance_sampling=False), False),
+    "march-env-box": ("march", dict(env_box=((6.0, 4.0, 5.0), (0.5, 1.0, -0.5))), False),
+    "march-row-block": ("march", {}, True),
+}
+
+
+def _shade_inputs(case):
+    """The arguments of ``ops.ssgi._shade`` in the case ``case``: the
+    analytic scene (sphere, box, plane) at SHADE_H x SHADE_W under the
+    procedural sky, roughness scaled down a ramp so that some pixels
+    pass under the 0.15 of the environment's mip scale, last frame's
+    output random, the traces of ``_setup``'s rays (the sweep's with
+    the prewarped radiance). ``-no-env``: no environment (nor its
+    importance sampling)."""
+    from realism_effects_tpu_torch.core.envmap import build_equirect_env, procedural_sky
+
+    trace, changes, block = SHADE_CASES[case]
+    h, w = SHADE_H, SHADE_W
+    cam = PerspectiveCamera(50, w / h, 0.1, 100)
+    gb, vel, color = analytic.frames_at(cam, [3], h, w, "cpu", sphere=True)[0]
+    ramp = torch.linspace(0.1, 1.0, w)[None, :].expand(h, w)
+    gb = gb.replace(roughness=gb.roughness * ramp)
+    m = cam.matrices()
+    env = (None if case.endswith("-no-env")
+           else build_equirect_env(procedural_sky(64, 128), device="cpu"))
+    cfg = ssgi.SSGIConfig(trace=trace, **changes)
+    acc = torch.rand((h, w, 4), generator=torch.Generator().manual_seed(1)) * 2.0
+    p = ssgi._setup(gb, env, m, SHADE_FRAME, cfg)
+    if trace == "sweep":
+        traces = ssgi_sweep.sweep_ray_march(
+            p["view_pos"], p["rays"], gb.depth, m, SHADE_FRAME, 10.0, 10.0,
+            bin_noise=ssgi._bin_noise(p, SHADE_FRAME),
+            radiance=ssgi._prewarp(acc, vel, p["uv"]), miss_radiance=cfg.missed_rays)
+    else:
+        traces = [ssgi.view_space_ray_march_plain(p["view_pos"], ray, gb.depth, m, p["r3"],
+                                                  10.0, 10.0, cfg) for ray in p["rays"]]
+    if block:
+        halo = cfg.env_fetch_stride - 1
+        r0, r1 = SHADE_ROWS
+        idx = torch.arange(r0 - halo, r1 + halo).clamp(0, h - 1)
+        gb = GBuffer(**{f.name: getattr(gb, f.name)[idx]
+                        for f in dataclasses.fields(gb) if getattr(gb, f.name) is not None})
+        p = ssgi._setup(gb, env, m, SHADE_FRAME, cfg, r0 - halo, h)
+        traces = [tuple(t[idx] for t in tr) for tr in traces]
+        color = color[idx]
+    vel_tex, acc_tex = (None, None) if trace == "sweep" else (vel.velocity, acc)
+    return p, traces, vel_tex, acc_tex, color, env, m, SHADE_FRAME, cfg, 0.5
+
+
+def _shade_case(case, plain=None):
+    """(kernel, plain) results of the case ``case``: ``ops/shade_kernel.py``
+    and ``_shade_plain``, the latter inside ``plain`` (a context) where
+    given; one torch thread (the frame's few thousand pixels run ten
+    times slower split over a loaded machine's threads)."""
+    import contextlib
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        args = _shade_inputs(case)
+        got = shade_kernel.shade(*args)
+        with plain or contextlib.nullcontext():
+            want = ssgi._shade_plain(*args)
+    finally:
+        torch.set_num_threads(n)
+    return got, want, args
+
+
+@pytest.fixture
+def glibc_shade(monkeypatch):
+    """A context in which ``torch.atan2``, ``torch.acos``, ``torch.sqrt``
+    and a tensor's ``**`` by a host scalar go through the C library's
+    ``atan2f``, ``acosf``, ``sqrtf`` and ``powf``, the ones the host build
+    of the sources calls (the powers ATen takes otherwise keep its own
+    route, as in ``glibc_libm``)."""
+    import contextlib
+
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name, n in (("atan2f", 2), ("acosf", 1), ("powf", 2), ("sqrtf", 1)):
+        getattr(libm, name).restype = ctypes.c_float
+        getattr(libm, name).argtypes = [ctypes.c_float] * n
+
+    def elementwise(f, *ts, args=()):
+        ts = torch.broadcast_tensors(*ts)
+        flat = [t.contiguous().numpy().reshape(-1) for t in ts]
+        out = np.array([f(*(float(a[k]) for a in flat), *args) for k in range(flat[0].size)],
+                       np.float32)
+        return torch.from_numpy(out.reshape(ts[0].shape))
+
+    pow_ = torch.Tensor.__pow__
+
+    @contextlib.contextmanager
+    def patch():
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "atan2", lambda a, b: elementwise(libm.atan2f, a, b))
+            mp.setattr(torch, "acos", lambda t: elementwise(libm.acosf, t))
+            mp.setattr(torch, "sqrt", lambda t: elementwise(libm.sqrtf, t))
+            mp.setattr(torch.Tensor, "__pow__", lambda t, e: (
+                pow_(t, e) if float(e) in (0.0, 1.0, 0.5, 2.0, 3.0)
+                else elementwise(libm.powf, t, args=(float(e),))))
+            yield
+    return patch
+
+
+#: with PyTorch's own atan2, acos, sqrt and pow in the plain route: the
+#: gap allowed (measured over SHADE_CASES: at most 9.5e-7, 1.1e-6
+#: relative; an ulp of atan2 or acos could move an environment fetch to
+#: the next texel, which these inputs do not)
+SHADE_ATEN_RTOL, SHADE_ATEN_ATOL = 1e-5, 2e-5
+
+
+@pytest.mark.parametrize("libm", ["glibc", "aten"])
+@pytest.mark.parametrize("case", list(SHADE_CASES))
+def test_shade_source(host_kernels, glibc_shade, case, libm):
+    """The shade kernel equals ``_shade_plain`` bit for bit, both with
+    glibc's atan2f, acosf, sqrtf and powf (``glibc``), or within
+    SHADE_ATEN_RTOL / SHADE_ATEN_ATOL of it with PyTorch's own in the
+    plain route (``aten``); over background pixels, hits and misses,
+    diffuse and specular samples, environment samples and (the sweep)
+    radiance valid and not; the diffuse output's -1 mark where no
+    diffuse sample was taken."""
+    got, want, args = _shade_case(case, glibc_shade() if libm == "glibc" else None)
+    for g, w_ in zip(got, want, strict=True):
+        if libm == "glibc":
+            assert torch.equal(g, w_)
+        else:
+            np.testing.assert_allclose(g, w_, rtol=SHADE_ATEN_RTOL, atol=SHADE_ATEN_ATOL)
+    p, traces, cfg = args[0], args[1], args[8]
+    fg = p["depth"] < 1.0
+    assert bool((~fg).any()) and bool(fg.any())
+    for tr in traces:
+        missed = tr[2][fg]
+        assert bool(missed.any()) and bool((~missed).any())
+    if args[5] is not None:
+        assert bool(p["is_env_sample"][fg].any())
+    ids = p["is_diffuse_sample"][fg]
+    marked = (want[0][..., :3] == -1.0).all(-1)[fg]
+    if cfg.mode == "ssgi":
+        assert bool(ids.any()) and torch.equal(marked, ~ids)
+    else:
+        assert bool(marked.all())
+
 def _census_calls(module, monkeypatch):
     """The host-built launches of the ``ops`` module ``module``: (call,
     the census it leaves), a launch a call but where the census says
@@ -1238,6 +1402,10 @@ def _census_calls(module, monkeypatch):
         cfg, rays = _march_args("persp", "ssgi", 5, None, 10.0)
         return [(lambda a=a: march_kernel.launch(*a, cfg.steps, cfg.refine_steps),
                  {"ray_march": 1}) for a in rays]
+    if module == "shade_kernel":
+        # a shade pass launches the kernel once, either trace mode
+        return [(lambda case=case: _shade_case(case), {"shade": 1})
+                for case in ("sweep", "march")]
     assert module == "reproject_kernel"
     # a reprojection launches the prepare kernel and the blend, counted
     # by slots (the fetches between them take their plain versions here)
@@ -1248,7 +1416,8 @@ def _census_calls(module, monkeypatch):
 
 @pytest.mark.parametrize("module", [
     "warp", "stencil", "hbao_kernel", "poisson_kernel", "poisson_taps", "sweep_kernel",
-    "raster_kernel", "table_kernel", "motion_blur", "march_kernel", "reproject_kernel"])
+    "raster_kernel", "table_kernel", "motion_blur", "march_kernel", "reproject_kernel",
+    "shade_kernel"])
 def test_launch_census(host_kernels, monkeypatch, module):
     """Each host-built launch of a module's kernels adds 1 to its key of
     the launch census (``launches`` of ``ops/cuda_build.py``) and nothing
