@@ -17,8 +17,8 @@ size, once the window has closed and the program is freed:
 
 Each frame compares the image ``render`` returned and every leaf of the
 temporal state carried to the next frame: SSGI's two denoised histories
-and composed output, TRAA's history and the raster's velocity buffer
-(velocity, depth, normals). See :func:`numbers` for what is compared.
+(SSR's one) and composed output, TRAA's history, TAA's accumulation and
+the raster's velocity buffer (velocity, depth, normals). See :func:`numbers` for what is compared.
 
 ``stages``: the frozen copy shares the port's glue, so on the last
 warm-up frame of ``start`` each stage's inputs and outputs in the copy
@@ -105,6 +105,7 @@ def numbers(prog: dict, ref: dict) -> tuple:
 #: (the option, read from the effect, and the mode whose reference keeps
 #: the stage's own name)}
 MODES = {"ssgi_trace": (lambda effect: effect.cfg.trace, "sweep"),
+         "ssr_trace": (lambda effect: effect.cfg.trace, "sweep"),
          "motion_blur": (lambda effect: effect.mode, "sweep")}
 
 
@@ -113,8 +114,9 @@ class Recorder:
     ``comp``: {effect name: {"ctx", "color", "state", "out", "effect",
     "mode"}} of the last frame rendered, ``effect`` the stage's effect
     and ``mode`` its mode where :data:`MODES` names the stage (else
-    None). SSGI's trace outputs go under its ``"trace"``, and the trace
-    is recorded as a stage of its own, ``ssgi_trace``, whose output is
+    None). SSGI's and SSR's trace outputs go under its ``"trace"``, and
+    the trace is recorded as a stage of its own, ``<stage>_trace``
+    (``ssgi_trace``, ``ssr_trace``), whose output is
     (g_diffuse, {"specular": g_specular}); the raster and shade as
     ``raster``, with the scene, matrices, cameras and environment it was
     given, its output (lit colour, {"gbuffer", "velocity"})."""

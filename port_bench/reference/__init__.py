@@ -3,8 +3,9 @@
 ``port/`` is a frozen copy of the port's plain route on one device: the
 modules of ``realism_effects_tpu_torch`` that the flagship and HBAO +
 TRAA stacks run (composer, core, effects, ops, scene), as they stood
-when this benchmark was written, with their relative imports kept inside
-the copy. What makes it plain and free of the program:
+when this benchmark was written, and TAA (``effects/taa.py``), with
+their relative imports kept inside the copy. What makes it plain and
+free of the program:
 
 - every kernel wrapper is its plain PyTorch body alone; the launches,
   the row-sharded (split-frame) route, the state's save and load and the
@@ -14,7 +15,10 @@ the copy. What makes it plain and free of the program:
   luminance, sums in order), not by that library;
 - SSGI's trace is an attribute of the effect (``SSGIEffect.trace``), so
   that the check can record it and the control can lower it;
-- the package's ``__init__`` exports only what the benchmark builds.
+- the package's ``__init__`` exports only what the benchmark builds: the
+  scene, camera, environment and composer, and the effects
+  ``SSGIEffect``, ``SSREffect``, ``HBAOEffect``, ``GTAOEffect``,
+  ``MotionBlurEffect``, ``TRAAEffect`` and ``TAAPass``.
 
 The copy shares the port's glue, so it is itself held to ``stages/``:
 independent per-pixel references of each stage, which share no code

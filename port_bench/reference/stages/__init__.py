@@ -11,15 +11,18 @@ inputs, and compares the two outputs: a fault in the port's glue that
 the copy carries shows as a gap there.
 
 A module is chosen by the stage's name and mode (``check.MODES``):
-``<stage>.py`` serves the stage in its default mode (SSGI's sweep
-trace, ``ssgi_trace.py``; motion blur's sweep, ``motion_blur.py``) and
-in a stage that has no modes, ``<stage>_<mode>.py`` in another
+``<stage>.py`` serves the stage in its default mode (SSGI's and SSR's
+sweep traces, ``ssgi_trace.py`` and ``ssr_trace.py``; motion blur's
+sweep, ``motion_blur.py``) and in a stage that has no modes,
+``<stage>_<mode>.py`` in another
 (``ssgi_trace_march.py``, ``motion_blur_taps.py``). A stage in a mode
 that has no module, where its default mode has one, stops the check.
 
 Each module defines ``step(record) -> (image, state)``; a record holds
 the stage's ``ctx`` (the frame context), ``color`` (its input image),
 ``state`` (its state before the frame), ``effect`` (the stage's effect,
-for its static options), ``mode`` and, for SSGI, ``trace`` (the trace's
-two outputs, which the module of SSGI after its trace takes as given).
+for its static options), ``mode`` and, for SSGI and SSR, ``trace`` (the
+trace's two outputs, which the module of the effect after its trace
+takes as given). The trace, SSR and GTAO modules stop the check on an
+option of their effect that they do not follow.
 """

@@ -52,12 +52,21 @@ def ao(depth, normal, cam, frame: int):
     return torch.where(depth >= 1.0, 1.0, a)
 
 
-def step(rec):
+def denoise_compose(rec, a):
+    """`AOEffect.js`'s pass after the AO ``a``: the Poisson denoise of the
+    AO slot with the G-buffer's normals (normal phi 3.25), then
+    ``color * ao^power`` where the depth is in front of 0.9999
+    (`ao_compose.frag`; the default black AO colour)."""
     ctx, color = rec["ctx"], rec["color"]
     gb = ctx.gbuffer
-    a = ao(gb.depth, gb.normal, ctx.unjittered_cam, ctx.frame_index)
     tex = torch.cat([a[..., None].expand(*a.shape, 3), torch.zeros_like(a)[..., None]], -1)
     (d,) = denoise([tex], gb, ctx.frame_index, DENOISE, (False,))
     a = torch.clamp(d[..., 0], 0.0, 1.0)
-    a = torch.where(gb.depth > 0.9999, 1.0, a) ** ctx.params["hbao"]["power"]
+    a = torch.where(gb.depth > 0.9999, 1.0, a) ** ctx.params[rec["effect"].name]["power"]
     return color * a[..., None], rec["state"]
+
+
+def step(rec):
+    ctx = rec["ctx"]
+    gb = ctx.gbuffer
+    return denoise_compose(rec, ao(gb.depth, gb.normal, ctx.unjittered_cam, ctx.frame_index))

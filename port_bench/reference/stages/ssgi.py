@@ -24,8 +24,10 @@ DENOISE = dict(radius=3.0, phi=0.5, luma_phi=5.0, depth_phi=2.0, normal_phi=50.0
                roughness_phi=50.0, specular_phi=50.0)
 
 
-def compose_gi(diffuse_gi, specular_gi, gb, cam):
-    """`denoiser_compose.frag`; the background keeps the diffuse input."""
+def fresnel(gb, cam):
+    """`denoiser_compose_functions.glsl`'s accumulated Fresnel: Schlick's
+    F of the half vector of a GGX-VNDF sample at (0.25, 0.25) about the
+    squared roughness, mirrored into the normal's hemisphere."""
     depth = gb.depth
     h, w = depth.shape
     uv = uv_grid(h, w, depth.device)
@@ -56,10 +58,16 @@ def compose_gi(diffuse_gi, specular_gi, gb, cam):
     hv = normalize(v_view + l_view)
     voh = torch.clamp(dot(v_view, hv), min=1e-5)
     f0 = mix(torch.full_like(albedo, 0.04), albedo, metal[..., None])
-    fres = f0 + (1.0 - f0) * ((1.0 - voh) ** 5.0)[..., None]
+    return f0 + (1.0 - f0) * ((1.0 - voh) ** 5.0)[..., None]
+
+
+def compose_gi(diffuse_gi, specular_gi, gb, cam):
+    """`denoiser_compose.frag`; the background keeps the diffuse input."""
+    fres = fresnel(gb, cam)
+    metal, albedo = gb.metalness, gb.diffuse[..., :3]
     gi = (albedo * (1.0 - metal[..., None]) * (1.0 - fres) * diffuse_gi[..., :3]
           + specular_gi[..., :3] * fres + gb.emissive)
-    return torch.where((depth >= 1.0)[..., None], diffuse_gi[..., :3], gi)
+    return torch.where((gb.depth >= 1.0)[..., None], diffuse_gi[..., :3], gi)
 
 
 def step(rec):

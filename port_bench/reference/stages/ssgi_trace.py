@@ -14,7 +14,11 @@ environment fetched once per 2 x 2 quad at the member the frame picks,
 at the nearest mip. Written here as each pixel's own 32 steps.
 
 The environment's prepared tables (its mip levels and the precomposed
-inverse-CDF table, ``ctx.env``) are taken as given inputs.
+inverse-CDF table, ``ctx.env``) are taken as given inputs. The sample
+before the trace (:func:`sample`, :func:`choose_rays`) and the shading
+after it (:func:`shade`, :func:`pack`) serve SSR's trace
+(``ssr_trace.py``) and the march (``ssgi_trace_march.py``) too; options
+the references do not follow stop the check (:func:`refuse_options`).
 """
 
 from __future__ import annotations
@@ -191,10 +195,29 @@ def _smoothstep(e0, e1, x):
     return t * t * (3.0 - 2.0 * t)
 
 
-def step(rec):
-    ctx, color, state = rec["ctx"], rec["color"], rec["state"]
-    u = ctx.params["ssgi"]
-    gb, cam, env, frame = ctx.gbuffer, ctx.cam, ctx.env, ctx.frame_index
+def refuse_options(effect, **followed):
+    """Stop on an option of ``effect`` that the trace references do not
+    follow: they follow the defaults below, and ``followed`` as given."""
+    cfg = effect.cfg
+    given = dict(mode=cfg.mode, trace=cfg.trace, missed_rays=cfg.missed_rays,
+                 importance_sampling=cfg.importance_sampling,
+                 env_lum_clamp=cfg.env_lum_clamp, use_direct_light=cfg.use_direct_light,
+                 env_box=cfg.env_box, resolution_scale=effect.resolution_scale,
+                 sweep_dirs=cfg.sweep_dirs, sweep_steps=cfg.sweep_steps,
+                 env_fetch_stride=cfg.env_fetch_stride)
+    want = dict(missed_rays=False, importance_sampling=True, env_lum_clamp=True,
+                use_direct_light=True, env_box=None, resolution_scale=1.0, **followed)
+    other = {k: given[k] for k, v in want.items() if given[k] != v}
+    if other:
+        raise NotImplementedError(f"the trace reference follows no {other}")
+
+
+def sample(ctx, ssr: bool) -> dict:
+    """`ssgi.frag:120-190`, per pixel: the view and world frame, the
+    frame's blue noise (r1-r4), the GGX-VNDF reflection ``l_view`` and the
+    choice of a diffuse sample. SSR (``ssr``; `SSREffect.js:3-9`) draws
+    none: every pixel takes the specular branch."""
+    gb, cam, frame = ctx.gbuffer, ctx.cam, ctx.frame_index
     depth, rough, metal = gb.depth, gb.roughness, gb.metalness
     albedo = gb.diffuse[..., :3]
     h, w = depth.shape
@@ -212,13 +235,11 @@ def step(rec):
         vz], -1)
     n_world = gb.normal
     n = normalize(rotate_t(cam.camera_matrix_world, n_world))
-    world_pos = point(cam.camera_matrix_world, view_pos)
     v = -normalize(view_pos)
     nov = torch.clamp(dot(n, v), min=EPS)
     t_w, b_w = onb(n_world)
     v_world = rotate_t(cam.view_matrix, v)
     v_loc = torch.stack([dot(v_world, t_w), dot(v_world, b_w), dot(v_world, n_world)], -1)
-    f0 = mix(torch.full_like(albedo, 0.04), albedo, metal[..., None])
     r1, r2, r3, r4 = blue_noise(h, w, frame, dev).unbind(-1)
     hl = ggx_vndf(v_loc, r_sq, r1, r2)
     hl = torch.where(hl[..., 2:3] < 0.0, -hl, hl)
@@ -226,67 +247,123 @@ def step(rec):
     l_loc = normalize(i - 2.0 * dot(hl, i)[..., None] * hl)
     l_world = l_loc[..., 0:1] * t_w + l_loc[..., 1:2] * b_w + l_loc[..., 2:3] * n_world
     l_view = normalize(rotate_t(cam.camera_matrix_world, l_world))
-    voh = _angles(l_view, v, n)[3]
-    fres = f0 + (1.0 - f0) * ((1.0 - voh) ** 5.0)[..., None]
-    diff_w = torch.clamp((1.0 - metal) * luminance(albedo), min=EPS)
-    spec_w = torch.clamp(luminance(fres), min=EPS)
-    is_diffuse = r3 < diff_w * (1.0 / (diff_w + spec_w))
-    # environment importance sample from the precomposed inverse CDF
-    eh, ew = env.mips[0].shape[0], env.mips[0].shape[1]
-    t = bilinear(env.cdf_packed.float(), torch.stack([r2, r1], -1))
-    env_pdf = (ew * eh) * (t[..., 2] / float(env.total_sum))
-    env_dir = normalize(rotate_t(cam.camera_matrix_world, _equirect_dir(t[..., 0:2])))
-    prob = torch.clamp(dot(env_dir, n) * rough, max=1.0 - EPS)
-    is_env = r4 < prob
-    ems_pdf = torch.clamp(torch.where(is_env, env_pdf / torch.clamp(1.0 - prob, min=EPS),
-                                      1.0 - prob), min=EPS)
-    cos_hemi = cosine_hemisphere(n, torch.stack([r1, r2], -1))
-    rays = [torch.where(is_env[..., None], env_dir, l_view),
-            torch.where(is_env[..., None], env_dir, cos_hemi)]
-    rad = _prewarp(state["composed"], ctx.velocity.velocity, uv)
-    bin_noise = blue_noise(h, w, frame + 2048, dev)[..., 0]
-    z_full = view_z(depth, cam)
-    tab = _table(h, w, frame)
+    if ssr:
+        is_diffuse = torch.zeros_like(depth, dtype=torch.bool)
+    else:
+        f0 = mix(torch.full_like(albedo, 0.04), albedo, metal[..., None])
+        voh = _angles(l_view, v, n)[3]
+        fres = f0 + (1.0 - f0) * ((1.0 - voh) ** 5.0)[..., None]
+        diff_w = torch.clamp((1.0 - metal) * luminance(albedo), min=EPS)
+        spec_w = torch.clamp(luminance(fres), min=EPS)
+        is_diffuse = r3 < diff_w * (1.0 / (diff_w + spec_w))
     sat_mx, sat_mn = albedo.max(-1).values, albedo.min(-1).values
     sat = torch.where(sat_mx == sat_mn, 0.0, (sat_mx - sat_mn) / torch.clamp(sat_mx, min=EPS))
-    desat = (1.0 - rough) * sat * 0.4
-    out = []
-    for l in rays:
-        c_uv, pos, missed, gi = _sweep(view_pos, l, z_full, rad, cam, frame, u["thickness"],
-                                       u["ray_distance"], bin_noise, tab)
-        nol, noh, loh, _ = _angles(l, v, n)
-        cos_t = torch.clamp(dot(n, l), min=0.0)
-        fd90 = 0.5 + 2.0 * r_sq * loh ** 2.0
-        f_l = 1.0 + (fd90 - 1.0) * (1.0 - nol) ** 5.0
-        f_v = 1.0 + (fd90 - 1.0) * (1.0 - nov) ** 5.0
-        d_brdf = (f_l * f_v / PI) * (1.0 - metal)
-        g = _smith_g(nov, ((0.5 + r_sq * 0.5) ** 2.0) ** 2.0) * \
-            _smith_g(nol, ((0.5 + r_sq * 0.5) ** 2.0) ** 2.0)
-        s_brdf = _d_gtr(r_sq, noh) * g / (4.0 * nol * nov)
-        s_pdf = _d_gtr(r_sq, noh) * _smith_g(nov, r_sq * r_sq) / torch.clamp(4.0 * nov, min=1e-5)
-        bsdf = torch.where(is_diffuse, d_brdf, s_brdf) * cos_t
-        pdf = torch.clamp(torch.where(is_diffuse, nol / PI, s_pdf), min=EPS)
-        env_c = _env_color(env, l, cam, rough, is_diffuse, is_env, u["env_blur"], frame)
-        reproj = gi[..., :3]
-        reproj = mix(reproj, luminance(reproj)[..., None], desat[..., None])
-        bf = (_smoothstep(0.0, 0.15, c_uv[..., 0]) * _smoothstep(1.0, 0.85, c_uv[..., 0])
-              * _smoothstep(0.0, 0.15, c_uv[..., 1]) * _smoothstep(1.0, 0.85, c_uv[..., 1]))
-        bf = torch.sqrt(torch.clamp(bf, min=0.0))
-        radiance = torch.where((gi[..., 3] > 0.5)[..., None], mix(env_c, reproj, bf[..., None]),
-                               env_c)
-        val = torch.where(missed[..., None], env_c, radiance) * bsdf[..., None]
-        mis = ems_pdf * ems_pdf / (ems_pdf * ems_pdf + pdf * pdf)
-        val = val * (torch.where(is_env, mis, 1.0 / pdf) / ems_pdf)[..., None]
-        out.append((val, pos, missed))
-    (spec, s_pos, s_missed), (diff, _, _) = out
-    diff = torch.where(is_diffuse[..., None], diff + color, -1.0)
+    return dict(ssr=ssr, depth=depth, rough=rough, metal=metal, uv=uv, r_sq=r_sq, vz=vz,
+                view_pos=view_pos, n=n, v=v, nov=nov, r1=r1, r2=r2, r3=r3, r4=r4,
+                l_view=l_view, is_diffuse=is_diffuse, desat=(1.0 - rough) * sat * 0.4)
+
+
+def choose_rays(s: dict, env_pdf, env_dir) -> list:
+    """`ssgi.frag:191-240`: the environment's importance sample (its pdf
+    and view direction) taken against roughness, and the MIS pdf, both
+    recorded in ``s`` (``is_env``, ``ems_pdf``); returns the rays:
+    [specular] in SSR, [specular, diffuse (cosine)] in SSGI."""
+    prob = torch.clamp(dot(env_dir, s["n"]) * s["rough"], max=1.0 - EPS)
+    is_env = s["r4"] < prob
+    s["is_env"] = is_env
+    s["ems_pdf"] = torch.clamp(torch.where(is_env, env_pdf / torch.clamp(1.0 - prob, min=EPS),
+                                           1.0 - prob), min=EPS)
+    rays = [torch.where(is_env[..., None], env_dir, s["l_view"])]
+    if not s["ssr"]:
+        cos_hemi = cosine_hemisphere(s["n"], torch.stack([s["r1"], s["r2"]], -1))
+        rays.append(torch.where(is_env[..., None], env_dir, cos_hemi))
+    return rays
+
+
+def shade(s: dict, l, c_uv, missed, env_c, reproj, inside):
+    """`ssgi.frag:362-439` and `:252-259` for one ray: the Disney diffuse
+    or specular BRDF and its pdf, the hit's radiance ``reproj`` (where
+    ``inside``) desaturated and faded into the environment ``env_c`` at
+    the border of ``c_uv``, the environment on a miss, weighted by brdf
+    / pdf and MIS."""
+    r_sq, nov, is_diffuse = s["r_sq"], s["nov"], s["is_diffuse"]
+    nol, noh, loh, _ = _angles(l, s["v"], s["n"])
+    cos_t = torch.clamp(dot(s["n"], l), min=0.0)
+    fd90 = 0.5 + 2.0 * r_sq * loh ** 2.0
+    f_l = 1.0 + (fd90 - 1.0) * (1.0 - nol) ** 5.0
+    f_v = 1.0 + (fd90 - 1.0) * (1.0 - nov) ** 5.0
+    d_brdf = (f_l * f_v / PI) * (1.0 - s["metal"])
+    g = _smith_g(nov, ((0.5 + r_sq * 0.5) ** 2.0) ** 2.0) * \
+        _smith_g(nol, ((0.5 + r_sq * 0.5) ** 2.0) ** 2.0)
+    s_brdf = _d_gtr(r_sq, noh) * g / (4.0 * nol * nov)
+    s_pdf = _d_gtr(r_sq, noh) * _smith_g(nov, r_sq * r_sq) / torch.clamp(4.0 * nov, min=1e-5)
+    bsdf = torch.where(is_diffuse, d_brdf, s_brdf) * cos_t
+    pdf = torch.clamp(torch.where(is_diffuse, nol / PI, s_pdf), min=EPS)
+    reproj = mix(reproj, luminance(reproj)[..., None], s["desat"][..., None])
+    bf = (_smoothstep(0.0, 0.15, c_uv[..., 0]) * _smoothstep(1.0, 0.85, c_uv[..., 0])
+          * _smoothstep(0.0, 0.15, c_uv[..., 1]) * _smoothstep(1.0, 0.85, c_uv[..., 1]))
+    bf = torch.sqrt(torch.clamp(bf, min=0.0))
+    radiance = torch.where(inside[..., None], mix(env_c, reproj, bf[..., None]), env_c)
+    val = torch.where(missed[..., None], env_c, radiance) * bsdf[..., None]
+    ems_pdf = s["ems_pdf"]
+    mis = ems_pdf * ems_pdf / (ems_pdf * ems_pdf + pdf * pdf)
+    return val * (torch.where(s["is_env"], mis, 1.0 / pdf) / ems_pdf)[..., None]
+
+
+def pack(s: dict, color, cam, out):
+    """`ssgi.frag:267-308`: the direct light ``color`` added, the diffuse
+    output -1 where no diffuse sample was drawn, the specular ray's
+    world length (0 on a miss), the background the direct light; ``out``
+    is [(value, view-space hit)] by ray. Returns (g_diffuse, {"specular":
+    g_specular})."""
+    (spec, s_pos) = out[0]
+    if s["ssr"]:
+        diff = torch.full_like(spec, -1.0)
+    else:
+        diff = torch.where(s["is_diffuse"][..., None], out[1][0] + color, -1.0)
     spec = spec + color
     hit_ws = point(cam.camera_matrix_world, s_pos)
-    cam_pos = torch.as_tensor(cam.position, device=dev)
+    cam_pos = torch.as_tensor(cam.position, device=spec.device)
     ray_len = torch.where(s_pos[..., 0] > 1.0e8, 0.0,
                           torch.linalg.vector_norm(hit_ws - cam_pos, dim=-1))
+    depth, rough = s["depth"], s["rough"]
     bg = (depth >= 1.0)[..., None]
     back = torch.cat([color, torch.zeros_like(depth)[..., None]], -1)
     g_diffuse = torch.where(bg, back, torch.cat([diff, rough[..., None]], -1))
     g_specular = torch.where(bg, back, torch.cat([spec, ray_len[..., None]], -1))
     return g_diffuse, {"specular": g_specular}
+
+
+def trace(rec, ssr: bool):
+    """The sweep trace of SSGI (both rays) or, with ``ssr``, of SSR (the
+    specular ray): (g_diffuse, {"specular": g_specular})."""
+    ctx, color, state = rec["ctx"], rec["color"], rec["state"]
+    effect = rec["effect"]
+    refuse_options(effect, mode="ssr" if ssr else "ssgi", trace="sweep", sweep_dirs=DIRS,
+                   sweep_steps=STEPS, env_fetch_stride=2)
+    u = ctx.params[effect.name]
+    cam, env, frame = ctx.cam, ctx.env, ctx.frame_index
+    s = sample(ctx, ssr)
+    h, w = s["depth"].shape
+    dev = s["depth"].device
+    # environment importance sample from the precomposed inverse CDF
+    eh, ew = env.mips[0].shape[0], env.mips[0].shape[1]
+    t = bilinear(env.cdf_packed.float(), torch.stack([s["r2"], s["r1"]], -1))
+    env_pdf = (ew * eh) * (t[..., 2] / float(env.total_sum))
+    env_dir = normalize(rotate_t(cam.camera_matrix_world, _equirect_dir(t[..., 0:2])))
+    rays = choose_rays(s, env_pdf, env_dir)
+    rad = _prewarp(state["composed"], ctx.velocity.velocity, s["uv"])
+    bin_noise = blue_noise(h, w, frame + 2048, dev)[..., 0]
+    tab = _table(h, w, frame)
+    out = []
+    for l in rays:
+        c_uv, pos, missed, gi = _sweep(s["view_pos"], l, s["vz"], rad, cam, frame,
+                                       u["thickness"], u["ray_distance"], bin_noise, tab)
+        env_c = _env_color(env, l, cam, s["rough"], s["is_diffuse"], s["is_env"],
+                           u["env_blur"], frame)
+        out.append((shade(s, l, c_uv, missed, env_c, gi[..., :3], gi[..., 3] > 0.5), pos))
+    return pack(s, color, cam, out)
+
+
+def step(rec):
+    return trace(rec, ssr=False)

@@ -38,15 +38,13 @@ effect's own; the environment's mip levels and inverse-CDF lookups
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from .common import (bilinear, blue_noise, cosine_hemisphere, dot, equirect_uv, ggx_vndf,
-                     half, luminance, mix, normalize, onb, point, project, rotate_t,
-                     to_index, uv_grid, view_z)
-from .ssgi_trace import EPS, _angles, _d_gtr, _equirect_dir, _smith_g, _smoothstep
+from .common import (bilinear, equirect_uv, half, luminance, normalize, project, rotate_t,
+                     to_index, view_z)
+from .ssgi_trace import (EPS, _equirect_dir, choose_rays, pack, refuse_options, sample,
+                         shade)
 
 
 def _bilinear2(tex, uv):
@@ -116,61 +114,15 @@ def _env_color(env, l, cam, rough, is_diffuse, is_env, env_blur):
     return out * torch.where(lum > cap, cap / torch.clamp(lum, min=EPS), 1.0)[..., None]
 
 
-def _refuse_options(effect):
-    cfg = effect.cfg
-    given = dict(mode=cfg.mode, missed_rays=cfg.missed_rays,
-                 importance_sampling=cfg.importance_sampling, env_lum_clamp=cfg.env_lum_clamp,
-                 use_direct_light=cfg.use_direct_light, env_box=cfg.env_box,
-                 resolution_scale=effect.resolution_scale)
-    followed = dict(mode="ssgi", missed_rays=False, importance_sampling=True,
-                    env_lum_clamp=True, use_direct_light=True, env_box=None,
-                    resolution_scale=1.0)
-    other = {k: v for k, v in given.items() if v != followed[k]}
-    if other:
-        raise NotImplementedError(f"the march reference follows no {other}")
-
-
 def step(rec):
     ctx, color, state = rec["ctx"], rec["color"], rec["state"]
-    _refuse_options(rec["effect"])
     cfg = rec["effect"].cfg
+    refuse_options(rec["effect"], mode="ssgi", trace="march", sweep_dirs=cfg.sweep_dirs,
+                   sweep_steps=cfg.sweep_steps, env_fetch_stride=cfg.env_fetch_stride)
     u = ctx.params["ssgi"]
-    gb, cam, env, frame = ctx.gbuffer, ctx.cam, ctx.env, ctx.frame_index
-    depth, rough, metal = gb.depth, gb.roughness, gb.metalness
-    albedo = gb.diffuse[..., :3]
-    h, w = depth.shape
-    dev = depth.device
-    uv = uv_grid(h, w, dev)
-    r_sq = torch.clamp(rough * rough, 1e-6, 1.0)
-    vz = view_z(depth, cam)
-    p, pi = cam.projection_matrix, cam.projection_matrix_inverse
-    cw = float(p[3, 2]) * vz + float(p[3, 3])
-    cx, cy = (uv[..., 0] - 0.5) * 2.0 * cw, (uv[..., 1] - 0.5) * 2.0 * cw
-    cz = (vz - 0.5) * 2.0 * cw
-    view_pos = torch.stack([
-        float(pi[0, 0]) * cx + float(pi[0, 1]) * cy + float(pi[0, 2]) * cz + float(pi[0, 3]) * cw,
-        float(pi[1, 0]) * cx + float(pi[1, 1]) * cy + float(pi[1, 2]) * cz + float(pi[1, 3]) * cw,
-        vz], -1)
-    n_world = gb.normal
-    n = normalize(rotate_t(cam.camera_matrix_world, n_world))
-    v = -normalize(view_pos)
-    nov = torch.clamp(dot(n, v), min=EPS)
-    t_w, b_w = onb(n_world)
-    v_world = rotate_t(cam.view_matrix, v)
-    v_loc = torch.stack([dot(v_world, t_w), dot(v_world, b_w), dot(v_world, n_world)], -1)
-    f0 = mix(torch.full_like(albedo, 0.04), albedo, metal[..., None])
-    r1, r2, r3, r4 = blue_noise(h, w, frame, dev).unbind(-1)
-    hl = ggx_vndf(v_loc, r_sq, r1, r2)
-    hl = torch.where(hl[..., 2:3] < 0.0, -hl, hl)
-    i = -v_loc
-    l_loc = normalize(i - 2.0 * dot(hl, i)[..., None] * hl)
-    l_world = l_loc[..., 0:1] * t_w + l_loc[..., 1:2] * b_w + l_loc[..., 2:3] * n_world
-    l_view = normalize(rotate_t(cam.camera_matrix_world, l_world))
-    voh = _angles(l_view, v, n)[3]
-    fres = f0 + (1.0 - f0) * ((1.0 - voh) ** 5.0)[..., None]
-    diff_w = torch.clamp((1.0 - metal) * luminance(albedo), min=EPS)
-    spec_w = torch.clamp(luminance(fres), min=EPS)
-    is_diffuse = r3 < diff_w * (1.0 / (diff_w + spec_w))
+    cam, env = ctx.cam, ctx.env
+    s = sample(ctx, ssr=False)
+    r1, r2 = s["r1"], s["r2"]
     # environment importance sample, the exact inverse-CDF chain
     # (`ssgi_utils.frag:210-225`)
     eh, ew = env.mips[0].shape[0], env.mips[0].shape[1]
@@ -180,59 +132,19 @@ def step(rec):
     env_pdf = (ew * eh) * (luminance(bilinear(env.mips[0].float(), env_uv))
                            / float(env.total_sum))
     env_dir = normalize(rotate_t(cam.camera_matrix_world, _equirect_dir(env_uv)))
-    prob = torch.clamp(dot(env_dir, n) * rough, max=1.0 - EPS)
-    is_env = r4 < prob
-    ems_pdf = torch.clamp(torch.where(is_env, env_pdf / torch.clamp(1.0 - prob, min=EPS),
-                                      1.0 - prob), min=EPS)
-    cos_hemi = cosine_hemisphere(n, torch.stack([r1, r2], -1))
-    rays = [torch.where(is_env[..., None], env_dir, l_view),
-            torch.where(is_env[..., None], env_dir, cos_hemi)]
+    rays = choose_rays(s, env_pdf, env_dir)
     acc = half(state["composed"][..., :3])
     vel = ctx.velocity.velocity
-    sat_mx, sat_mn = albedo.max(-1).values, albedo.min(-1).values
-    sat = torch.where(sat_mx == sat_mn, 0.0, (sat_mx - sat_mn) / torch.clamp(sat_mx, min=EPS))
-    desat = (1.0 - rough) * sat * 0.4
     out = []
     for l in rays:
-        c_uv, pos, missed = _march(view_pos, l, depth, cam, r3, u["thickness"],
+        c_uv, pos, missed = _march(s["view_pos"], l, s["depth"], cam, s["r3"], u["thickness"],
                                    u["ray_distance"], int(cfg.steps), int(cfg.refine_steps))
-        nol, noh, loh, _ = _angles(l, v, n)
-        cos_t = torch.clamp(dot(n, l), min=0.0)
-        fd90 = 0.5 + 2.0 * r_sq * loh ** 2.0
-        f_l = 1.0 + (fd90 - 1.0) * (1.0 - nol) ** 5.0
-        f_v = 1.0 + (fd90 - 1.0) * (1.0 - nov) ** 5.0
-        d_brdf = (f_l * f_v / math.pi) * (1.0 - metal)
-        g = _smith_g(nov, ((0.5 + r_sq * 0.5) ** 2.0) ** 2.0) * \
-            _smith_g(nol, ((0.5 + r_sq * 0.5) ** 2.0) ** 2.0)
-        s_brdf = _d_gtr(r_sq, noh) * g / (4.0 * nol * nov)
-        s_pdf = _d_gtr(r_sq, noh) * _smith_g(nov, r_sq * r_sq) / torch.clamp(4.0 * nov, min=1e-5)
-        bsdf = torch.where(is_diffuse, d_brdf, s_brdf) * cos_t
-        pdf = torch.clamp(torch.where(is_diffuse, nol / math.pi, s_pdf), min=EPS)
-        env_c = _env_color(env, l, cam, rough, is_diffuse, is_env, u["env_blur"])
+        env_c = _env_color(env, l, cam, s["rough"], s["is_diffuse"], s["is_env"],
+                           u["env_blur"])
         # the velocity at the hit (NearestFilter), then the previous
         # frame's composition there (a float16 LinearFilter target)
         r_uv = c_uv - _nearest(vel, c_uv)
         inside = ((r_uv[..., 0] >= 0.0) & (r_uv[..., 0] <= 1.0)
                   & (r_uv[..., 1] >= 0.0) & (r_uv[..., 1] <= 1.0))
-        reproj = bilinear(acc, r_uv)
-        reproj = mix(reproj, luminance(reproj)[..., None], desat[..., None])
-        bf = (_smoothstep(0.0, 0.15, c_uv[..., 0]) * _smoothstep(1.0, 0.85, c_uv[..., 0])
-              * _smoothstep(0.0, 0.15, c_uv[..., 1]) * _smoothstep(1.0, 0.85, c_uv[..., 1]))
-        bf = torch.sqrt(torch.clamp(bf, min=0.0))
-        radiance = torch.where(inside[..., None], mix(env_c, reproj, bf[..., None]), env_c)
-        val = torch.where(missed[..., None], env_c, radiance) * bsdf[..., None]
-        mis = ems_pdf * ems_pdf / (ems_pdf * ems_pdf + pdf * pdf)
-        val = val * (torch.where(is_env, mis, 1.0 / pdf) / ems_pdf)[..., None]
-        out.append((val, pos))
-    (spec, s_pos), (diff, _) = out
-    diff = torch.where(is_diffuse[..., None], diff + color, -1.0)
-    spec = spec + color
-    hit_ws = point(cam.camera_matrix_world, s_pos)
-    cam_pos = torch.as_tensor(cam.position, device=dev)
-    ray_len = torch.where(s_pos[..., 0] > 1.0e8, 0.0,
-                          torch.linalg.vector_norm(hit_ws - cam_pos, dim=-1))
-    bg = (depth >= 1.0)[..., None]
-    back = torch.cat([color, torch.zeros_like(depth)[..., None]], -1)
-    g_diffuse = torch.where(bg, back, torch.cat([diff, rough[..., None]], -1))
-    g_specular = torch.where(bg, back, torch.cat([spec, ray_len[..., None]], -1))
-    return g_diffuse, {"specular": g_specular}
+        out.append((shade(s, l, c_uv, missed, env_c, bilinear(acc, r_uv), inside), pos))
+    return pack(s, color, cam, out)

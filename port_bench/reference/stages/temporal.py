@@ -4,7 +4,7 @@ colour, AABB clamp, the three disocclusion distances, the specular hit
 point, the 5-tap Catmull-Rom history), as the JAX package's
 ``ops/temporal_reproject.py`` states them, with its window: a history
 fetch displaced more than +-8 rows or +-30 columns is a disocclusion.
-Shared by TRAA and SSGI."""
+Shared by TRAA, SSGI and SSR."""
 
 from __future__ import annotations
 
@@ -53,10 +53,14 @@ def _minmax(tex, center, radius: int):
 
 def reproject(inputs, history, vel, last_vel, cam, prev_cam, *, log, specular,
               power, input_type, max_blend, clamp_intensity, full_accumulate,
-              keep_data):
+              keep_data, roughness=None):
     """One step over the texture slots ``inputs`` (each (H, W, 4)) with
     their ``history``; ``specular[i]`` reprojects slot i by its hit point.
-    Returns the new (H, W, 4) textures (alpha: the sample count)."""
+    ``input_type`` (`temporal_reproject.frag:167-176`): "diffuse_specular"
+    (SSGI: the ray length in the second slot's alpha, the roughness in
+    the first's), "specular" (SSR: the ray length in the one slot's
+    alpha, the G-buffer's ``roughness``) or "diffuse" (TRAA). Returns the
+    new (H, W, 4) textures (alpha: the sample count)."""
     fwd = (lambda c: torch.log(c + 1.0)) if log else (lambda c: c)
     inv = (lambda c: torch.exp(c) - 1.0) if log else (lambda c: c)
     depth, normal, v = vel.depth, vel.normal, vel.velocity
@@ -67,6 +71,9 @@ def reproject(inputs, history, vel, last_vel, cam, prev_cam, *, log, specular,
     if input_type == "diffuse_specular":
         ray_len = inputs[1][..., 3]
         rough = torch.clamp(inputs[0][..., 3], 0.0, 1.0)
+    elif input_type == "specular":
+        ray_len = inputs[0][..., 3]
+        rough = torch.clamp(roughness, 0.0, 1.0)
     elif input_type == "diffuse":
         ray_len = torch.zeros_like(depth)
         rough = torch.ones_like(depth)

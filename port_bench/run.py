@@ -20,6 +20,11 @@ Untraced (``--trace 0``), the end-to-end metrics:
 - ``frame_ms_p95``: the 95th percentile of the intervals between the
   device-side completions of consecutive frames (a CUDA event recorded
   after each ``render`` returns, read after the closing barrier);
+- ``gpu_ms``: the card's busy time a frame, the sum of the device
+  operations' durations over the traffic file's ``profiled_frames``
+  frames, rendered under ``torch.profiler`` right after the window (in
+  the cells that list it: those the host paces, whose wall time a frame
+  follows the host's speed);
 - ``peak_mem_mib``: ``torch.cuda.max_memory_allocated()`` over set-up and
   the window, read before the window's last frames (while they run, the
   comparison holds on to the state before them; every frame allocates
@@ -138,6 +143,14 @@ def traced_phases(rig, cell, first: int, device) -> tuple:
         rig.render(f)
         enqueue.append((time.perf_counter() - t) * 1e3)
         f += 1
+    return enqueue, profiled(rig, cell, f, device)
+
+
+def profiled(rig, cell, first: int, device) -> trace.DeviceTrace:
+    """The traffic file's ``profiled_frames`` frames from frame ``first + 1``
+    under ``torch.profiler`` (frame ``first`` takes the profiler's own
+    start-up): their :class:`trace.DeviceTrace`."""
+    f = first
     _sync(device)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -146,7 +159,7 @@ def traced_phases(rig, cell, first: int, device) -> tuple:
         rig.render(f)
         f += 1
         _sync(device)
-    n = spec["profiled_frames"]
+    n = cell.traffic["trace"]["profiled_frames"]
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
         for _ in range(n):
@@ -154,7 +167,7 @@ def traced_phases(rig, cell, first: int, device) -> tuple:
             f += 1
         _sync(device)
         window_s = time.perf_counter() - t
-    return enqueue, trace.read(prof, n, window_s)
+    return trace.read(prof, n, window_s)
 
 
 def compare(cell, inputs, device, start_prog: dict, win: dict) -> dict:
@@ -216,6 +229,8 @@ def program_run(cell, seed: int, seconds: float, traced: bool, device) -> tuple:
     if traced:
         enqueue, dev_trace = traced_phases(rig, cell, win["last"] + 1, device)
         ctx = Traced(cell, win["wall_s"] * 1e3 / win["frames"], enqueue, dev_trace)
+    elif any(m["name"] == "gpu_ms" for m in cell.end_to_end):
+        win["profiled"] = profiled(rig, cell, win["last"] + 1, device)
     del rig, image
     gc.collect()
     if device.type == "cuda":
@@ -245,6 +260,9 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         if win["intervals_ms"]:
             e2e["frame_ms_p95"] = statistics.quantiles(
                 win["intervals_ms"], n=20, method="inclusive")[18]
+        gpu = win.get("profiled")
+        if gpu is not None and gpu.ops:
+            e2e["gpu_ms"] = gpu.busy_s * 1e3 / gpu.frames
         metrics = {k: {"value": e2e[k], "unit": m["unit"]} for k, m in names.items()
                    if k in e2e}
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)

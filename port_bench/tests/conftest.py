@@ -28,7 +28,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture
+@pytest.fixture(scope="session")
 def tiny():
     """``tiny(name)``: the manifest's cell ``name`` at 54 x 96 with 2
     warm-up frames and 2 synced and 2 profiled frames, for CPU runs."""

@@ -1,17 +1,25 @@
 """The harness's refusals and its readers: no card, no result; the
 modules no run may load, by whole top-level name; the per-layer readers
-on a made-up trace; each kernel's bytes and operations."""
+on a made-up trace; ``gpu_ms``; each kernel's bytes and operations; the
+stack SSR -> GTAO -> TAA, which no cell registers yet, built and run end
+to end."""
 
 import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
+import torch
 
 from port_bench import manifest, run, trace
+from port_bench.inputs import Inputs
 from port_bench.manifest import ROOT, load_manifest
+from port_bench.reference import port as ref_pkg
+from port_bench.rig import Rig
 from port_bench.roofline import least_s, matches
+from port_bench.tests.test_port_bench_stages import ssr_gtao_taa
 
 
 def test_no_card_no_result():
@@ -80,6 +88,12 @@ def test_readers_on_a_trace():
     assert read("device_idle_share") == pytest.approx(60.0)
     assert read("stage_busy_ms.hbao") == pytest.approx(0.03)
     assert read("stage_busy_ms.traa") is None
+    # the cell's own readers, beside its gpu_ms: the same arithmetic
+    assert read("frame_ms.host_paced") == pytest.approx(0.25)
+    assert read("stage_busy_ms.raster.gpu") == pytest.approx(0.05)
+    assert read("stage_busy_ms.hbao.gpu") == pytest.approx(0.03)
+    assert read("stage_busy_ms.traa.gpu") is None
+    assert read("kernel_roofline_share.gpu") is None
     # the table's kernels lookup_kernel, poisson_kernel, ... are not in
     # this profile: the share is not read
     assert read("kernel_roofline_share") is None
@@ -92,11 +106,15 @@ def test_readers_on_a_trace():
     full = run.Traced(cell, 0.25, [], trace.DeviceTrace(2, 0.001, ops, [], []))
     least = sum(e["count"] * least_s(*manifest.load_module("kernels", e["kernel"]).cost(
         e["params"])) for e in table)
-    assert cell.reader("kernel_roofline_share").read(full) == pytest.approx(
-        100 * least / (len(names) * 5e-6))
+    for name in ("kernel_roofline_share", "kernel_roofline_share.gpu"):
+        assert cell.reader(name).read(full) == pytest.approx(
+            100 * least / (len(names) * 5e-6))
+    # with nothing profiled, every reader but the window's wall time reads
+    # nothing, in this cell and in the others
     empty = run.Traced(cell, 0.25, [], trace.DeviceTrace(2, 0.0, [], [], []))
-    for m in cell.per_layer:
-        assert cell.reader(m["name"]).read(empty) is None, m["name"]
+    for m in load_manifest()["per_layer"]:
+        want = 0.25 if m["name"] == "frame_ms.host_paced" else None
+        assert cell.reader(m["name"]).read(empty) == want, m["name"]
 
 
 def test_kernel_names_match_whole():
@@ -120,6 +138,53 @@ def test_launch_tables(cell):
         {"h": 1080, "w": 1920, "c": 4, "mode": "catrom5"})
     px = 1080 * 1920
     assert (b, o) == (px * (16 + 8 + 8 + 16 + 1), px * (4 * 32 + 30))
+
+
+@pytest.mark.parametrize("side", ["program", "reference"])
+def test_a_rig_builds_ssr_gtao_taa(side, tiny):
+    """Each package builds the three effects from the configuration's
+    stack by their names."""
+    import realism_effects_tpu_torch as program
+
+    pkg = program if side == "program" else ref_pkg
+    c = ssr_gtao_taa(tiny("hbao_traa-1080p-orbit"))
+    rig = Rig(pkg, c, Inputs(c, 2 ** 31 + 5), torch.device("cpu"))
+    assert [type(e) for e in rig.comp.effects] == [pkg.SSREffect, pkg.GTAOEffect, pkg.TAAPass]
+    assert rig.state_names == ["__global__", "ssr", "gtao", "taa"]
+
+
+def test_a_tiny_run_of_ssr_gtao_taa_is_correct(tiny):
+    """The program's warm-up and window against the plain reference, on
+    the CPU at a tiny size: the start and last frames and the four new
+    stage numbers within their limits."""
+    torch.set_num_threads(1)
+    c = ssr_gtao_taa(tiny("hbao_traa-1080p-orbit"))
+    result = run.run_cell(c, 2 ** 32 + 29, 0.0, False, torch.device("cpu"),
+                          time.perf_counter())
+    checks = result["checks"]
+    assert result["correct"], checks
+    assert set(checks) == set(c.traffic["compare"]["limits"])
+    assert {f"stages.{s}_mean" for s in ("ssr_trace", "ssr", "gtao", "taa")} <= set(checks)
+
+
+def test_gpu_ms_is_the_profiled_frames_busy_time(tiny, monkeypatch):
+    """In a cell that lists ``gpu_ms``, an untraced run profiles the
+    traffic file's frames after the window and reports their device ms a
+    frame; ``frame_ms``, which that cell does not list, is not reported."""
+    torch.set_num_threads(1)
+    c = tiny("hbao_traa-1080p-orbit")
+    calls = []
+
+    def fake(rig, cell, first, device):
+        calls.append(first)
+        return trace.DeviceTrace(2, 0.001, [("k", 0.0, 1500.0), ("m", 2000.0, 500.0)], [], [])
+    monkeypatch.setattr(run, "profiled", fake)
+    result = run.run_cell(c, 2 ** 32 + 31, 0.0, False, torch.device("cpu"),
+                          time.perf_counter())
+    assert result["correct"], result["checks"]
+    assert len(calls) == 1 and calls[0] > c.traffic["warmup_frames"]
+    assert set(result["metrics"]) == {"gpu_ms", "peak_mem_mib", "setup_s"}
+    assert result["metrics"]["gpu_ms"] == {"value": pytest.approx(1.0), "unit": "ms/frame"}
 
 
 @pytest.mark.card
