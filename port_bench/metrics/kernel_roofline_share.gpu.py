@@ -1,5 +1,6 @@
-"""``kernel_roofline_share`` in the cells that report ``gpu_ms``: the
-same reader over the same table and profile."""
+"""``kernel_roofline_share`` as the entry that moves ``gpu_ms`` (the
+cells the host paces list it): the same reader over the same table and
+profile."""
 
 from port_bench.manifest import load_module
 

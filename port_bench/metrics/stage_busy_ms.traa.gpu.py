@@ -1,6 +1,6 @@
 """Device ms a frame of the operations that start inside the composer's
-``stage:traa`` range (``trace.stage_busy_ms``), in the cells that report
-``gpu_ms``."""
+``stage:traa`` range (``trace.stage_busy_ms``), as the entry that moves
+``gpu_ms`` (the cells the host paces list it)."""
 
 from port_bench.trace import stage_busy_ms
 

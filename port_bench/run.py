@@ -23,8 +23,9 @@ Untraced (``--trace 0``), the end-to-end metrics:
 - ``gpu_ms``: the card's busy time a frame, the sum of the device
   operations' durations over the traffic file's ``profiled_frames``
   frames, rendered under ``torch.profiler`` right after the window (in
-  the cells that list it: those the host paces, whose wall time a frame
-  follows the host's speed);
+  every cell: the device time of a cell the host paces, whose wall time
+  a frame follows the host's speed, and beside ``frame_ms`` elsewhere);
+  the seconds this phase takes, ``trace.read`` included, go to stderr;
 - ``peak_mem_mib``: ``torch.cuda.max_memory_allocated()`` over set-up and
   the window, read before the window's last frames (while they run, the
   comparison holds on to the state before them; every frame allocates
@@ -230,7 +231,10 @@ def program_run(cell, seed: int, seconds: float, traced: bool, device) -> tuple:
         enqueue, dev_trace = traced_phases(rig, cell, win["last"] + 1, device)
         ctx = Traced(cell, win["wall_s"] * 1e3 / win["frames"], enqueue, dev_trace)
     elif any(m["name"] == "gpu_ms" for m in cell.end_to_end):
+        t = time.perf_counter()
         win["profiled"] = profiled(rig, cell, win["last"] + 1, device)
+        print(f"[profiled] {time.perf_counter() - t:.3f} s after the window",
+              file=sys.stderr)
     del rig, image
     gc.collect()
     if device.type == "cuda":

@@ -167,12 +167,17 @@ def test_a_tiny_run_of_ssr_gtao_taa_is_correct(tiny):
     assert {f"stages.{s}_mean" for s in ("ssr_trace", "ssr", "gtao", "taa")} <= set(checks)
 
 
-def test_gpu_ms_is_the_profiled_frames_busy_time(tiny, monkeypatch):
-    """In a cell that lists ``gpu_ms``, an untraced run profiles the
-    traffic file's frames after the window and reports their device ms a
-    frame; ``frame_ms``, which that cell does not list, is not reported."""
+@pytest.mark.parametrize("name,reported", [
+    ("hbao_traa-1080p-orbit", {"gpu_ms", "peak_mem_mib", "setup_s"}),
+    ("flagship-1080p-orbit", {"frame_ms", "gpu_ms", "peak_mem_mib", "setup_s"})])
+def test_gpu_ms_is_the_profiled_frames_busy_time(name, reported, tiny, monkeypatch):
+    """Every cell reports ``gpu_ms``: an untraced run profiles the traffic
+    file's frames once, after the window, and reports their device ms a
+    frame. ``frame_ms`` is reported beside it where the cell lists it (the
+    flagship's, not HBAO + TRAA's); on the CPU no CUDA event times a
+    frame, so ``frame_ms_p95`` is not."""
     torch.set_num_threads(1)
-    c = tiny("hbao_traa-1080p-orbit")
+    c = tiny(name)
     calls = []
 
     def fake(rig, cell, first, device):
@@ -183,7 +188,7 @@ def test_gpu_ms_is_the_profiled_frames_busy_time(tiny, monkeypatch):
                           time.perf_counter())
     assert result["correct"], result["checks"]
     assert len(calls) == 1 and calls[0] > c.traffic["warmup_frames"]
-    assert set(result["metrics"]) == {"gpu_ms", "peak_mem_mib", "setup_s"}
+    assert set(result["metrics"]) == reported
     assert result["metrics"]["gpu_ms"] == {"value": pytest.approx(1.0), "unit": "ms/frame"}
 
 

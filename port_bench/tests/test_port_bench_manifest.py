@@ -46,12 +46,16 @@ def test_cell_resolves(cell):
     assert c.traffic["kernel_launches"], "the roofline's launch table"
     compare = c.traffic["compare"]
     assert compare["frames"] >= 2, "the replay steps the temporal state more than once"
-    # every stage of the stack that has an independent reference is compared
+    # every stage of the stack that has an independent reference is
+    # compared: the raster, each effect by its name, and a tracing
+    # effect's trace as ``<name>_trace`` (``check.Recorder``'s rule)
     from port_bench.check import stage_module
-    stages = ["raster"] + [e["effect"] for e in c.config["stack"]]
-    names = {"SSGIEffect": ["ssgi", "ssgi_trace"], "HBAOEffect": ["hbao"],
-             "MotionBlurEffect": ["motion_blur"], "TRAAEffect": ["traa"], "raster": ["raster"]}
-    for stage in (n for s in stages for n in names[s]):
+    from port_bench.reference import port as ref_pkg
+    stages = ["raster"]
+    for e in c.config["stack"]:
+        effect = getattr(ref_pkg, e["effect"])(**e.get("options", {}))
+        stages += [effect.name] + ([f"{effect.name}_trace"] if hasattr(effect, "trace") else [])
+    for stage in stages:
         assert stage_module(stage) is not None, stage
         assert any(k.startswith(f"stages.{stage}_") for k in compare["limits"]), stage
 
@@ -78,12 +82,19 @@ def test_metric_fields(metric):
         assert "\n" not in metric["layer"] and 1 <= len(metric["layer"]) <= 200
 
 
+def _cells_missing_what_it_moves(m: dict, metric: dict) -> list:
+    """The cells in which manifest ``m`` reads the per-layer ``metric``
+    that are not cells of ``m`` or do not report the end-to-end metric it
+    moves."""
+    cells = [w["name"] for w in m["workloads"]]
+    moved = next(e for e in m["end_to_end"] if e["name"] == metric["moves"])
+    return [cell for cell in metric.get("workloads", cells)
+            if cell not in cells or not manifest._reports(moved, cell)]
+
+
 @pytest.mark.parametrize("metric", MANIFEST["per_layer"], ids=lambda m: m["name"])
 def test_per_layer_cells_report_what_it_moves(metric):
-    moved = next(m for m in MANIFEST["end_to_end"] if m["name"] == metric["moves"])
-    for cell in metric.get("workloads", CELLS):
-        assert cell in CELLS
-        assert "workloads" not in moved or cell in moved["workloads"], (metric, cell)
+    assert _cells_missing_what_it_moves(MANIFEST, metric) == [], metric
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -91,6 +102,7 @@ def test_every_cell_reports_enough(cell):
     c = resolve(cell)
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2
+    assert "gpu_ms" in names, "every cell's device time, with no list to edit"
     assert c.per_layer
 
 
@@ -105,7 +117,9 @@ def test_configs_used_and_files_distinct():
 def test_a_new_cell_is_new_files_only(tmp_path):
     """A throwaway configuration, traffic mix, per-layer metric and
     kernel, written under ``tmp_path`` beside copies of the benchmark's
-    own files, resolve by name with no edit to any existing file."""
+    own files, resolve by name with no edit to any existing file or
+    entry; the cell reports a timing, ``gpu_ms``, which its per-layer
+    metric moves."""
     base = tmp_path / "port_bench"
     shutil.copytree(HERE, base, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     (base / "configs" / "tiny_stack.json").write_text(json.dumps(dict(
@@ -127,8 +141,11 @@ def test_a_new_cell_is_new_files_only(tmp_path):
         "chips": 1, "why": "a test"}]
     m["per_layer"] = MANIFEST["per_layer"] + [{
         "name": "toy_metric", "unit": "ms", "better": "lower", "source": "host_clock",
-        "layer": "toy", "moves": "frame_ms", "workloads": ["tiny-orbit"]}]
+        "layer": "toy", "moves": "gpu_ms", "workloads": ["tiny-orbit"]}]
     cell = resolve("tiny-orbit", manifest=m, root=tmp_path, base=base)
+    assert {e["name"] for e in cell.end_to_end} == {"gpu_ms", "peak_mem_mib", "setup_s"}
+    for metric in m["per_layer"]:
+        assert _cells_missing_what_it_moves(m, metric) == [], metric
     assert [e["effect"] for e in cell.config["stack"]] == ["TRAAEffect"]
     assert [p["name"] for p in cell.per_layer] == ["toy_metric"]
     assert cell.reader("toy_metric").read(None) == 1.0
